@@ -1,0 +1,117 @@
+"""The port's CUDA kernels against their plain torch versions, at edge
+shapes the main path does not reach (ragged tiles, kv_len < Tk, Tq != Tk,
+strided views, every layer offset, 128 mels), plus a small end-to-end decode
+with the kernels on and off.
+
+These need an NVIDIA GPU and nvcc: they carry the ``cuda`` marker and skip
+elsewhere. On a machine with the card (no JAX needed):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from whisper_context_biasing_tpu_torch import ops
+from whisper_context_biasing_tpu_torch.audio.mel import log_mel_tail
+from whisper_context_biasing_tpu_torch.decode import greedy_decode, pack_prefixes
+from whisper_context_biasing_tpu_torch.models import build_model, tiny_test_config
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(rng, shape, dev, dtype=torch.float32):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("n_samples,n_mels", [(3217, 80), (48000, 128)])
+def test_mel_kernel(dev, n_samples, n_mels):
+    rng = np.random.default_rng(0)
+    t = np.arange(n_samples) / 16000.0
+    audio = 0.5 * np.sin(2 * np.pi * 440 * t) + 0.05 * rng.standard_normal((3, n_samples))
+    x = torch.from_numpy(audio.astype(np.float32)).to(dev)
+    ops.reset_launch_counts()
+    kern = ops.mel_energies(x, n_mels)
+    assert ops.launches["mel"] == 1
+    plain = ops.mel_energies_plain(x, n_mels)
+    assert kern.shape == (3, n_samples // 160, n_mels)
+    torch.testing.assert_close(log_mel_tail(kern), log_mel_tail(plain), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("tq,tk,kv_len", [(100, 100, 100), (100, 100, 77), (40, 300, 300),
+                                          (129, 65, 1)])
+def test_flash_kernel(dev, dtype, atol, tq, tk, kv_len):
+    rng = np.random.default_rng(tq + tk + kv_len)
+    q = _rand(rng, (2, tq, 3, 64), dev, dtype)
+    k, v = _rand(rng, (2, tk, 3, 64), dev, dtype), _rand(rng, (2, tk, 3, 64), dev, dtype)
+    o, lse = ops.flash_attention_fwd(q, k, v, kv_len)
+    po, plse = ops.flash_attention_fwd_plain(q, k, v, kv_len)
+    torch.testing.assert_close(o.float(), po.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=0)
+
+
+def test_flash_kernel_reads_merged_heads_in_place(dev):
+    rng = np.random.default_rng(1)
+    qkv = _rand(rng, (2, 70, 3 * 128), dev)  # q | k | v side by side, 2 heads each
+    q, k, v = qkv[..., :128], qkv[..., 128:256], qkv[..., 256:]  # strided views
+    got = ops.flash_attention(q, k, v, 2)
+    want, _ = ops.flash_attention_fwd_plain(*(x.reshape(2, 70, 2, 64) for x in (q, k, v)))
+    torch.testing.assert_close(got, want.reshape(2, 70, 128), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_quant_cross_kernel_every_layer(dev, dtype, atol):
+    rng = np.random.default_rng(2)
+    shape = (3, 2, 192, 128)
+    k_q = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).to(dev)
+    v_q = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).to(dev)
+    sc = rng.uniform(0.005, 0.05, (2, 3, 2, 1, 192)).astype(np.float32)
+    sc[..., 150:] = 0.0
+    k_s, v_s = (torch.from_numpy(s).to(dev) for s in sc)
+    q = _rand(rng, (2, 1, 128), dev, dtype)
+    for layer in range(3):
+        got = ops.quant_cross_attention_step_indexed(q, k_q, k_s, v_q, v_s, layer, 2)
+        want = ops.quant_cross_attention_step_indexed_plain(q, k_q, k_s, v_q, v_s, layer, 2)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((1, 10, 1, 32), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention_fwd(x, x, x)
+    kq = torch.zeros((2, 1, 128, 64), dtype=torch.int8, device=dev)
+    ks = torch.ones((2, 1, 1, 128), device=dev)
+    q = torch.zeros((1, 1, 64), device=dev)
+    with pytest.raises(ValueError, match="layer"):
+        ops.quant_cross_attention_step_indexed(q, kq, ks, kq, ks, 2, 1)
+    with pytest.raises(ValueError, match="float32"):
+        ops.mel_energies(torch.zeros((1, 3200), dtype=torch.float64, device=dev))
+
+
+def test_greedy_decode_kernels_match_plain(dev):
+    """A one-head tiny model (head dim 64, as the kernels take): the same
+    greedy decode with every kernel, and with the plain versions, in f32."""
+    kernels = dict(flash_attention=True, quantize_cross_kv=True, fused_quant_cross=True)
+    plain = dict(kernels, flash_attention=False, fused_quant_cross=False)
+    mel = np.random.default_rng(3).standard_normal((2, 80, 128)).astype(np.float32)
+    ids, mask = pack_prefixes([[50360, 40, 41, 50257], [50257]], 50256)
+    out = []
+    for over in (kernels, plain):
+        model = build_model(tiny_test_config(n_heads=1, **over), seed=0, device=dev)
+        ops.reset_launch_counts()
+        res = greedy_decode(model, mel, ids, mask, max_new=6, device=dev)
+        out.append((res.tokens.cpu(), dict(ops.launches)))
+    assert torch.equal(out[0][0], out[1][0])
+    assert out[0][1]["flash_attention"] == 2 and out[0][1]["quant_cross_attention"] > 0
+    assert not out[1][1]

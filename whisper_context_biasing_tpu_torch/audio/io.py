@@ -1,0 +1,67 @@
+"""Host-side audio loading.
+
+The same contract as the JAX package's ``audio/io.py``: decode -> mono
+downmix (channel mean) -> resample to 16 kHz -> float32 in [-1, 1]. WAV is
+parsed with the standard library and resampled by polyphase filtering
+(scipy). Compressed formats (the JAX package's ``EXTRA_DECODERS`` and mp3)
+and the native (C++) WAV path are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import wave
+
+import numpy as np
+from scipy.signal import resample_poly
+
+
+def pcm_to_float32(audio: np.ndarray) -> np.ndarray:
+    """Normalize raw int16 PCM to the float32 [-1, 1] ingest contract
+    (i16/32768). Float input passes through as float32."""
+    audio = np.asarray(audio)
+    if audio.dtype == np.int16:
+        return audio.astype(np.float32) / 32768.0
+    return np.asarray(audio, np.float32)
+
+
+def _load_wav(path: str) -> tuple[np.ndarray, int]:
+    with wave.open(path, "rb") as w:
+        sr = w.getframerate()
+        n_channels = w.getnchannels()
+        sampwidth = w.getsampwidth()
+        raw = w.readframes(w.getnframes())
+    if sampwidth == 2:
+        data = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+    elif sampwidth == 4:
+        data = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
+    elif sampwidth == 1:
+        data = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
+    else:
+        raise ValueError(f"unsupported WAV sample width: {sampwidth} bytes ({path})")
+    if n_channels > 1:
+        data = data.reshape(-1, n_channels).T  # (channels, n)
+    return data, sr
+
+
+def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    if orig_sr == target_sr:
+        return audio
+    from math import gcd
+
+    g = gcd(orig_sr, target_sr)
+    return resample_poly(audio, target_sr // g, orig_sr // g, axis=-1).astype(np.float32)
+
+
+def load_audio(path: str, sample_rate: int = 16000) -> np.ndarray:
+    """Load a WAV file -> mono float32 at ``sample_rate`` (stereo is
+    downmixed by channel mean)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in (".wav", ".wave"):
+        raise NotImplementedError(
+            f"decoding '{ext}' files is not ported yet (ROADMAP Queue A.1, mp3.py)")
+    data, sr = _load_wav(path)
+    data = np.asarray(data, dtype=np.float32)
+    if data.ndim > 1:
+        data = data.mean(axis=0)
+    return resample(data, sr, sample_rate)

@@ -1,0 +1,250 @@
+"""Batched greedy decoding over a preallocated KV cache.
+
+The counterpart of the JAX package's ``decode/greedy.py``: encode, precompute
+(and optionally int8-quantize) the cross-attention K/V, prefill the
+left-padded prefix (``<|startofprev|> ctx... <|sot|>``) into the cache, then
+one cached decoder step per token with the bias-trie bonus, greedy argmax and
+a stop at <|endoftext|>. JAX runs the loop as one ``while_loop`` program;
+here it is a Python loop whose ``finished.all()`` check syncs with the host
+once per step. The cache has a static shape and is written in place.
+
+Temperature sampling, timestamp rules and ``no_speech_prob`` are not ported
+yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..models.whisper import (
+    Whisper,
+    decode_tokens,
+    encode_audio,
+    init_kv_cache,
+    precompute_cross_kv,
+    quantize_cross_kv,
+)
+from .bias_processor import (
+    advance_bias_state,
+    bias_bonus,
+    init_bias_state,
+    sanitize_bias_spans,
+    seed_bias_state_from_prefix,
+)
+
+
+class GreedyResult(NamedTuple):
+    tokens: torch.Tensor       # (B, max_new) int32, eot-padded after finish
+    lengths: torch.Tensor      # (B,) int32 — tokens before (excl.) eot
+    sum_logprob: torch.Tensor  # (B,) f32 — summed logprob of the emitted tokens
+                               # (incl. the finishing eot)
+    margins: torch.Tensor | None = None  # (B, max_new) f32 — top-1 minus top-2
+                               # logit at each pick (return_margins=True)
+
+
+def pack_prefixes(
+    prefixes: list[list[int]], pad_id: int, pad_to_multiple: int | None = None
+) -> tuple[np.ndarray, np.ndarray]:
+    """Left-pad variable-length decoder prefixes to a common length.
+    Returns (ids (B, P), mask (B, P)); mask False marks pads.
+    ``pad_to_multiple`` buckets the length."""
+    p = max(len(x) for x in prefixes)
+    if pad_to_multiple:
+        p = ((p + pad_to_multiple - 1) // pad_to_multiple) * pad_to_multiple
+    ids = np.full((len(prefixes), p), pad_id, dtype=np.int32)
+    mask = np.zeros((len(prefixes), p), dtype=bool)
+    for i, x in enumerate(prefixes):
+        ids[i, p - len(x):] = x
+        mask[i, p - len(x):] = True
+    return ids, mask
+
+
+class Clock:
+    """Named time marks: CUDA events on a card, the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: dict = {}
+
+    def mark(self, name: str) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks[name] = ev
+        else:
+            self.marks[name] = time.perf_counter()
+
+    def ms(self, a: str, b: str) -> float:
+        if self.cuda:
+            self.marks[b].synchronize()
+            return self.marks[a].elapsed_time(self.marks[b])
+        return (self.marks[b] - self.marks[a]) * 1e3
+
+
+def _as_tensor(x, device, dtype=None):
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype or x.dtype)
+    return torch.as_tensor(np.asarray(x), device=device, dtype=dtype)
+
+
+@torch.no_grad()
+def greedy_decode(
+    model: Whisper,
+    input_features,              # (B, n_mels, 2*n_audio_ctx) f32
+    prefix_ids,                  # (B, P) int, left-padded
+    prefix_mask,                 # (B, P) bool
+    max_new: int = 224,
+    eot_id: int = 50256,
+    bias_spans=None,             # (B, N, K) int32 or None
+    bias_boost: float = 0.0,
+    span_pad_id: int = 50256,
+    forced_eot_at=None,          # (B,) int — generation index >= it emits eot
+    temperature: float = 0.0,
+    no_speech_id: int | None = None,
+    timestamp_begin: int | None = None,
+    device="cuda",
+    timings: dict | None = None,  # filled with encode_ms, prefill_ms,
+                                  # decode_ms and steps when given
+    return_margins: bool = False,
+) -> GreedyResult:
+    """Batched greedy decode. The prefix must end with the token the model
+    should continue from (``[<|sot|>]``, or ``[<|sop|>, ctx..., <|sot|>]``
+    for prompted decode). Returns tokens, lengths and summed logprobs."""
+    if temperature > 0.0:
+        raise NotImplementedError("temperature sampling is not ported yet "
+                                  "(ROADMAP Queue A.6, long-form fallbacks)")
+    if no_speech_id is not None:
+        raise NotImplementedError("no_speech_prob is not ported yet (ROADMAP Queue A.6)")
+    if timestamp_begin is not None:
+        raise NotImplementedError("timestamp rules are not ported yet (ROADMAP Queue A.6)")
+    device = resolve_device(device)
+    if next(model.parameters()).device != device:
+        raise ValueError(f"model is on {next(model.parameters()).device}, decode asked for {device}")
+    cfg = model.cfg
+    feats = _as_tensor(input_features, device, torch.float32)
+    ids = _as_tensor(prefix_ids, device, torch.int64)
+    mask = _as_tensor(prefix_mask, device, torch.bool)
+    b, p = ids.shape
+    # prompt + new tokens share the n_text_ctx window
+    max_new = min(max_new, cfg.n_text_ctx - p)
+    if max_new < 1:
+        raise ValueError(f"prefix length {p} leaves no room to generate "
+                         f"(n_text_ctx {cfg.n_text_ctx})")
+    clock = Clock(device) if timings is not None else None
+    if clock:
+        clock.mark("start")
+
+    enc_out = encode_audio(model, feats)
+    if clock:
+        clock.mark("encoded")
+    cross_kv = precompute_cross_kv(model, enc_out)
+    if cfg.quantize_cross_kv:
+        cross_kv = quantize_cross_kv(cross_kv)
+    cache = init_kv_cache(cfg, b, p + max_new, device)
+
+    # positions: pads don't advance the position counter (left-pad support)
+    prefix_pos = torch.clamp(torch.cumsum(mask.to(torch.int64), dim=1) - 1, min=0)
+    key_mask = torch.cat([mask, torch.ones((b, max_new), dtype=torch.bool, device=device)], 1)
+    logits, cache = decode_tokens(model, ids, cross_kv=cross_kv, cache=cache, pos_offset=0,
+                                  token_positions=prefix_pos, self_mask=key_mask)
+    pos = prefix_pos[:, -1] + 1  # (B,)
+
+    use_bias = bias_spans is not None and bias_boost != 0.0
+    spans = (torch.zeros((b, 1, 1), dtype=torch.int32, device=device) if bias_spans is None
+             else _as_tensor(bias_spans, device, torch.int32))
+    bias_state = init_bias_state(spans, span_pad_id)
+    if use_bias:
+        # the conditioning context may end mid-bias-word: warm-start the trie
+        bias_state = seed_bias_state_from_prefix(bias_state, spans, ids, mask)
+    forced_at = None if forced_eot_at is None else _as_tensor(forced_eot_at, device, torch.int64)
+
+    margins = (torch.zeros((b, max_new), dtype=torch.float32, device=device)
+               if return_margins else None)
+
+    def pick(lg, state, t):
+        lg = lg.float()
+        if use_bias:
+            lg = lg + bias_bonus(state, spans, cfg.n_vocab, bias_boost)
+        nxt = torch.argmax(lg, dim=-1)
+        logp = torch.log_softmax(lg, dim=-1).gather(1, nxt[:, None])[:, 0]
+        if margins is not None:
+            top2 = lg.topk(2, dim=-1).values
+            margins[:, t] = top2[:, 0] - top2[:, 1]
+        return nxt, logp
+
+    cur, sum_lp = pick(logits[:, -1], bias_state, 0)
+    if forced_at is not None:
+        # the cap overrides the model's pick and its logprob doesn't count
+        forced0 = forced_at <= 0
+        cur = torch.where(forced0, eot_id, cur)
+        sum_lp = torch.where(forced0, 0.0, sum_lp)
+    out = torch.full((b, max_new), eot_id, dtype=torch.int64, device=device)
+    out[:, 0] = cur
+    finished = cur == eot_id
+    if use_bias:
+        bias_state = advance_bias_state(bias_state, spans, cur)
+    if clock:
+        clock.mark("prefilled")
+
+    t = 1
+    while t < max_new and not bool(finished.all()):
+        lg, cache = decode_tokens(model, cur[:, None], cross_kv=cross_kv, cache=cache,
+                                  pos_offset=p - 1 + t, token_positions=pos[:, None],
+                                  self_mask=key_mask)
+        nxt, lp = pick(lg[:, -1], bias_state, t)
+        if forced_at is not None:
+            forced = t >= forced_at
+            nxt = torch.where(forced, eot_id, nxt)
+            lp = torch.where(forced, 0.0, lp)
+        nxt = torch.where(finished, eot_id, nxt)
+        sum_lp = sum_lp + torch.where(finished, 0.0, lp)
+        out[:, t] = nxt
+        finished = finished | (nxt == eot_id)
+        if use_bias:
+            bias_state = advance_bias_state(bias_state, spans, nxt)
+        cur, pos, t = nxt, pos + 1, t + 1
+
+    lengths = torch.cumprod((out != eot_id).to(torch.int32), dim=1).sum(dim=1)
+    if clock:
+        clock.mark("done")
+        timings.update(encode_ms=clock.ms("start", "encoded"),
+                       prefill_ms=clock.ms("encoded", "prefilled"),
+                       decode_ms=clock.ms("prefilled", "done"), steps=t - 1)
+    return GreedyResult(out.to(torch.int32), lengths.to(torch.int32), sum_lp, margins)
+
+
+def decode_batch(
+    model: Whisper,
+    tokenizer,
+    input_features,
+    contexts: list[list[int]] | None = None,
+    max_new: int = 224,
+    bias_spans=None,
+    bias_boost: float = 0.0,
+    pad_to_multiple: int | None = None,
+    device="cuda",
+    timings: dict | None = None,
+) -> list[list[int]]:
+    """Host-side convenience: build prefixes (``[<|sot|>]`` start, with
+    ``<|sop|> + context`` conditioning where a row has a context), run the
+    greedy loop, and strip to finished token lists (without the prefix)."""
+    b = input_features.shape[0]
+    start = [tokenizer.sot]
+    if contexts is None:
+        prefixes = [start] * b
+    else:
+        # an empty per-row context means "unprompted" for that row
+        prefixes = [([tokenizer.sop] + list(c) + start) if c else start for c in contexts]
+    ids, mask = pack_prefixes(prefixes, tokenizer.eot, pad_to_multiple=pad_to_multiple)
+    res = greedy_decode(
+        model, input_features, ids, mask, max_new=max_new, eot_id=tokenizer.eot,
+        bias_spans=sanitize_bias_spans(bias_spans), bias_boost=bias_boost,
+        span_pad_id=tokenizer.eot, device=device, timings=timings)
+    toks = res.tokens.cpu().numpy()
+    lens = res.lengths.cpu().numpy()
+    return [toks[i, : lens[i]].tolist() for i in range(b)]

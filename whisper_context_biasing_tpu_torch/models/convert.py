@@ -1,0 +1,110 @@
+"""Weights for the port: carried over from the JAX package, or a seeded init.
+
+``params_from_jax`` maps the JAX params tree, as numpy arrays, onto the
+port's state dict. The JAX tree stacks each block parameter over layers
+(L, ...), stores linear weights (in, out) and conv weights (W, I, O)
+(the JAX package's ``models/whisper.py``); the port keeps one module per
+block, ``nn.Linear`` weights (out, in) and ``nn.Conv1d`` weights (O, I, W).
+The token embedding is also the (tied) vocab projection.
+
+``init_state_dict`` draws the same distributions as the JAX package's
+``init_params`` from a ``torch.Generator``: the numbers differ from JAX's for
+the same seed, but a seed gives the same weights on every machine.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from .config import WhisperConfig
+from .whisper import Whisper, sinusoids
+
+_ATTN = {"query": ("wq", "bq"), "key": ("wk", None), "value": ("wv", "bv"),
+         "out": ("wo", "bo")}
+_MLP = {"fc1": ("w1", "b1"), "fc2": ("w2", "b2")}
+
+
+def params_from_jax(np_tree: dict, cfg: WhisperConfig) -> dict[str, torch.Tensor]:
+    """JAX params tree (numpy leaves) -> the port's state dict (f32, CPU)."""
+    if "proj_out" in np_tree:
+        raise NotImplementedError("an untied proj_out is not ported yet "
+                                  "(ROADMAP Queue A.2, load_hf)")
+
+    def t(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    def lin(sd, prefix, group, i, names):
+        for mod, (w, b) in names.items():
+            sd[f"{prefix}.{mod}.weight"] = t(group[w][i]).T.contiguous()
+            if b is not None:
+                sd[f"{prefix}.{mod}.bias"] = t(group[b][i])
+
+    def ln(sd, prefix, group, i=None):
+        sd[f"{prefix}.weight"] = t(group["scale"] if i is None else group["scale"][i])
+        sd[f"{prefix}.bias"] = t(group["bias"] if i is None else group["bias"][i])
+
+    enc, dec = np_tree["encoder"], np_tree["decoder"]
+    sd: dict[str, torch.Tensor] = {}
+    for c in ("conv1", "conv2"):
+        sd[f"encoder.{c}.weight"] = t(enc[c]["w"]).permute(2, 1, 0).contiguous()
+        sd[f"encoder.{c}.bias"] = t(enc[c]["b"])
+    sd["encoder.pos_emb"] = t(enc["pos_emb"])
+    for i in range(cfg.n_audio_layers):
+        p = f"encoder.blocks.{i}"
+        ln(sd, f"{p}.attn_ln", enc["attn_ln"], i)
+        lin(sd, f"{p}.attn", enc["attn"], i, _ATTN)
+        ln(sd, f"{p}.mlp_ln", enc["mlp_ln"], i)
+        lin(sd, f"{p}.mlp", enc["mlp"], i, _MLP)
+    ln(sd, "encoder.ln_post", enc["ln_post"])
+
+    sd["decoder.token_emb"] = t(dec["token_emb"])
+    sd["decoder.pos_emb"] = t(dec["pos_emb"])
+    for i in range(cfg.n_text_layers):
+        p = f"decoder.blocks.{i}"
+        for name in ("self_attn", "cross_attn"):
+            ln(sd, f"{p}.{name}_ln", dec[f"{name}_ln"], i)
+            lin(sd, f"{p}.{name}", dec[name], i, _ATTN)
+        ln(sd, f"{p}.mlp_ln", dec["mlp_ln"], i)
+        lin(sd, f"{p}.mlp", dec["mlp"], i, _MLP)
+    ln(sd, "decoder.ln", dec["ln"])
+    return sd
+
+
+def init_state_dict(cfg: WhisperConfig, seed: int = 0) -> dict[str, torch.Tensor]:
+    """Seeded random weights (f32, CPU) with the JAX package's init scheme:
+    normal / sqrt(fan_in) for linear and conv weights, 0.02 for the token and
+    text-position embeddings, zero biases, unit layer-norm scales, sinusoidal
+    audio positions."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in Whisper(cfg).state_dict().items()}
+    sd: dict[str, torch.Tensor] = {}
+    for name, shape in shapes.items():
+        if name == "encoder.pos_emb":
+            sd[name] = torch.from_numpy(sinusoids(cfg.n_audio_ctx, cfg.d_model))
+        elif name in ("decoder.token_emb", "decoder.pos_emb"):
+            sd[name] = torch.randn(shape, generator=g) * 0.02
+        elif "_ln." in name or name.split(".")[1] in ("ln", "ln_post"):
+            fill = 1.0 if name.endswith("weight") else 0.0
+            sd[name] = torch.full(shape, fill)
+        elif name.endswith("bias"):
+            sd[name] = torch.zeros(shape)
+        else:  # linear (out, in) or conv (O, I, W): JAX's fan_in is I
+            sd[name] = torch.randn(shape, generator=g) / math.sqrt(shape[1])
+    return sd
+
+
+def build_model(cfg: WhisperConfig, state_dict: dict | None = None, seed: int = 0,
+                device="cuda") -> Whisper:
+    """A ``Whisper`` on ``device`` in ``cfg``'s compute dtype, from a state
+    dict (e.g. ``params_from_jax``) or the seeded init."""
+    device = resolve_device(device)
+    with torch.device("meta"):
+        model = Whisper(cfg)
+    model = model.to_empty(device=device)
+    model.load_state_dict(state_dict if state_dict is not None else init_state_dict(cfg, seed))
+    return model.eval().requires_grad_(False)

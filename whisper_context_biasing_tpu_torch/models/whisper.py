@@ -1,0 +1,337 @@
+"""Whisper encoder/decoder in PyTorch.
+
+The counterpart of the JAX package's ``models/whisper.py``, as
+``nn.Module``s: the encoder and decoder hold their blocks in
+``nn.ModuleList``s, linear weights are ``nn.Linear`` (out, in), convs
+``nn.Conv1d`` (O, I, W). ``models/convert.py`` carries the JAX params tree
+over. The numerics follow the JAX functions:
+
+  * block matmul weights live in the compute dtype (the JAX package casts
+    its f32 masters at each use, which rounds the same way); layer norms
+    and conv stems keep f32 weights, and every layer norm, softmax and the
+    vocab logits run in f32
+  * a projection accumulates in f32, rounds to the compute dtype, then adds
+    its bias in the compute dtype (``_proj``)
+  * masks use the f32 minimum, not -inf, so fully masked rows (left-padded
+    prefix slots) stay finite
+
+The decoder runs the cached mode only (prefill and single-token steps over
+a preallocated KV cache, written in place); the full-sequence training mode
+comes with the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.flash_attention import flash_attention
+from ..ops.quant_cross_attention import (
+    quant_cross_attention_plain,
+    quant_cross_attention_step_indexed,
+)
+from .config import WhisperConfig
+
+_F32_MIN = torch.finfo(torch.float32).min
+
+
+def sinusoids(length: int, channels: int) -> np.ndarray:
+    """Fixed sinusoidal position embeddings (public Whisper formula)."""
+    assert channels % 2 == 0
+    log_timescale_increment = np.log(10000) / (channels // 2 - 1)
+    inv_timescales = np.exp(-log_timescale_increment * np.arange(channels // 2))
+    scaled_time = np.arange(length)[:, None] * inv_timescales[None, :]
+    return np.concatenate([np.sin(scaled_time), np.cos(scaled_time)], axis=1).astype(
+        np.float32
+    )
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """LayerNorm in f32 regardless of compute dtype."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+                        1e-5).to(x.dtype)
+
+
+def _proj(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    y = F.linear(x, lin.weight)
+    if lin.bias is not None:
+        y = y + lin.bias
+    return y
+
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.reshape(b, t, n_heads, d // n_heads).transpose(1, 2)  # (B, H, T, dh)
+
+
+def attention(q, k, v, n_heads: int, mask=None):
+    """Plain multi-head attention over merged-head (B, T, D) tensors; ``mask``
+    broadcasts to (B, H, Tq, Tk), True = attend."""
+    dh = q.shape[-1] // n_heads
+    qh, kh, vh = (_split_heads(x, n_heads).float() for x in (q, k, v))
+    scores = (qh @ kh.transpose(-1, -2)) / math.sqrt(dh)
+    if mask is not None:
+        scores = torch.where(mask, scores, _F32_MIN)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = w.float() @ vh
+    b, _, tq, _ = out.shape
+    return out.transpose(1, 2).reshape(b, tq, -1).to(q.dtype)
+
+
+def _conv1d(x: torch.Tensor, conv: nn.Conv1d, stride: int) -> torch.Tensor:
+    """x (B, C_in, T) -> (B, C_out, T/stride), padding 1. The product runs in
+    the conv weight's dtype (f32), then rounds to x's dtype before the bias."""
+    y = F.conv1d(x.to(conv.weight.dtype), conv.weight, None, stride=stride, padding=1)
+    return y.to(x.dtype) + conv.bias.to(x.dtype)[:, None]
+
+
+def _gelu(x, cfg: WhisperConfig):
+    return F.gelu(x, approximate="tanh" if cfg.gelu_approx else "none")
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    def __init__(self, d: int, dtype: torch.dtype):
+        super().__init__()
+        self.query = nn.Linear(d, d, dtype=dtype)
+        self.key = nn.Linear(d, d, bias=False, dtype=dtype)  # no k bias in Whisper
+        self.value = nn.Linear(d, d, dtype=dtype)
+        self.out = nn.Linear(d, d, dtype=dtype)
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int, dtype: torch.dtype):
+        super().__init__()
+        self.fc1 = nn.Linear(d, 4 * d, dtype=dtype)
+        self.fc2 = nn.Linear(4 * d, d, dtype=dtype)
+
+    def forward(self, x, cfg: WhisperConfig):
+        return _proj(_gelu(_proj(x, self.fc1), cfg), self.fc2)
+
+
+class EncoderBlock(nn.Module):
+    def __init__(self, d: int, dtype: torch.dtype):
+        super().__init__()
+        self.attn_ln = nn.LayerNorm(d)
+        self.attn = Attention(d, dtype)
+        self.mlp_ln = nn.LayerNorm(d)
+        self.mlp = MLP(d, dtype)
+
+    def forward(self, h, cfg: WhisperConfig):
+        a = layer_norm(h, self.attn_ln)
+        q, k, v = _proj(a, self.attn.query), _proj(a, self.attn.key), _proj(a, self.attn.value)
+        if cfg.flash_attention:
+            att = flash_attention(q, k, v, cfg.n_heads)
+        else:
+            att = attention(q, k, v, cfg.n_heads)
+        h = h + _proj(att, self.attn.out)
+        return h + self.mlp(layer_norm(h, self.mlp_ln), cfg)
+
+
+class AudioEncoder(nn.Module):
+    def __init__(self, cfg: WhisperConfig):
+        super().__init__()
+        d, dt = cfg.d_model, cfg.compute_dtype
+        self.conv1 = nn.Conv1d(cfg.n_mels, d, 3, padding=1)  # f32, as in JAX
+        self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1)
+        self.register_buffer("pos_emb", torch.from_numpy(sinusoids(cfg.n_audio_ctx, d)))
+        self.blocks = nn.ModuleList(EncoderBlock(d, dt) for _ in range(cfg.n_audio_layers))
+        self.ln_post = nn.LayerNorm(d)
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, d: int, dtype: torch.dtype):
+        super().__init__()
+        self.self_attn_ln = nn.LayerNorm(d)
+        self.self_attn = Attention(d, dtype)
+        self.cross_attn_ln = nn.LayerNorm(d)
+        self.cross_attn = Attention(d, dtype)
+        self.mlp_ln = nn.LayerNorm(d)
+        self.mlp = MLP(d, dtype)
+
+
+class TextDecoder(nn.Module):
+    def __init__(self, cfg: WhisperConfig):
+        super().__init__()
+        d, dt = cfg.d_model, cfg.compute_dtype
+        self.token_emb = nn.Parameter(torch.empty(cfg.n_vocab, d, dtype=dt))
+        self.pos_emb = nn.Parameter(torch.empty(cfg.n_text_ctx, d, dtype=dt))
+        self.blocks = nn.ModuleList(DecoderBlock(d, dt) for _ in range(cfg.n_text_layers))
+        self.ln = nn.LayerNorm(d)
+        self._vocab_f32 = None
+        self._vocab_key = None
+
+    def vocab_weight_f32(self) -> torch.Tensor:
+        """The tied vocab projection (the token embedding, in the compute
+        dtype) widened to f32 once, so the logits come out of an f32 product
+        of the same values the JAX package multiplies."""
+        w = self.token_emb
+        key = (w.data_ptr(), w._version, w.device, w.dtype)
+        if self._vocab_key != key:
+            self._vocab_f32 = w.detach().float()
+            self._vocab_key = key
+        return self._vocab_f32
+
+
+class Whisper(nn.Module):
+    def __init__(self, cfg: WhisperConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = AudioEncoder(cfg)
+        self.decoder = TextDecoder(cfg)
+
+
+# ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+def encode_audio(model: Whisper, mel: torch.Tensor) -> torch.Tensor:
+    """mel: (B, n_mels, 2*n_audio_ctx) -> encoder states (B, n_audio_ctx, D)."""
+    cfg, enc = model.cfg, model.encoder
+    x = mel.to(cfg.compute_dtype)
+    x = _gelu(_conv1d(x, enc.conv1, 1), cfg)
+    x = _gelu(_conv1d(x, enc.conv2, 2), cfg)
+    x = x.transpose(1, 2)  # (B, T, D)
+    x = x + enc.pos_emb[: x.shape[1]].to(x.dtype)
+    for blk in enc.blocks:
+        x = blk(x, cfg)
+    return layer_norm(x, enc.ln_post)
+
+
+# ---------------------------------------------------------------------------
+# decoder
+# ---------------------------------------------------------------------------
+
+def precompute_cross_kv(model: Whisper, enc_out: torch.Tensor):
+    """Cross-attention K/V for all layers: each (L, B, T_audio, D)."""
+    blocks = model.decoder.blocks
+    k = torch.stack([_proj(enc_out, b.cross_attn.key) for b in blocks])
+    v = torch.stack([_proj(enc_out, b.cross_attn.value) for b in blocks])
+    return k, v
+
+
+def quantize_cross_kv(cross_kv, pad_to: int = 128) -> dict:
+    """Per-position int8 quantization of the cross-attention K/V.
+
+    scale = max|x| / 127 (at least 1e-8) per (layer, row, position), values
+    rounded half to even; scales stored (L, B, 1, T). T is padded to a
+    multiple of ``pad_to`` with ZERO scales: a zero k-scale marks a padded
+    position, and both attention paths mask on it."""
+    k, v = cross_kv
+    t = k.shape[2]
+    t_pad = ((t + pad_to - 1) // pad_to) * pad_to if pad_to else t
+
+    def q(x):
+        xf = x.float()
+        scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+        scale = torch.clamp(scale, min=1e-8)
+        xq = torch.round(xf / scale).to(torch.int8)
+        l, b, _, d = x.shape
+        xq_pad = torch.zeros((l, b, t_pad, d), dtype=torch.int8, device=x.device)
+        xq_pad[:, :, :t] = xq
+        s_pad = torch.zeros((l, b, 1, t_pad), dtype=torch.float32, device=x.device)
+        s_pad[:, :, 0, :t] = scale[..., 0]
+        return xq_pad, s_pad
+
+    k_q, k_s = q(k)
+    v_q, v_s = q(v)
+    return {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s}
+
+
+def _attention_quant_cross(q, kv, n_heads: int):
+    """Cross attention against one layer's int8 K/V: q (B, S, D); kv k_q/v_q
+    (B, T_pad, D) int8, k_s/v_s (B, 1, T_pad) f32, zero scale on padding."""
+    return quant_cross_attention_plain(q, kv["k_q"], kv["k_s"], kv["v_q"], kv["v_s"],
+                                       n_heads)
+
+
+def init_kv_cache(cfg: WhisperConfig, batch: int, max_len: int, device) -> dict:
+    shape = (cfg.n_text_layers, batch, max_len, cfg.d_model)
+    dt = cfg.compute_dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def decode_tokens(
+    model: Whisper,
+    tokens: torch.Tensor,              # (B, S) int
+    cross_kv,                          # (k, v) each (L, B, T, D), or the int8 dict
+    cache: dict | None = None,         # KV cache from init_kv_cache, written in place
+    pos_offset: int = 0,               # cache slot of tokens[:, 0]
+    token_positions: torch.Tensor | None = None,  # (B, S) position ids (left-pad)
+    self_mask: torch.Tensor | None = None,        # (B, T_cache) key-side, True=attend
+):
+    """Cached decoder forward: keys/values of ``tokens`` are written into
+    ``cache`` at slots ``pos_offset..pos_offset+S`` (in place) and attention
+    spans the whole cache with later slots masked. Returns (f32 logits
+    (B, S, V), cache)."""
+    if cache is None:
+        raise NotImplementedError(
+            "the full-sequence decoder mode is not ported yet (ROADMAP Queue A.2)")
+    if isinstance(pos_offset, torch.Tensor) and pos_offset.ndim == 1:
+        raise NotImplementedError(
+            "per-row pos_offset is not ported yet (ROADMAP Queue A.7, speculative decode)")
+    if self_mask is not None and self_mask.ndim == 3:
+        raise NotImplementedError(
+            "per-query self_mask is not ported yet (ROADMAP Queue A.7, Medusa trees)")
+    cfg, dec = model.cfg, model.decoder
+    dt = cfg.compute_dtype
+    b, s = tokens.shape
+    dev = tokens.device
+    pos_offset = int(pos_offset)
+
+    if token_positions is None:
+        token_positions = pos_offset + torch.arange(s, device=dev)[None, :]
+    x = dec.token_emb[tokens] + dec.pos_emb[token_positions]
+    quantized = isinstance(cross_kv, dict)
+
+    t_cache = cache["k"].shape[2]
+    # causal over cache *slots* (slot i holds token i of the padded sequence;
+    # position ids lag slots under left-padding, so compare slots)
+    key_slot = torch.arange(t_cache, device=dev)
+    query_slot = pos_offset + torch.arange(s, device=dev)
+    attn_mask = key_slot[None, None, :] <= query_slot[None, :, None]  # (1, S, T)
+    if self_mask is not None:
+        attn_mask = attn_mask & self_mask[:, None, :]
+    attn_mask = attn_mask[:, None]  # (B|1, 1, S, T) -> broadcast over heads
+
+    for li, blk in enumerate(dec.blocks):
+        a = layer_norm(x, blk.self_attn_ln)
+        q = _proj(a, blk.self_attn.query)
+        ck, cv = cache["k"][li], cache["v"][li]
+        ck[:, pos_offset:pos_offset + s] = _proj(a, blk.self_attn.key)
+        cv[:, pos_offset:pos_offset + s] = _proj(a, blk.self_attn.value)
+        x = x + _proj(attention(q, ck, cv, cfg.n_heads, attn_mask), blk.self_attn.out)
+
+        cq = _proj(layer_norm(x, blk.cross_attn_ln), blk.cross_attn.query)
+        if quantized and s == 1 and cfg.fused_quant_cross:
+            catt = quant_cross_attention_step_indexed(
+                cq, cross_kv["k_q"], cross_kv["k_s"], cross_kv["v_q"], cross_kv["v_s"],
+                li, cfg.n_heads)
+        elif quantized:
+            catt = _attention_quant_cross(
+                cq, {name: t[li] for name, t in cross_kv.items()}, cfg.n_heads)
+        else:
+            catt = attention(cq, cross_kv[0][li], cross_kv[1][li], cfg.n_heads)
+        x = x + _proj(catt, blk.cross_attn.out)
+        x = x + blk.mlp(layer_norm(x, blk.mlp_ln), cfg)
+
+    x = layer_norm(x, dec.ln)
+    return project_vocab(model, x), cache
+
+
+def project_vocab(model: Whisper, x: torch.Tensor) -> torch.Tensor:
+    """Tied vocab projection of decoder states (B, S, D) -> f32 logits
+    (B, S, V): compute-dtype operands, f32 product and output."""
+    return F.linear(x.float(), model.decoder.vocab_weight_f32())

@@ -1,0 +1,94 @@
+"""Int8 cross-attention for the decode step: the CUDA kernel and its plain
+torch version.
+
+The counterpart of the JAX package's ``ops/quant_cross_attention.py``
+(``quant_cross_attention_step_indexed``). K/V are int8 with one f32 scale
+per (layer, row, position), stored (L, B, 1, T_pad); a zero k-scale marks a
+padded position. The kernel (``csrc/quant_cross_attention.cu``) reads
+layer ``l`` of the stacked tensors through a pointer offset, one block per
+(head, batch row). The one-layer form (``quant_cross_attention_step`` in
+JAX) is this applied to ``layer=0`` of a (1, B, T_pad, D) view.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+HEAD_DIM = 64
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# dtype, q, k_q, k_s, v_q, v_s, out, B, T_pad, D, sqrt(dh), stream
+_SIGNATURES = {"wcb_quant_cross": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]}
+
+
+def quant_cross_attention_plain(q, k_q, k_s, v_q, v_s, n_heads: int):
+    """Cross attention of q (B, S, D) against one layer's int8 K/V: k_q/v_q
+    (B, T_pad, D) int8, k_s/v_s (B, 1, T_pad) f32. The op order of the JAX
+    package's ``models.whisper._attention_quant_cross``."""
+    b, s, d = q.shape
+    dh = d // n_heads
+    t = k_q.shape[1]
+    qh = q.view(b, s, n_heads, dh).transpose(1, 2).float()             # (B, H, S, dh)
+    kh = k_q.to(q.dtype).view(b, t, n_heads, dh).permute(0, 2, 3, 1).float()  # (B, H, dh, T)
+    scores = qh @ kh                                                   # (B, H, S, T)
+    ks = k_s[:, None]                                                  # (B, 1, 1, T)
+    scores = torch.where(ks > 0.0, scores * (ks / math.sqrt(dh)),
+                         torch.finfo(torch.float32).min)
+    w = torch.softmax(scores, dim=-1)
+    # fold the value scale into the probabilities
+    w = (w * v_s[:, None]).to(q.dtype)
+    vh = v_q.to(q.dtype).view(b, t, n_heads, dh).transpose(1, 2).float()
+    out = w.float() @ vh                                               # (B, H, S, dh)
+    return out.transpose(1, 2).reshape(b, s, d).to(q.dtype)
+
+
+def quant_cross_attention_step_indexed_plain(q, k_q, k_s, v_q, v_s, layer: int,
+                                             n_heads: int):
+    """Plain torch version of the kernel: layer ``layer`` of the stacked
+    (L, B, T_pad, D) int8 K/V (a view, no copy)."""
+    return quant_cross_attention_plain(q, k_q[layer], k_s[layer], v_q[layer],
+                                       v_s[layer], n_heads)
+
+
+def quant_cross_attention_step_indexed(q, k_q, k_s, v_q, v_s, layer: int,
+                                       n_heads: int):
+    """Single-query cross attention of q (B, 1, D) against layer ``layer``
+    of k_q/v_q (L, B, T_pad, D) int8 and k_s/v_s (L, B, 1, T_pad) f32:
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    Returns (B, 1, D) in q's dtype."""
+    if q.device.type == "cpu":
+        return quant_cross_attention_step_indexed_plain(q, k_q, k_s, v_q, v_s,
+                                                        layer, n_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"quant cross attention: unsupported device {q.device}")
+    n_layers, b, t_pad, d = k_q.shape
+    if q.dtype not in _DTYPES or q.shape != (b, 1, d) or d != n_heads * HEAD_DIM:
+        raise ValueError(f"quant cross attention: q {tuple(q.shape)} {q.dtype} against "
+                         f"K/V {tuple(k_q.shape)} with {n_heads} heads of {HEAD_DIM}")
+    if (k_q.dtype != torch.int8 or v_q.dtype != torch.int8 or v_q.shape != k_q.shape
+            or k_s.dtype != torch.float32 or v_s.dtype != torch.float32
+            or k_s.shape != (n_layers, b, 1, t_pad) or v_s.shape != k_s.shape):
+        raise ValueError("quant cross attention: K/V must be int8 (L, B, T_pad, D) "
+                         "with f32 scales (L, B, 1, T_pad)")
+    if not all(x.is_contiguous() for x in (q, k_q, k_s, v_q, v_s)):
+        raise ValueError("quant cross attention: inputs must be contiguous")
+    if not all(x.device == q.device for x in (k_q, k_s, v_q, v_s)):
+        raise ValueError("quant cross attention: inputs on different devices")
+    if not 0 <= layer < n_layers:
+        raise ValueError(f"quant cross attention: layer {layer} outside [0, {n_layers})")
+    out = torch.empty_like(q)
+    kv_off = layer * b * t_pad * d          # int8: elements are bytes
+    s_off = layer * b * t_pad * 4           # f32 scales
+    lib = _build.library("quant_cross_attention", _SIGNATURES)
+    err = lib.wcb_quant_cross(
+        _DTYPES[q.dtype], q.data_ptr(), k_q.data_ptr() + kv_off, k_s.data_ptr() + s_off,
+        v_q.data_ptr() + kv_off, v_s.data_ptr() + s_off, out.data_ptr(), b, t_pad, d,
+        math.sqrt(d // n_heads), _build.stream_handle(q.device))
+    _build.check(lib, err, "quant cross attention")
+    _build.launches["quant_cross_attention"] += 1
+    return out
