@@ -12,18 +12,28 @@ on failure:
 1. the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``whisper_context_biasing_tpu_torch/ops/csrc``
    (one nvcc per source, in parallel) and holds each kernel against its
-   plain torch version at base.en serving shapes with batch 8, printing the
-   max error, the median of CUDA-event-timed runs, the plain version's
-   time, the least time the card could take (its bound) and, where one
-   PyTorch call computes the same function, that call's time;
-3. the main path: ``Pipeline("base.en", device="cuda")`` with seeded random
-   weights on the fast path (bf16, every kernel) serves 8 short-form
-   requests with a context and bias words; the launch counts of that run
-   show it went through every kernel;
+   plain torch version at base.en shapes with batch 8 (serving, and the
+   training step's flash uses: encoder full, decoder causal and decoder
+   cross), printing the max error, the median of CUDA-event-timed runs,
+   the plain version's time, the least time the card could take (its
+   bound) and, where one PyTorch call computes the same function, that
+   call's time;
+3. the serving path: ``Pipeline("base.en", device="cuda")`` with seeded
+   random weights on the fast path (bf16, every kernel) serves 8
+   short-form requests with a context and bias words; the launch counts of
+   that run show it went through every serving kernel;
 4. the same requests in f32, once with the kernels and once with their
    plain versions (chosen by config and by calling the plain mel frontend,
    not by fallback; the launch counts show which ran): the tokens must be
-   identical, or diverge only at a near-tie (top-2 logit gap < 1e-4).
+   identical, or diverge only at a near-tie (top-2 logit gap < 1e-4);
+5. the training path: ``make_train_step`` on base.en (bf16, flash
+   attention, full remat, log-mel from raw audio inside the step), batch 8
+   x grad_accum 2 with prompted labels of 448 tokens and bias spans from
+   the port's collator, 3 optimizer steps: finite loss and grad norm, and
+   exactly the kernel launches the configuration implies;
+6. the same step in f32, once with the kernels and once with the plain
+   versions (by config, and the plain mel frontend named outright): the
+   loss and the gradients must agree within the limits printed.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -56,6 +66,12 @@ PEAK_F32_FLOP_S = 67e12     # CUDA cores, no tensor cores
 PEAK_BF16_FLOP_S = 989e12   # tensor cores
 
 REPS = 20  # CUDA-event-timed runs per kernel
+
+# base.en training shapes: label length n_text_ctx (the longest prompted
+# label sequence), so the decoder takes the flash path
+T_TEXT = 448
+ACCUM = 2
+TRAIN_STEPS = 3
 
 CONTEXT = "patient history: hypertension treated with lisinopril and metformin"
 BIAS_WORDS = ["lisinopril", "metformin", "atorvastatin"]
@@ -145,44 +161,126 @@ def check_mel(torch, ops):
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+# the three flash uses of the training step: (Tq, Tk, causal)
+FLASH_SHAPES = {"encoder full": (T_AUDIO, T_AUDIO, False),
+                "decoder causal": (T_TEXT, T_TEXT, True),
+                "decoder cross": (T_TEXT, T_AUDIO, False)}
+
+
+def merged_heads(torch, rng, t):
+    """(BATCH, t, 512) merged-head activations, read as (BATCH, t, 8, 64) views."""
+    dh = D_MODEL // N_HEADS
+    x = torch.from_numpy(rng.standard_normal((BATCH, t, D_MODEL), np.float32)).cuda()
+    return x.view(BATCH, t, N_HEADS, dh)
+
+
 def check_flash(torch, ops):
     import torch.nn.functional as F
 
-    # the encoder's layout: merged-head (B, T, H*64) activations, read by the
-    # kernel in place as (B, T, H, 64) views
     rng = np.random.default_rng(2)
     dh = D_MODEL // N_HEADS
-    qkv32 = [torch.from_numpy(rng.standard_normal((BATCH, T_AUDIO, D_MODEL), np.float32))
-             .cuda().view(BATCH, T_AUDIO, N_HEADS, dh) for _ in range(3)]
-    o, lse = ops.flash_attention_fwd(*qkv32)
-    po, plse = ops.flash_attention_fwd_plain(*qkv32)
-    err32, lerr32 = max_err(o, po), max_err(lse, plse)
-    print(f"K2 flash f32 (8, 1500, 8x64): max |o err| = {err32:.3e} (atol 2e-5), "
-          f"max |lse err| = {lerr32:.3e} (atol 1e-4)")
-    require(err32 <= 2e-5 and lerr32 <= 1e-4, f"flash f32 disagrees: {err32}, {lerr32}")
-    qkv = [t.to(torch.bfloat16) for t in qkv32]
-    o, lse = ops.flash_attention_fwd(*qkv)
-    po, plse = ops.flash_attention_fwd_plain(*qkv)
-    err, lerr = max_err(o, po), max_err(lse, plse)
-    # a typical |o| is ~0.04 here (diffuse softmax over 1500 keys), so the
-    # limit is a few bf16 ulps of the output's scale, not a fixed 2e-2
-    print(f"K2 flash bf16 (8, 1500, 8x64): max |o err| = {err:.3e} (atol 5e-3), "
-          f"max |lse err| = {lerr:.3e} (atol 1e-4)")
-    require(err <= 5e-3 and lerr <= 1e-4, f"flash bf16 disagrees: {err}, {lerr}")
-    heads = [t.transpose(1, 2) for t in qkv]  # (B, H, T, dh) for SDPA
     bh = BATCH * N_HEADS
-    n_ops = 4 * bh * T_AUDIO * T_AUDIO * dh
-    n_bytes = 2 * 4 * bh * T_AUDIO * dh + 4 * bh * T_AUDIO
-    b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_FLOP_S)
-    return dict(
-        name="flash_attention", route="cuda",
-        source="whisper_context_biasing_tpu_torch/ops/csrc/flash_attention.cu",
-        replaces="whisper_context_biasing_tpu/ops/flash_attention.py:66",
-        max_abs_err=err,
-        ms=median_ms(torch, lambda: ops.flash_attention_fwd(*qkv)),
-        plain_ms=median_ms(torch, lambda: ops.flash_attention_fwd_plain(*qkv)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(*heads)))
+    entry = None
+    for label, (tq, tk, causal) in FLASH_SHAPES.items():
+        qkv32 = [merged_heads(torch, rng, t) for t in (tq, tk, tk)]
+        o, lse = ops.flash_attention_fwd(*qkv32, causal=causal)
+        po, plse = ops.flash_attention_fwd_plain(*qkv32, causal=causal)
+        err32, lerr32 = max_err(o, po), max_err(lse, plse)
+        print(f"K2 flash f32 {label} ({BATCH}, {tq}x{tk}, 8x64): max |o err| = {err32:.3e} "
+              f"(atol 2e-5), max |lse err| = {lerr32:.3e} (atol 1e-4)")
+        require(err32 <= 2e-5 and lerr32 <= 1e-4, f"flash f32 {label} disagrees: {err32}, "
+                f"{lerr32}")
+        qkv = [t.to(torch.bfloat16) for t in qkv32]
+        o, lse = ops.flash_attention_fwd(*qkv, causal=causal)
+        po, plse = ops.flash_attention_fwd_plain(*qkv, causal=causal)
+        err, lerr = max_err(o, po), max_err(lse, plse)
+        if causal:
+            # early rows attend to a handful of keys, so |o| reaches |v| ~ 3 and
+            # one bf16 rounding of o is up to 2^-7 |o|: the limit is 1% of max |o|
+            limit = 1e-2 * po.float().abs().max().item()
+            why = "1% of max |o|"
+        else:
+            # a typical |o| is ~0.04 here (diffuse softmax over 1500 keys), so
+            # the limit is a few bf16 ulps of the output's scale
+            limit, why = 5e-3, "a few bf16 ulps of |o| ~ 0.04"
+        print(f"K2 flash bf16 {label}: max |o err| = {err:.3e} (atol {limit:.2e}, {why}), "
+              f"max |lse err| = {lerr:.3e} (atol 1e-4)")
+        require(err <= limit and lerr <= 1e-4, f"flash bf16 {label} disagrees: {err}, {lerr}")
+        heads = [t.transpose(1, 2) for t in qkv]  # (B, H, T, dh) for SDPA
+        frac = 0.5 if causal else 1.0
+        n_ops = 4 * bh * tq * tk * dh * frac
+        n_bytes = 2 * bh * dh * (2 * tq + 2 * tk) + 4 * bh * tq
+        b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_FLOP_S)
+        ms = median_ms(torch, lambda: ops.flash_attention_fwd(*qkv, causal=causal))
+        plain_ms = median_ms(torch, lambda: ops.flash_attention_fwd_plain(*qkv, causal=causal))
+        lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(*heads,
+                                                                         is_causal=causal))
+        print(f"  flash_attention {label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by}, SDPA {lib_ms:.4f} ms)")
+        if entry is None:  # the JSON line carries the encoder shape, as before
+            entry = dict(
+                name="flash_attention", route="cuda",
+                source="whisper_context_biasing_tpu_torch/ops/csrc/flash_attention.cu",
+                replaces="whisper_context_biasing_tpu/ops/flash_attention.py:66",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+    return entry
+
+
+def check_flash_bwd(torch, ops):
+    """K4 at the training step's three flash shapes, f32 (TF32 off) and
+    bf16, on the forward's own output and logsumexp."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(5)
+    dh = D_MODEL // N_HEADS
+    bh = BATCH * N_HEADS
+    entry = None
+    for label, (tq, tk, causal) in FLASH_SHAPES.items():
+        f32 = [merged_heads(torch, rng, t) for t in (tq, tk, tk, tq)]  # q, k, v, do
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (t.to(dtype) for t in f32)
+            o, lse = ops.flash_attention_fwd_plain(q, k, v, causal=causal)
+            got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            want = ops.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+            # f32: sums of up to 1500 terms in other orders, ~1e-6 of the
+            # largest gradient; bf16: P and dS round to bf16 before the products
+            # on both routes and a value at a rounding boundary may go either
+            # way, then the output rounds once more: ~2 bf16 ulps of the largest
+            rel = 1e-4 if dtype == torch.float32 else 1e-2
+            errs = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                scale = w.float().abs().max().item()
+                err = max_err(g, w)
+                errs.append(err)
+                print(f"K4 flash bwd {str(dtype)[6:]} {label} ({BATCH}, {tq}x{tk}, 8x64) "
+                      f"{name}: max |err| = {err:.3e} (atol {rel:g} x max |{name}| = "
+                      f"{rel * scale:.3e})")
+                require(err <= rel * scale, f"flash backward {dtype} {label} {name} "
+                        f"disagrees: {err} > {rel * scale}")
+        frac = 0.5 if causal else 1.0
+        n_ops = 10 * bh * tq * tk * dh * frac
+        n_bytes = 2 * bh * dh * (4 * tq + 4 * tk) + 4 * bh * tq  # q o do dq, k v dk dv, lse
+        b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_FLOP_S)
+        ms = median_ms(torch, lambda: ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                                              causal=causal))
+        plain_ms = median_ms(torch, lambda: ops.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                                          causal=causal))
+        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+        doh = do.transpose(1, 2)
+        lib_ms = median_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                                              retain_graph=True))
+        print(f"  flash_attention_bwd {label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by}, SDPA backward {lib_ms:.4f} ms)")
+        if entry is None:
+            entry = dict(
+                name="flash_attention_bwd", route="cuda",
+                source="whisper_context_biasing_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+                replaces="whisper_context_biasing_tpu/ops/flash_attention.py:84",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+    return entry
 
 
 def check_quant_cross(torch, ops):
@@ -228,11 +326,11 @@ def requests(rng):
     return [synthetic_audio(rng, 5 + 25 * i / (BATCH - 1)) for i in range(BATCH)]
 
 
-def profile_run(torch, pipe, clips, kwargs, card, wall_ms, table_path):
-    """One more main-path batch under torch.profiler: device time by kernel,
-    and the device's busy share of ``wall_ms``, the same batch's wall time
-    without the profiler (which slows the host side many times over). The
-    full table goes to ``table_path``."""
+def profile_run(torch, fn, card, wall_ms, table_path, what):
+    """``fn`` once more under torch.profiler: device time by kernel, and the
+    device's busy share of ``wall_ms``, the same work's wall time without
+    the profiler (which slows the host side many times over). The full
+    table goes to ``table_path``."""
     import pathlib
 
     from torch.autograd import DeviceType
@@ -240,14 +338,14 @@ def profile_run(torch, pipe, clips, kwargs, card, wall_ms, table_path):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe.transcribe(clips, **kwargs)
+        fn()
         torch.cuda.synchronize()
     # device-side events only (kernels and copies); the aten rows would
     # count the same device time a second time
     rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f"profile of the main path [{card}]: device busy {busy_ms:.1f} ms of the "
+    print(f"profile of {what} [{card}]: device busy {busy_ms:.1f} ms of the "
           f"{wall_ms:.1f} ms unprofiled wall = {100 * busy_ms / wall_ms:.1f}% "
           f"(idle {100 - 100 * busy_ms / wall_ms:.1f}%), {sum(r[1] for r in rows)} device ops")
     for us, n, key in rows[:12]:
@@ -289,7 +387,8 @@ def serve(torch, Pipeline, ops, card, profile=None):
     for name in ("mel", "flash_attention", "quant_cross_attention"):
         require(counts.get(name, 0) > 0, f"main path never launched the {name} kernel")
     if profile:
-        profile_run(torch, pipe, clips, kwargs, card, wall * 1e3, profile)
+        profile_run(torch, lambda: pipe.transcribe(clips, **kwargs), card, wall * 1e3,
+                    profile, "the serving path")
     return counts
 
 
@@ -338,11 +437,155 @@ def f32_agreement(torch, Pipeline, ops):
           f"({int((kt == pt).all(axis=1).sum())}/{BATCH} rows identical)")
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the training step, then f32 kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+def train_batch(rng) -> dict:
+    """BATCH x ACCUM rows of raw audio with prompted labels (<|startofprev|>
+    context <|startoftranscript|> text <|endoftext|>, 449 tokens, so the
+    decoder reads T_TEXT = 448) and the bias words' spans, some planted in
+    the text, collated by the port's collator; split into ACCUM microbatches."""
+    from whisper_context_biasing_tpu_torch.data.collator import SpeechSeq2SeqCollator
+    from whisper_context_biasing_tpu_torch.tokenizer import load_tokenizer
+
+    tok = load_tokenizer()
+    ctx = tok.encode(CONTEXT.lower(), add_special_tokens=False)
+    words = [tok.encode(w, add_special_tokens=False) for w in BIAS_WORDS]
+    rows = []
+    for i in range(BATCH * ACCUM):
+        text = list(rng.integers(220, 50000, T_TEXT - len(ctx) - 2))
+        for j, w in enumerate(words[: 1 + i % len(words)]):
+            at = (j + 1) * len(text) // 4  # in place: the label length stays put
+            text[at : at + len(w)] = w
+        rows.append({"audio": synthetic_audio(rng, 5 + 25 * (i % BATCH) / (BATCH - 1)),
+                     "labels": [tok.sop, *ctx, tok.sot, *text, tok.eot],
+                     "bias_spans": words})
+    coll = SpeechSeq2SeqCollator(pad_token_id=tok.pad_token_id, decoder_start_token_id=tok.sot,
+                                 decoder_prev_token_id=tok.sop, max_target_length=T_TEXT + 1,
+                                 bias_span_pad_id=tok.eot)
+    batch = coll(rows)
+    require(batch["decoder_input_ids"].shape == (BATCH * ACCUM, T_TEXT), "bad label length")
+    return {k: v.reshape(ACCUM, BATCH, *v.shape[1:]) for k, v in batch.items()}
+
+
+def expected_train_launches(cfg, steps: int) -> dict:
+    """Launches the configuration implies: per microbatch one mel, and per
+    flash use (every encoder layer; two per decoder layer at S >= the
+    threshold) one forward, run again by the backward under full remat, and
+    one backward."""
+    uses = cfg.n_audio_layers + (2 * cfg.n_text_layers if T_TEXT >= cfg.flash_decoder_min_seq
+                                 else 0)
+    n = steps * ACCUM
+    return {"mel": n, "flash_attention": n * uses * (2 if cfg.remat == "full" else 1),
+            "flash_attention_bwd": n * uses}
+
+
+def train(torch, ops, card, profile=None):
+    from whisper_context_biasing_tpu_torch.models import build_model, get_config
+    from whisper_context_biasing_tpu_torch.train import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    batch = train_batch(np.random.default_rng(7))
+    cfg = get_config("base.en", dtype="bfloat16", flash_attention=True, remat="full")
+    model = build_model(cfg, seed=0, device="cuda", train=True)
+    # the reference recipe, as the JAX package's training benchmark builds it
+    opt = make_optimizer(peak_lr=1e-5, warmup_steps=50, total_steps=1000)
+    step = make_train_step(cfg, opt, bias_weight=1.5, grad_accum=ACCUM, mel_on_device=True)
+    state = init_train_state(model, opt)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    walls, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    counts = dict(ops.launches)
+    want = expected_train_launches(cfg, TRAIN_STEPS)
+    audio_s = BATCH * ACCUM * 30.0  # 30 s-padded windows, as the training benchmark counts
+    print(f"training path (base.en bf16, flash, remat full, mel in the step, batch {BATCH} x "
+          f"accum {ACCUM}, labels {T_TEXT}) on {card}:")
+    for i, ((loss, gn), w) in enumerate(zip(metrics, walls)):
+        print(f"  step {i + 1}: loss {loss:.4f}, grad norm {gn:.4f}, wall {w * 1e3:.1f} ms, "
+              f"{audio_s / w:.1f} train audio-s/s  [{card}]")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  launches over {TRAIN_STEPS} steps: {counts} (the configuration implies {want})")
+    require(all(np.isfinite(x) for mt in metrics for x in mt), "non-finite loss or grad norm")
+    require(counts == want, f"training launches {counts} != {want}")
+    require(state.step == TRAIN_STEPS, "the step counter did not advance")
+    if profile:
+        profile_run(torch, lambda: step(state, batch), card, walls[-1] * 1e3, profile,
+                    "one training step")
+    return counts
+
+
+def train_f32_agreement(torch, ops):
+    from whisper_context_biasing_tpu_torch.audio import log_mel_spectrogram
+    from whisper_context_biasing_tpu_torch.models import build_model, get_config
+    from whisper_context_biasing_tpu_torch.train import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    batch = {k: torch.from_numpy(v).cuda() for k, v in train_batch(
+        np.random.default_rng(7)).items()}
+    runs = []
+    for kernels in (True, False):
+        cfg = get_config("base.en", dtype="float32", flash_attention=kernels, remat="full")
+        model = build_model(cfg, seed=0, device="cuda", train=True)
+        opt = make_optimizer(peak_lr=1e-5, warmup_steps=50, total_steps=1000)
+        step = make_train_step(cfg, opt, bias_weight=1.5, grad_accum=ACCUM,
+                               mel_on_device=kernels)
+        if kernels:
+            b = batch
+        else:  # the plain frontend, named outright
+            audio = batch["audio"]
+            feats = log_mel_spectrogram(audio.flatten(0, 1), n_mels=cfg.n_mels)
+            b = dict({k: v for k, v in batch.items() if k != "audio"},
+                     input_features=feats.view(*audio.shape[:2], *feats.shape[1:]))
+        ops.reset_launch_counts()
+        _, m = step(init_train_state(model, opt), b)
+        torch.cuda.synchronize()
+        counts = dict(ops.launches)
+        print(f"  f32 training {'kernel' if kernels else 'plain'} run launches: {counts}")
+        if kernels:
+            want = expected_train_launches(cfg, 1)
+            require(counts == want, f"f32 kernel training run launches {counts} != {want}")
+        else:
+            require(not counts, f"f32 plain training run launched kernels: {counts}")
+        runs.append((float(m["loss"]), float(m["grad_norm"]),
+                     {n: p.grad for n, p in model.named_parameters()}))
+        del model, opt, step
+    (kl, kn, kg), (pl, pn, pg) = runs
+    diff = sum(((kg[n] - pg[n]).double() ** 2).sum().item() for n in pg) ** 0.5
+    ref = sum((pg[n].double() ** 2).sum().item() for n in pg) ** 0.5
+    worst = max(pg, key=lambda n: (kg[n] - pg[n]).abs().max().item()
+                / max(pg[n].abs().max().item(), 1e-30))
+    worst_rel = ((kg[worst] - pg[worst]).abs().max() / pg[worst].abs().max()).item()
+    # f32 on both routes, TF32 off: the kernels and the plain attention sum in
+    # other orders (~1e-6 relative per attention output), carried through 12
+    # layers and the backward; the limit leaves an order of magnitude of room
+    print(f"f32 training step, kernels vs plain versions: loss {kl:.7f} vs {pl:.7f} "
+          f"(rel {abs(kl - pl) / abs(pl):.2e}, limit 1e-5), grad norm {kn:.6f} vs {pn:.6f}, "
+          f"|g_kernel - g_plain| / |g_plain| = {diff / ref:.2e} (limit 1e-4), worst tensor "
+          f"{worst}: max |err| / max |g| = {worst_rel:.2e}")
+    require(abs(kl - pl) <= 1e-5 * abs(pl), f"f32 training loss disagrees: {kl} vs {pl}")
+    require(diff <= 1e-4 * ref, f"f32 training gradients disagree: {diff / ref}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="TABLE_PATH",
-                    help="also profile one main-path run: device time by kernel, "
-                         "the full profiler table written to TABLE_PATH")
+                    help="also profile one serving run and one training step: device "
+                         "time by kernel, the full profiler tables written to "
+                         "TABLE_PATH and TABLE_PATH.train")
     args = ap.parse_args()
 
     import torch
@@ -369,14 +612,18 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {log.stem}: {line.strip()}")
 
-    kernels = [check_mel(torch, ops), check_flash(torch, ops), check_quant_cross(torch, ops)]
+    kernels = [check_mel(torch, ops), check_flash(torch, ops), check_flash_bwd(torch, ops),
+               check_quant_cross(torch, ops)]
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']}, library {k['library_ms']}) [{card}]")
-    counts = serve(torch, Pipeline, ops, card, args.profile)
+    serve_counts = serve(torch, Pipeline, ops, card, args.profile)
     f32_agreement(torch, Pipeline, ops)
+    train_counts = train(torch, ops, card, args.profile and args.profile + ".train")
+    train_f32_agreement(torch, ops)
+    # launches: the serving path's run plus the training path's run
     for k in kernels:
-        k["launches"] = counts.get(k["name"], 0)
+        k["launches"] = serve_counts.get(k["name"], 0) + train_counts.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain torch versions, at edge
 shapes the main path does not reach (ragged tiles, kv_len < Tk, Tq != Tk,
-strided views, every layer offset, 128 mels), plus a small end-to-end decode
-with the kernels on and off.
+causal, strided views, every layer offset, 128 mels), plus a small
+end-to-end decode and a small training step with the kernels on and off.
 
 These need an NVIDIA GPU and nvcc: they carry the ``cuda`` marker and skip
 elsewhere. On a machine with the card (no JAX needed):
@@ -16,7 +16,12 @@ import torch
 from whisper_context_biasing_tpu_torch import ops
 from whisper_context_biasing_tpu_torch.audio.mel import log_mel_tail
 from whisper_context_biasing_tpu_torch.decode import greedy_decode, pack_prefixes
-from whisper_context_biasing_tpu_torch.models import build_model, tiny_test_config
+from whisper_context_biasing_tpu_torch.models import attention, build_model, tiny_test_config
+from whisper_context_biasing_tpu_torch.train import (
+    init_train_state,
+    make_optimizer,
+    make_train_step,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -115,3 +120,86 @@ def test_greedy_decode_kernels_match_plain(dev):
     assert torch.equal(out[0][0], out[1][0])
     assert out[0][1]["flash_attention"] == 2 and out[0][1]["quant_cross_attention"] > 0
     assert not out[1][1]
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("t", [1, 64, 100, 129])
+def test_flash_kernel_causal(dev, dtype, atol, t):
+    rng = np.random.default_rng(t)
+    q, k, v = (_rand(rng, (2, t, 3, 64), dev, dtype) for _ in range(3))
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+    po, plse = ops.flash_attention_fwd_plain(q, k, v, causal=True)
+    torch.testing.assert_close(o.float(), po.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=0)
+
+
+# f32: sums in other orders; bf16: dS and P round to bf16 before the
+# products on both routes, and a value near a rounding boundary may round
+# the other way, so the limit is 1% of the largest gradient (~2.5 bf16 ulps
+# at the top of the range), plus 1e-5 for rows that attend to one key, whose
+# dS = P (dP - D) is f32 cancellation noise around an exact 0
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq,tk,kv_len,causal", [
+    (100, 100, 100, False), (100, 100, 77, False), (40, 300, 300, False),
+    (129, 65, 1, False), (1, 1, 1, True), (100, 100, 100, True), (129, 129, 129, True)])
+def test_flash_backward_kernel(dev, dtype, tq, tk, kv_len, causal):
+    rng = np.random.default_rng(tq + 7 * tk + kv_len)
+    q = _rand(rng, (2, tq, 3, 64), dev, dtype)
+    k, v = _rand(rng, (2, tk, 3, 64), dev, dtype), _rand(rng, (2, tk, 3, 64), dev, dtype)
+    do = _rand(rng, (2, tq, 3, 64), dev, dtype)
+    o, lse = ops.flash_attention_fwd_plain(q, k, v, kv_len, causal)
+    ops.reset_launch_counts()
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, kv_len, causal)
+    assert ops.launches["flash_attention_bwd"] == 1
+    want = ops.flash_attention_bwd_plain(q, k, v, o, lse, do, kv_len, causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        atol = 2e-5 if dtype == torch.float32 else 1e-2 * w.float().abs().max().item() + 1e-5
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0)
+    assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+def test_flash_autograd_reads_merged_heads_in_place(dev):
+    """Gradients of the kernels through strided merged-head views equal
+    autograd of the plain attention with the causal mask."""
+    rng = np.random.default_rng(5)
+    qkv = _rand(rng, (2, 70, 3 * 128), dev).requires_grad_()
+    q, k, v = qkv[..., :128], qkv[..., 128:256], qkv[..., 256:]
+    g = _rand(rng, (2, 70, 128), dev)
+    (ops.flash_attention(q, k, v, 2, causal=True) * g).sum().backward()
+    got, qkv.grad = qkv.grad, None
+    mask = torch.ones(70, 70, dtype=torch.bool, device=dev).tril()
+    (attention(q, k, v, 2, mask) * g).sum().backward()
+    torch.testing.assert_close(got, qkv.grad, atol=2e-5, rtol=0)
+
+
+def test_train_step_kernels_match_plain(dev):
+    """A one-head tiny model (head dim 64): one f32 step with grad
+    accumulation 2, the mel and flash kernels against the plain versions."""
+    rng = np.random.default_rng(6)
+    audio = (rng.standard_normal((2, 2, 128 * 160)) * 0.1).astype(np.float32)
+    ids = rng.integers(100, 5000, (2, 2, 12)).astype(np.int32)
+    spans = np.full((2, 2, 1, 2), 50256, np.int32)
+    spans[..., 0, :] = ids[..., 3:5]
+    batch = dict(decoder_input_ids=ids, labels=ids, bias_spans=spans)
+    feats = ops.log_mel_spectrogram_fused(torch.from_numpy(audio).flatten(0, 1))  # CPU: plain
+    runs = []
+    for kernels in (True, False):
+        cfg = tiny_test_config(n_heads=1, flash_attention=kernels, flash_decoder_min_seq=0)
+        model = build_model(cfg, seed=0, device=dev, train=True)
+        opt = make_optimizer(peak_lr=1e-3, warmup_steps=0, total_steps=10)
+        step = make_train_step(cfg, opt, grad_accum=2, mel_on_device=kernels)
+        b = dict(batch, audio=audio) if kernels else dict(
+            batch, input_features=feats.view(2, 2, 80, 128).numpy())
+        ops.reset_launch_counts()
+        _, m = step(init_train_state(model, opt), b)
+        runs.append((float(m["loss"]), [p.grad.clone() for p in model.parameters()],
+                     dict(ops.launches)))
+    (kl, kg, kc), (pl, pg, pc) = runs
+    # per microbatch: mel 1; 6 flash uses (2 encoder, 2 x 2 decoder), each
+    # forward run twice under full remat, each backward once
+    assert kc == {"mel": 2, "flash_attention": 24, "flash_attention_bwd": 12}
+    assert not pc
+    assert kl == pytest.approx(pl, rel=1e-5)
+    for a, b in zip(kg, pg):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)

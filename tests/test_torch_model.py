@@ -17,6 +17,7 @@ from whisper_context_biasing_tpu.models import tiny_test_config as jax_tiny
 from whisper_context_biasing_tpu.models.whisper import (
     decode_tokens as jax_decode_tokens,
     encode_audio as jax_encode,
+    forward as jax_forward,
     init_kv_cache as jax_init_cache,
     precompute_cross_kv as jax_cross_kv,
     quantize_cross_kv as jax_quantize,
@@ -25,11 +26,13 @@ from whisper_context_biasing_tpu_torch.models import (
     build_model,
     decode_tokens,
     encode_audio,
+    forward,
     init_kv_cache,
     init_state_dict,
     params_from_jax,
     precompute_cross_kv,
     quantize_cross_kv,
+    state_dict_to_jax,
     tiny_test_config,
 )
 
@@ -119,3 +122,62 @@ def test_cached_decode_matches_jax(setup, quantized):
         logits = both(nxt[:, None], p - 1 + t, npos[:, None].astype(np.int32))
         nxt, npos = logits[:, -1].argmax(-1).astype(np.int32), npos + 1
     np.testing.assert_allclose(tcache["k"].numpy(), np.asarray(jcache["k"]), atol=ATOL, rtol=0)
+
+
+# the full-sequence (training) decoder: f32 both sides, the flash kernels
+# (JAX in interpret mode, the port's plain versions on the CPU) or the plain
+# attention with the tril mask; sums in other orders over the vocab product
+FULL_ATOL, FULL_RTOL = 2e-4, 1e-4
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_full_sequence_decoder_matches_jax(setup, flash):
+    jcfg, params, _, _, mel = setup
+    over = dict(flash_attention=flash, flash_decoder_min_seq=0)
+    jcfg = dataclasses.replace(jcfg, flash_interpret=True, flash_block_q=16, **over)
+    cfg = tiny_test_config(**over)
+    model = build_model(cfg, params_from_jax(params, cfg), device="cpu", train=True)
+    ids = np.random.default_rng(5).integers(0, 50000, (2, 24)).astype(np.int32)
+    ref = np.asarray(jax_forward(params, jcfg, jnp.asarray(mel), jnp.asarray(ids)))
+    with torch.no_grad():
+        got = forward(model, torch.from_numpy(mel), torch.from_numpy(ids))
+    assert got.dtype == torch.float32 and got.shape == (2, 24, cfg.n_vocab)
+    np.testing.assert_allclose(got.numpy(), ref, atol=FULL_ATOL, rtol=FULL_RTOL)
+
+
+def test_full_sequence_decoder_rejects_int8_cross_kv(setup):
+    _, _, cfg, model, mel = setup
+    kv = quantize_cross_kv(precompute_cross_kv(model, encode_audio(model, torch.from_numpy(mel))))
+    with pytest.raises(ValueError, match="decode-only"):
+        decode_tokens(model, torch.zeros((2, 3), dtype=torch.long), cross_kv=kv)
+
+
+def test_state_dict_to_jax_inverts_params_from_jax(setup):
+    _, params, cfg, _, _ = setup
+    back = state_dict_to_jax(params_from_jax(params, cfg), cfg)
+    flat = jax.tree_util.tree_flatten_with_path(params)[0]
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    for path, leaf in flat:
+        np.testing.assert_array_equal(_get(back, path), np.asarray(leaf), err_msg=str(path))
+
+
+def _get(tree, path):
+    for key in path:
+        tree = tree[key.key]
+    return tree
+
+
+def test_training_model_holds_f32_masters():
+    cfg = tiny_test_config(dtype="bfloat16")
+    train = build_model(cfg, seed=0, device="cpu", train=True)
+    serve = build_model(cfg, seed=0, device="cpu")
+    assert all(p.dtype == torch.float32 and p.requires_grad for p in train.parameters())
+    assert serve.decoder.blocks[0].mlp.fc1.weight.dtype == torch.bfloat16
+    assert not any(p.requires_grad for p in serve.parameters())
+    # cast at each use: both compute the same bf16 function
+    mel = torch.from_numpy(np.random.default_rng(6).standard_normal((1, 80, 128))
+                           .astype(np.float32))
+    ids = torch.tensor([[50257, 11, 12]])
+    with torch.no_grad():
+        a, b = forward(train, mel, ids), forward(serve, mel, ids)
+    torch.testing.assert_close(a, b, atol=0, rtol=0)

@@ -14,7 +14,13 @@ import torch
 import whisper_context_biasing_tpu_torch as port
 from whisper_context_biasing_tpu_torch import Pipeline, ops
 from whisper_context_biasing_tpu_torch.decode import greedy_decode
-from whisper_context_biasing_tpu_torch.models import build_model, decode_tokens, tiny_test_config
+from whisper_context_biasing_tpu_torch.models import (
+    build_model,
+    decode_tokens,
+    encode_audio,
+    get_config,
+    tiny_test_config,
+)
 from whisper_context_biasing_tpu_torch.ops import _build
 
 PKG = pathlib.Path(port.__file__).parent
@@ -72,8 +78,12 @@ def test_unported_paths_raise(pipe):
     for kw in (dict(temperature=0.5), dict(no_speech_id=50361), dict(timestamp_begin=50363)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             greedy_decode(pipe.model, mel, [[50257]], [[True]], device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="full-sequence"):
-        decode_tokens(pipe.model, torch.zeros((1, 2), dtype=torch.long), cross_kv=None)
+    # the full-sequence decoder mode is ported: it runs, without a cache
+    enc = encode_audio(pipe.model, torch.zeros((1, 80, 128)))
+    logits, cache = decode_tokens(pipe.model, torch.zeros((1, 2), dtype=torch.long),
+                                  enc_out=enc)
+    assert cache is None and logits.shape == (1, 2, pipe.cfg.n_vocab)
+    assert torch.isfinite(logits).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipe.transcribe("clip.mp3")
 
@@ -83,11 +93,20 @@ def test_wrappers_count_only_kernel_launches():
     x = torch.zeros((1, 3200))
     ops.log_mel_spectrogram_fused(x)
     q = torch.zeros((1, 10, 1, 64))
-    ops.flash_attention_fwd(q, q, q)
+    o, lse = ops.flash_attention_fwd(q, q, q)
+    ops.flash_attention_bwd(q, q, q, o, lse, q)
+    ops.flash_attention_bwd_plain(q, q, q, o, lse, q, causal=True)
     kq = torch.zeros((2, 1, 128, 64), dtype=torch.int8)
     ks = torch.ones((2, 1, 1, 128))
     ops.quant_cross_attention_step_indexed(torch.zeros((1, 1, 64)), kq, ks, kq, ks, 1, 1)
     assert sum(ops.launches.values()) == 0
+
+
+@pytest.mark.parametrize("field", ["fused_ln_qkv", "fused_ln_mlp"])
+def test_fused_layernorm_switches_raise(field):
+    for make in (lambda **kw: get_config("base.en", **kw), tiny_test_config):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue B.5"):
+            make(**{field: True})
 
 
 def test_kernel_sources_and_build_flags():

@@ -26,9 +26,21 @@ class WhisperConfig:
     # compute dtype for block matmuls; layer norms, softmax and the vocab
     # logits stay f32
     dtype: str = "bfloat16"
-    # encoder self-attention through the flash forward kernel
-    # (ops/flash_attention.py); False runs models.whisper.attention
+    # encoder self-attention through the flash kernels
+    # (ops/flash_attention.py, forward and backward); False runs
+    # models.whisper.attention
     flash_attention: bool = False
+    # flash attention in the decoder's full-sequence (training) mode too:
+    # causal self-attention and cross-attention, when flash_attention is on
+    flash_decoder: bool = True
+    # label length below which the full-sequence decoder keeps the plain
+    # attention even with flash_decoder (tests set 0 to reach the kernels)
+    flash_decoder_min_seq: int = 256
+    # rematerialization of transformer blocks in training:
+    #   "full" - torch.utils.checkpoint per block, recompute it in backward
+    #   "none" - keep every activation
+    # (the JAX package's selective "dots" and "wide" are not ported yet)
+    remat: str = "full"
     # int8 cross-attention K/V for decode (models/whisper.py:quantize_cross_kv)
     quantize_cross_kv: bool = False
     # single-query int8 cross-attention kernel for the decode step
@@ -38,9 +50,35 @@ class WhisperConfig:
     # tanh-approximate gelu instead of exact erf (the serving fast path)
     gelu_approx: bool = False
 
+    def __post_init__(self):
+        if self.remat in ("dots", "wide"):
+            raise NotImplementedError(f"remat={self.remat!r} (selective checkpointing) is not "
+                                      "ported yet (ROADMAP Queue A.5); use 'full' or 'none'")
+        if self.remat not in ("full", "none"):
+            raise ValueError(f"unknown remat policy {self.remat!r}")
+
     @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def pad_token_id(self) -> int:
+        """<|endoftext|>: the label pad, and the lowest special-token id."""
+        return 50257 if self.multilingual else 50256
+
+
+# the JAX package's fused LayerNorm+matmul switches; their kernel
+# (ops/fused_block.py) is not ported yet
+_UNPORTED_FIELDS = ("fused_ln_qkv", "fused_ln_mlp")
+
+
+def _replace(cfg: WhisperConfig, overrides: dict) -> WhisperConfig:
+    unported = [k for k in _UNPORTED_FIELDS if k in overrides]
+    if unported:
+        raise NotImplementedError(
+            f"{', '.join(unported)}: the fused LayerNorm+matmul kernel is not ported yet "
+            "(ROADMAP Queue B.5)")
+    return replace(cfg, **overrides)
 
 
 # the serving fast path (the JAX package's Pipeline(fast=True)): the
@@ -101,7 +139,7 @@ def get_config(name: str, **overrides) -> WhisperConfig:
         n_vocab=vocab,
         multilingual=not english,
     )
-    return replace(cfg, **overrides)
+    return _replace(cfg, overrides)
 
 
 def tiny_test_config(**overrides) -> WhisperConfig:
@@ -111,4 +149,4 @@ def tiny_test_config(**overrides) -> WhisperConfig:
         n_audio_layers=2, n_text_layers=2, n_vocab=51864, n_text_ctx=448,
         dtype="float32",
     )
-    return replace(cfg, **overrides)
+    return _replace(cfg, overrides)

@@ -1,7 +1,8 @@
 """Weights for the port: carried over from the JAX package, or a seeded init.
 
 ``params_from_jax`` maps the JAX params tree, as numpy arrays, onto the
-port's state dict. The JAX tree stacks each block parameter over layers
+port's state dict, and ``state_dict_to_jax`` maps a state dict (or a dict of
+gradients keyed by parameter name) back. The JAX tree stacks each block parameter over layers
 (L, ...), stores linear weights (in, out) and conv weights (W, I, O)
 (the JAX package's ``models/whisper.py``); the port keeps one module per
 block, ``nn.Linear`` weights (out, in) and ``nn.Conv1d`` weights (O, I, W).
@@ -74,6 +75,47 @@ def params_from_jax(np_tree: dict, cfg: WhisperConfig) -> dict[str, torch.Tensor
     return sd
 
 
+def state_dict_to_jax(sd: dict, cfg: WhisperConfig) -> dict:
+    """The port's state dict (or gradients keyed by parameter name) -> the
+    JAX params tree with numpy f32 leaves: the inverse of ``params_from_jax``."""
+
+    def a(name) -> np.ndarray:
+        return sd[name].detach().float().cpu().numpy()
+
+    def stack(prefix, n, suffix, transpose=False):
+        return np.stack([a(f"{prefix}.{i}.{suffix}").T if transpose
+                         else a(f"{prefix}.{i}.{suffix}") for i in range(n)])
+
+    def ln(prefix, n=None, sub=""):
+        if n is None:
+            return {"scale": a(f"{prefix}.weight"), "bias": a(f"{prefix}.bias")}
+        return {"scale": stack(prefix, n, f"{sub}.weight"),
+                "bias": stack(prefix, n, f"{sub}.bias")}
+
+    def lin(prefix, n, sub, names):
+        out = {}
+        for mod, (w, b) in names.items():
+            out[w] = stack(prefix, n, f"{sub}.{mod}.weight", transpose=True)
+            if b is not None:
+                out[b] = stack(prefix, n, f"{sub}.{mod}.bias")
+        return out
+
+    ne, nd = cfg.n_audio_layers, cfg.n_text_layers
+    eb, db = "encoder.blocks", "decoder.blocks"
+    enc = {c: {"w": a(f"encoder.{c}.weight").transpose(2, 1, 0), "b": a(f"encoder.{c}.bias")}
+           for c in ("conv1", "conv2")}
+    enc.update(pos_emb=a("encoder.pos_emb"), attn_ln=ln(eb, ne, "attn_ln"),
+               attn=lin(eb, ne, "attn", _ATTN), mlp_ln=ln(eb, ne, "mlp_ln"),
+               mlp=lin(eb, ne, "mlp", _MLP), ln_post=ln("encoder.ln_post"))
+    dec = {"token_emb": a("decoder.token_emb"), "pos_emb": a("decoder.pos_emb"),
+           "mlp_ln": ln(db, nd, "mlp_ln"), "mlp": lin(db, nd, "mlp", _MLP),
+           "ln": ln("decoder.ln")}
+    for name in ("self_attn", "cross_attn"):
+        dec[f"{name}_ln"] = ln(db, nd, f"{name}_ln")
+        dec[name] = lin(db, nd, name, _ATTN)
+    return {"encoder": enc, "decoder": dec}
+
+
 def init_state_dict(cfg: WhisperConfig, seed: int = 0) -> dict[str, torch.Tensor]:
     """Seeded random weights (f32, CPU) with the JAX package's init scheme:
     normal / sqrt(fan_in) for linear and conv weights, 0.02 for the token and
@@ -99,12 +141,15 @@ def init_state_dict(cfg: WhisperConfig, seed: int = 0) -> dict[str, torch.Tensor
 
 
 def build_model(cfg: WhisperConfig, state_dict: dict | None = None, seed: int = 0,
-                device="cuda") -> Whisper:
-    """A ``Whisper`` on ``device`` in ``cfg``'s compute dtype, from a state
-    dict (e.g. ``params_from_jax``) or the seeded init."""
+                device="cuda", train: bool = False) -> Whisper:
+    """A ``Whisper`` on ``device`` from a state dict (e.g. ``params_from_jax``)
+    or the seeded init. Serving (``train=False``): block weights and
+    embeddings stored in ``cfg``'s compute dtype, no gradients. Training:
+    every parameter an f32 master that requires grad; the model casts it to
+    the compute dtype at each use."""
     device = resolve_device(device)
     with torch.device("meta"):
-        model = Whisper(cfg)
+        model = Whisper(cfg, param_dtype=torch.float32 if train else None)
     model = model.to_empty(device=device)
     model.load_state_dict(state_dict if state_dict is not None else init_state_dict(cfg, seed))
-    return model.eval().requires_grad_(False)
+    return model.train().requires_grad_(True) if train else model.eval().requires_grad_(False)

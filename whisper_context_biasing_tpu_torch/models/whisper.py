@@ -6,28 +6,34 @@ The counterpart of the JAX package's ``models/whisper.py``, as
 ``nn.Conv1d`` (O, I, W). ``models/convert.py`` carries the JAX params tree
 over. The numerics follow the JAX functions:
 
-  * block matmul weights live in the compute dtype (the JAX package casts
-    its f32 masters at each use, which rounds the same way); layer norms
-    and conv stems keep f32 weights, and every layer norm, softmax and the
-    vocab logits run in f32
+  * weights are cast to the compute dtype at each use, as in the JAX
+    package: a training model (``build_model(..., train=True)``) holds f32
+    masters, so its gradients are taken with respect to f32 weights; a
+    serving model stores block weights and embeddings in the compute dtype,
+    where the cast is a no-op. Layer norms and conv stems keep f32 weights,
+    and every layer norm, softmax and the vocab logits run in f32
   * a projection accumulates in f32, rounds to the compute dtype, then adds
     its bias in the compute dtype (``_proj``)
   * masks use the f32 minimum, not -inf, so fully masked rows (left-padded
     prefix slots) stay finite
 
-The decoder runs the cached mode only (prefill and single-token steps over
-a preallocated KV cache, written in place); the full-sequence training mode
-comes with the training slice.
+The decoder has two modes: cached (prefill and single-token steps over a
+preallocated KV cache, written in place) and full-sequence (training:
+causal self-attention over the labels, the flash kernels at label lengths
+of at least ``flash_decoder_min_seq``). In training, each block runs under
+``cfg.remat`` (``torch.utils.checkpoint`` for "full").
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
 from ..ops.quant_cross_attention import (
@@ -61,9 +67,11 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
 
 
 def _proj(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    y = F.linear(x, lin.weight)
+    """x @ W^T + b with W and b cast to x's dtype: the product accumulates
+    in f32 and rounds to x's dtype, then the bias adds in that dtype."""
+    y = F.linear(x, lin.weight.to(x.dtype))
     if lin.bias is not None:
-        y = y + lin.bias
+        y = y + lin.bias.to(x.dtype)
     return y
 
 
@@ -140,12 +148,14 @@ class EncoderBlock(nn.Module):
 
 
 class AudioEncoder(nn.Module):
-    def __init__(self, cfg: WhisperConfig):
+    def __init__(self, cfg: WhisperConfig, dt: torch.dtype):
         super().__init__()
-        d, dt = cfg.d_model, cfg.compute_dtype
+        d = cfg.d_model
         self.conv1 = nn.Conv1d(cfg.n_mels, d, 3, padding=1)  # f32, as in JAX
         self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1)
-        self.register_buffer("pos_emb", torch.from_numpy(sinusoids(cfg.n_audio_ctx, d)))
+        # sinusoidal init; a parameter, as in the JAX params tree, so training
+        # updates it as the JAX package does
+        self.pos_emb = nn.Parameter(torch.from_numpy(sinusoids(cfg.n_audio_ctx, d)))
         self.blocks = nn.ModuleList(EncoderBlock(d, dt) for _ in range(cfg.n_audio_layers))
         self.ln_post = nn.LayerNorm(d)
 
@@ -162,9 +172,9 @@ class DecoderBlock(nn.Module):
 
 
 class TextDecoder(nn.Module):
-    def __init__(self, cfg: WhisperConfig):
+    def __init__(self, cfg: WhisperConfig, dt: torch.dtype):
         super().__init__()
-        d, dt = cfg.d_model, cfg.compute_dtype
+        d = cfg.d_model
         self.token_emb = nn.Parameter(torch.empty(cfg.n_vocab, d, dtype=dt))
         self.pos_emb = nn.Parameter(torch.empty(cfg.n_text_ctx, d, dtype=dt))
         self.blocks = nn.ModuleList(DecoderBlock(d, dt) for _ in range(cfg.n_text_layers))
@@ -172,24 +182,38 @@ class TextDecoder(nn.Module):
         self._vocab_f32 = None
         self._vocab_key = None
 
-    def vocab_weight_f32(self) -> torch.Tensor:
-        """The tied vocab projection (the token embedding, in the compute
-        dtype) widened to f32 once, so the logits come out of an f32 product
-        of the same values the JAX package multiplies."""
+    def vocab_weight_f32(self, dtype: torch.dtype) -> torch.Tensor:
+        """The tied vocab projection (the token embedding, rounded to
+        ``dtype``) widened to f32 once, so the logits come out of an f32
+        product of the same values the JAX package multiplies. Detached:
+        for inference only (``project_vocab`` keeps training in the graph)."""
         w = self.token_emb
-        key = (w.data_ptr(), w._version, w.device, w.dtype)
+        key = (w.data_ptr(), w._version, w.device, w.dtype, dtype)
         if self._vocab_key != key:
-            self._vocab_f32 = w.detach().float()
+            self._vocab_f32 = w.detach().to(dtype).float()
             self._vocab_key = key
         return self._vocab_f32
 
 
 class Whisper(nn.Module):
-    def __init__(self, cfg: WhisperConfig):
+    """``param_dtype`` is the storage dtype of the block weights and the text
+    embeddings: the compute dtype (serving, the default) or f32 (training)."""
+
+    def __init__(self, cfg: WhisperConfig, param_dtype: torch.dtype | None = None):
         super().__init__()
+        dt = param_dtype or cfg.compute_dtype
         self.cfg = cfg
-        self.encoder = AudioEncoder(cfg)
-        self.decoder = TextDecoder(cfg)
+        self.encoder = AudioEncoder(cfg, dt)
+        self.decoder = TextDecoder(cfg, dt)
+
+
+def _run_block(fn, cfg: WhisperConfig, *args):
+    """One transformer block, recomputed in the backward under
+    ``remat="full"`` while autograd records (the JAX package's ``_remat``);
+    a plain call otherwise."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -205,7 +229,7 @@ def encode_audio(model: Whisper, mel: torch.Tensor) -> torch.Tensor:
     x = x.transpose(1, 2)  # (B, T, D)
     x = x + enc.pos_emb[: x.shape[1]].to(x.dtype)
     for blk in enc.blocks:
-        x = blk(x, cfg)
+        x = _run_block(functools.partial(blk, cfg=cfg), cfg, x)
     return layer_norm(x, enc.ln_post)
 
 
@@ -263,22 +287,46 @@ def init_kv_cache(cfg: WhisperConfig, batch: int, max_len: int, device) -> dict:
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+def _decoder_block_full(blk: DecoderBlock, h, ck, cv, cfg: WhisperConfig, use_flash: bool,
+                        causal_mask):
+    """One decoder block in full-sequence mode: causal self-attention over
+    the whole sequence, cross-attention over one layer's (B, T, D) K/V."""
+    a = layer_norm(h, blk.self_attn_ln)
+    q, k, v = (_proj(a, blk.self_attn.query), _proj(a, blk.self_attn.key),
+               _proj(a, blk.self_attn.value))
+    if use_flash:
+        att = flash_attention(q, k, v, cfg.n_heads, causal=True)
+    else:
+        att = attention(q, k, v, cfg.n_heads, causal_mask)
+    h = h + _proj(att, blk.self_attn.out)
+    cq = _proj(layer_norm(h, blk.cross_attn_ln), blk.cross_attn.query)
+    if use_flash:
+        catt = flash_attention(cq, ck, cv, cfg.n_heads)
+    else:
+        catt = attention(cq, ck, cv, cfg.n_heads)
+    h = h + _proj(catt, blk.cross_attn.out)
+    return h + blk.mlp(layer_norm(h, blk.mlp_ln), cfg)
+
+
 def decode_tokens(
     model: Whisper,
     tokens: torch.Tensor,              # (B, S) int
-    cross_kv,                          # (k, v) each (L, B, T, D), or the int8 dict
+    cross_kv=None,                     # (k, v) each (L, B, T, D), or the int8 dict
     cache: dict | None = None,         # KV cache from init_kv_cache, written in place
     pos_offset: int = 0,               # cache slot of tokens[:, 0]
     token_positions: torch.Tensor | None = None,  # (B, S) position ids (left-pad)
     self_mask: torch.Tensor | None = None,        # (B, T_cache) key-side, True=attend
+    enc_out: torch.Tensor | None = None,          # (B, T, D), when cross_kv is None
 ):
-    """Cached decoder forward: keys/values of ``tokens`` are written into
-    ``cache`` at slots ``pos_offset..pos_offset+S`` (in place) and attention
-    spans the whole cache with later slots masked. Returns (f32 logits
-    (B, S, V), cache)."""
-    if cache is None:
-        raise NotImplementedError(
-            "the full-sequence decoder mode is not ported yet (ROADMAP Queue A.2)")
+    """Decoder forward. Cached mode: keys/values of ``tokens`` are written
+    into ``cache`` at slots ``pos_offset..pos_offset+S`` (in place) and
+    attention spans the whole cache with later slots masked. Full-sequence
+    mode (``cache=None``, training): causal self-attention over ``tokens``.
+    Returns (f32 logits (B, S, V), cache or None)."""
+    if cross_kv is None:
+        if enc_out is None:
+            raise ValueError("need enc_out or cross_kv")
+        cross_kv = precompute_cross_kv(model, enc_out)
     if isinstance(pos_offset, torch.Tensor) and pos_offset.ndim == 1:
         raise NotImplementedError(
             "per-row pos_offset is not ported yet (ROADMAP Queue A.7, speculative decode)")
@@ -293,8 +341,19 @@ def decode_tokens(
 
     if token_positions is None:
         token_positions = pos_offset + torch.arange(s, device=dev)[None, :]
-    x = dec.token_emb[tokens] + dec.pos_emb[token_positions]
+    x = dec.token_emb[tokens].to(dt) + dec.pos_emb[token_positions].to(dt)
     quantized = isinstance(cross_kv, dict)
+
+    if cache is None:
+        if quantized:
+            raise ValueError("quantized cross-KV is decode-only (cached mode)")
+        use_flash = cfg.flash_attention and cfg.flash_decoder and s >= cfg.flash_decoder_min_seq
+        causal = None if use_flash else torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+        for li, blk in enumerate(dec.blocks):
+            fn = functools.partial(_decoder_block_full, blk, cfg=cfg, use_flash=use_flash,
+                                   causal_mask=causal)
+            x = _run_block(fn, cfg, x, cross_kv[0][li].to(dt), cross_kv[1][li].to(dt))
+        return project_vocab(model, layer_norm(x, dec.ln)), None
 
     t_cache = cache["k"].shape[2]
     # causal over cache *slots* (slot i holds token i of the padded sequence;
@@ -333,5 +392,19 @@ def decode_tokens(
 
 def project_vocab(model: Whisper, x: torch.Tensor) -> torch.Tensor:
     """Tied vocab projection of decoder states (B, S, D) -> f32 logits
-    (B, S, V): compute-dtype operands, f32 product and output."""
-    return F.linear(x.float(), model.decoder.vocab_weight_f32())
+    (B, S, V): compute-dtype operands, f32 product and output. While
+    autograd records a trainable embedding, the cast stays in the graph, so
+    the token embedding gets the projection's share of its gradient."""
+    w = model.decoder.token_emb
+    if torch.is_grad_enabled() and w.requires_grad:
+        return F.linear(x.float(), w.to(x.dtype).float())
+    return F.linear(x.float(), model.decoder.vocab_weight_f32(x.dtype))
+
+
+def forward(model: Whisper, input_features: torch.Tensor,
+            decoder_input_ids: torch.Tensor) -> torch.Tensor:
+    """Training forward: mel (B, n_mels, frames) + teacher-forced tokens
+    (B, S) -> f32 logits (B, S, V) (the full-sequence decoder)."""
+    enc_out = encode_audio(model, input_features)
+    logits, _ = decode_tokens(model, decoder_input_ids, enc_out=enc_out)
+    return logits

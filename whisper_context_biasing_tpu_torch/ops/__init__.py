@@ -3,7 +3,13 @@ torch version. A wrapper launches its kernel for CUDA tensors and runs the
 plain version for CPU tensors; kernels build at first use (``_build``)."""
 
 from ._build import launches, reset_launch_counts
-from .flash_attention import flash_attention, flash_attention_fwd, flash_attention_fwd_plain
+from .flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_fwd,
+    flash_attention_fwd_plain,
+)
 from .mel_kernel import log_mel_spectrogram_fused, mel_energies, mel_energies_plain
 from .quant_cross_attention import (
     quant_cross_attention_plain,
@@ -15,6 +21,8 @@ __all__ = [
     "launches",
     "reset_launch_counts",
     "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
     "flash_attention_fwd",
     "flash_attention_fwd_plain",
     "log_mel_spectrogram_fused",

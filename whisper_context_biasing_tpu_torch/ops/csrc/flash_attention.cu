@@ -1,4 +1,4 @@
-// Flash attention forward, non-causal, with a key-length mask.
+// Flash attention forward, full or causal, with a key-length mask.
 //
 // Replaces the TPU kernel whisper_context_biasing_tpu/ops/flash_attention.py:
 // _fwd_kernel (its pallas_call in _flash_fwd_call). That kernel holds a whole
@@ -6,7 +6,12 @@
 // block has far less fast memory, so this one walks the keys in tiles of 64
 // with an online softmax (running row max and row sum, the output rescaled
 // as the max grows). It also writes the per-row logsumexp, which the flash
-// backward will read.
+// backward (flash_attention_bwd.cu) reads.
+//
+// Causal (decoder self-attention, Tq == Tk): key j is masked for query row i
+// when j > i, as in _masked_scores. BQ == BK, so a block stops at the tile
+// holding its diagonal, and every tile it visits has at least one unmasked
+// key in each row: no row ever takes exp(0) of a fully masked tile.
 //
 // What bounds it on an H100: the two products, 4*T*T*64 operations per
 // head, against 4*T*64 elements of q, k, v and o: operations, by far. This
@@ -41,7 +46,8 @@ __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int H, int Tq, int kv_len,
-                     float scale, Strides sq, Strides sk, Strides sv, Strides so) {
+                     float scale, int causal, Strides sq, Strides sk, Strides sv,
+                     Strides so) {
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [D][BQ]  q, transposed
   float* ks = qs + D * BQ;                      // [D][BK]  k tile, transposed
@@ -76,7 +82,8 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   }
 
-  const int n_tiles = (kv_len + BK - 1) / BK;
+  int n_tiles = (kv_len + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, q0 / BK + 1);  // tiles up to the diagonal
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's ks, vs and ps are consumed
@@ -116,7 +123,9 @@ __global__ void __launch_bounds__(THREADS)
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = (k0 + tx * 4 + j < kv_len) ? s[i][j] * scale : -FLT_MAX;
+        const int col = k0 + tx * 4 + j;
+        const bool keep = col < kv_len && (!causal || col <= q0 + ty * 4 + i);
+        s[i][j] = keep ? s[i][j] * scale : -FLT_MAX;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -168,8 +177,8 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int H, int Tq, int kv_len, float scale, Strides sq, Strides sk,
-           Strides sv, Strides so, cudaStream_t stream) {
+           int B, int H, int Tq, int kv_len, float scale, int causal, Strides sq,
+           Strides sk, Strides sv, Strides so, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (D * BQ + D * BK + BK * D + BQ * PS_STRIDE);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -178,25 +187,27 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid((Tq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, H, Tq, kv_len, scale, sq, sk, sv, so);
+      static_cast<T*>(o), lse, H, Tq, kv_len, scale, causal, sq, sk, sv, so);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Strides are in elements. kv_len <= Tk keys are attended.
+// Strides are in elements. kv_len <= Tk keys are attended; causal needs Tq == Tk.
 WCB_EXPORT int wcb_flash_fwd(int dtype, const void* q, const void* k, const void* v,
                              void* o, float* lse, int B, int H, int Tq, int kv_len,
-                             float scale, long long sqb, long long sqt, long long sqh,
+                             float scale, int causal, long long sqb, long long sqt,
+                             long long sqh,
                              long long skb, long long skt, long long skh,
                              long long svb, long long svt, long long svh,
                              long long sob, long long sot, long long soh,
                              cudaStream_t stream) {
   const Strides sq{sqb, sqt, sqh}, sk{skb, skt, skh}, sv{svb, svt, svh}, so{sob, sot, soh};
   if (dtype == WCB_F32)
-    return launch<float>(q, k, v, o, lse, B, H, Tq, kv_len, scale, sq, sk, sv, so, stream);
+    return launch<float>(q, k, v, o, lse, B, H, Tq, kv_len, scale, causal, sq, sk, sv, so,
+                         stream);
   if (dtype == WCB_BF16)
-    return launch<__nv_bfloat16>(q, k, v, o, lse, B, H, Tq, kv_len, scale, sq, sk, sv,
-                                 so, stream);
+    return launch<__nv_bfloat16>(q, k, v, o, lse, B, H, Tq, kv_len, scale, causal, sq, sk,
+                                 sv, so, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
