@@ -33,10 +33,24 @@ on failure:
    exactly the kernel launches the configuration implies;
 6. the same step in f32, once with the kernels and once with the plain
    versions (by config, and the plain mel frontend named outright): the
-   loss and the gradients must agree within the limits printed.
+   loss and the gradients must agree within the limits printed;
+7. the fused training path: phase 5's step and batch with both fused
+   LayerNorm+matmul switches on (the ``--fused_ln`` config), 3 steps, with
+   exactly the launches the configuration implies (120 fused launches per
+   optimizer step);
+8. that fused step in f32 with every kernel against the all-plain config
+   (unfused, no flash, the plain mel frontend): loss and gradients agree;
+9. the fine-tuning entry point: ``train_and_evaluate`` on base.en with the
+   ``--fused_ln`` config over a synthetic WAV corpus written to a
+   temporary directory (``PromptWhisperDataset``, prompts and bias lists),
+   2 optimizer steps, a WER evaluation whose encoder runs the fused kernel,
+   ``refs_and_pred.txt`` and ``checkpoint-2`` read back.
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+Phase 2 also holds the fused LayerNorm+matmul kernel (forward and
+gradients) against its plain version at the encoder's and the decoder's
+shapes. The line before the last is the kernel table as JSON, with each
+kernel's launches summed over the main-path phases (3, 5, 7 and 9); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -318,6 +332,98 @@ def check_quant_cross(torch, ops):
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+# the fused LayerNorm+matmul sites at base.en batch 8: (N, E, act)
+FUSED_SHAPES = {"encoder QKV": (BATCH * T_AUDIO, 3 * D_MODEL, None),
+                "encoder MLP gelu": (BATCH * T_AUDIO, 4 * D_MODEL, "gelu"),
+                "encoder MLP gelu_tanh": (BATCH * T_AUDIO, 4 * D_MODEL, "gelu_tanh"),
+                "decoder cross q": (BATCH * T_TEXT, D_MODEL, None)}
+
+
+def fused_inputs(torch, rng, n, e, dtype):
+    """x (n, 512) in ``dtype``; LayerNorm g, beta and bias b in f32, as the
+    model passes them; W (512, e) as the transposed view of an (e, 512)
+    nn.Linear weight in ``dtype``, as the model passes it."""
+    def t(shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale + shift)
+                                .astype(np.float32)).cuda()
+    return (t((n, D_MODEL), 2.0, 0.5).to(dtype), t((D_MODEL,), 0.1, 1.0),
+            t((D_MODEL,), 0.1), t((e, D_MODEL), D_MODEL ** -0.5).to(dtype).t(), t((e,), 0.5))
+
+
+def check_fused_ln(torch, ops):
+    """K5 against its plain version at the model's four fused sites, bf16
+    and f32, its gradients through the autograd function against autograd
+    of the plain version, and its time beside the bound, the plain
+    version's and the unfused torch sequence it replaces."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(6)
+    entry = None
+    for label, (n, e, act) in FUSED_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g, beta, w, b = fused_inputs(torch, rng, n, e, dtype)
+            got = ops.fused_ln_matmul(x, g, beta, w, b, act=act)
+            want = ops.fused_ln_matmul_plain(x, g, beta, w, b, act=act)
+            err = max_err(got, want)
+            if dtype == torch.float32:
+                # sums over d = 512 in another order: ~1e-6 of |out| ~ 3
+                limit, why = 2e-5, "f32, TF32 off"
+            else:
+                # y rounds to bf16 before the product on both routes (a value
+                # at a rounding boundary may go either way), the output once more
+                limit = 1e-2 * want.float().abs().max().item()
+                why = "1% of max |out|"
+            print(f"K5 fused LN+matmul {str(dtype)[6:]} {label} ({n} x {D_MODEL} -> {e}): "
+                  f"max |err| = {err:.3e} (atol {limit:.2e}, {why})")
+            require(err <= limit, f"fused LN+matmul {dtype} {label} disagrees: {err}")
+        # times in bf16, the training and fast-path dtype
+        itemsize = 2
+        n_bytes = (n * D_MODEL + D_MODEL * e + n * e) * itemsize
+        b_ms, b_by = bound(n_bytes, 2 * n * D_MODEL * e, PEAK_BF16_FLOP_S)
+        ms = median_ms(torch, lambda: ops.fused_ln_matmul(x, g, beta, w, b, act=act))
+        plain_ms = median_ms(torch, lambda: ops.fused_ln_matmul_plain(x, g, beta, w, b, act=act))
+        gc, bc, wc, bbc = g.to(dtype), beta.to(dtype), w.t(), b.to(dtype)
+
+        def unfused():
+            y = F.linear(F.layer_norm(x, (D_MODEL,), gc, bc, 1e-5), wc, bbc)
+            return y if act is None else F.gelu(y, approximate="tanh" if act == "gelu_tanh"
+                                                else "none")
+        unfused_ms = median_ms(torch, unfused)
+        print(f"  fused_ln_matmul {label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by}; the unfused torch sequence layer_norm -> linear"
+              f"{'' if act is None else ' -> gelu'} in bf16: {unfused_ms:.4f} ms, not a "
+              f"library call for the same function)")
+        if entry is None:  # the JSON line carries the encoder QKV shape
+            entry = dict(
+                name="fused_ln_matmul", route="cuda",
+                source="whisper_context_biasing_tpu_torch/ops/csrc/fused_ln_matmul.cu",
+                replaces="whisper_context_biasing_tpu/ops/fused_block.py:74",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+    # gradients of all five inputs at the encoder MLP site
+    n, e, act = FUSED_SHAPES["encoder MLP gelu"]
+    for dtype in (torch.float32, torch.bfloat16):
+        inputs = fused_inputs(torch, rng, n, e, dtype)
+        r = torch.from_numpy(rng.standard_normal((n, e)).astype(np.float32)).cuda()
+        grads = []
+        for fn in (ops.fused_ln_matmul, ops.fused_ln_matmul_plain):
+            leaves = [t.detach().clone().requires_grad_() for t in inputs]
+            (fn(*leaves, act=act).float() * r).sum().backward()
+            grads.append([t.grad for t in leaves])
+        # f32: the two backwards sum in other orders; bf16: the hand-derived
+        # backward keeps dy in f32 where autograd of the plain version
+        # rounds it to bf16 (the dtype of y's cast)
+        rel = 1e-4 if dtype == torch.float32 else 1e-2
+        for name, gk, gp in zip(("x", "g", "beta", "w", "b"), *grads):
+            scale = gp.float().abs().max().item()
+            err = max_err(gk, gp)
+            print(f"K5 fused LN+matmul grad {str(dtype)[6:]} encoder MLP gelu d{name}: "
+                  f"max |err| = {err:.3e} (atol {rel:g} x max |d{name}| = {rel * scale:.3e})")
+            require(err <= rel * scale, f"fused LN+matmul gradient {dtype} d{name} disagrees: "
+                    f"{err} > {rel * scale}")
+    return entry
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the main path, then f32 kernels vs plain versions
 # ---------------------------------------------------------------------------
@@ -469,19 +575,31 @@ def train_batch(rng) -> dict:
     return {k: v.reshape(ACCUM, BATCH, *v.shape[1:]) for k, v in batch.items()}
 
 
-def expected_train_launches(cfg, steps: int) -> dict:
+FUSED_LN = dict(fused_ln_qkv=True, fused_ln_mlp=True)  # the --fused_ln switch
+
+
+def expected_train_launches(cfg, steps: int, s: int = T_TEXT, mel: bool = True) -> dict:
     """Launches the configuration implies: per microbatch one mel, and per
     flash use (every encoder layer; two per decoder layer at S >= the
     threshold) one forward, run again by the backward under full remat, and
-    one backward."""
-    uses = cfg.n_audio_layers + (2 * cfg.n_text_layers if T_TEXT >= cfg.flash_decoder_min_seq
+    one backward; under the fused LayerNorm switches one fused launch per
+    site (two per encoder block, three per decoder block), run again under
+    full remat (its backward launches no kernel)."""
+    uses = cfg.n_audio_layers + (2 * cfg.n_text_layers if s >= cfg.flash_decoder_min_seq
                                  else 0)
     n = steps * ACCUM
-    return {"mel": n, "flash_attention": n * uses * (2 if cfg.remat == "full" else 1),
-            "flash_attention_bwd": n * uses}
+    remat = 2 if cfg.remat == "full" else 1
+    want = {"mel": n} if mel else {}
+    want.update(flash_attention=n * uses * remat, flash_attention_bwd=n * uses)
+    if cfg.fused_ln_qkv and cfg.fused_ln_mlp:
+        want["fused_ln_matmul"] = n * (2 * cfg.n_audio_layers + 3 * cfg.n_text_layers) * remat
+    return want
 
 
-def train(torch, ops, card, profile=None):
+def train(torch, ops, card, profile=None, fused=False, baseline=None):
+    """Phase 5 (``fused=False``) or phase 7: TRAIN_STEPS steps of the
+    base.en training step; ``baseline`` is phase 5's step walls, printed
+    beside phase 7's."""
     from whisper_context_biasing_tpu_torch.models import build_model, get_config
     from whisper_context_biasing_tpu_torch.train import (
         init_train_state,
@@ -490,7 +608,8 @@ def train(torch, ops, card, profile=None):
     )
 
     batch = train_batch(np.random.default_rng(7))
-    cfg = get_config("base.en", dtype="bfloat16", flash_attention=True, remat="full")
+    cfg = get_config("base.en", dtype="bfloat16", flash_attention=True, remat="full",
+                     **(FUSED_LN if fused else {}))
     model = build_model(cfg, seed=0, device="cuda", train=True)
     # the reference recipe, as the JAX package's training benchmark builds it
     opt = make_optimizer(peak_lr=1e-5, warmup_steps=50, total_steps=1000)
@@ -509,11 +628,14 @@ def train(torch, ops, card, profile=None):
     counts = dict(ops.launches)
     want = expected_train_launches(cfg, TRAIN_STEPS)
     audio_s = BATCH * ACCUM * 30.0  # 30 s-padded windows, as the training benchmark counts
-    print(f"training path (base.en bf16, flash, remat full, mel in the step, batch {BATCH} x "
+    what = "fused LN+matmul training path (--fused_ln)" if fused else "training path"
+    print(f"{what} (base.en bf16, flash, remat full, mel in the step, batch {BATCH} x "
           f"accum {ACCUM}, labels {T_TEXT}) on {card}:")
     for i, ((loss, gn), w) in enumerate(zip(metrics, walls)):
+        beside = ("" if baseline is None else f"; unfused (phase 5) {baseline[i] * 1e3:.1f} ms, "
+                  f"{audio_s / baseline[i]:.1f} audio-s/s")
         print(f"  step {i + 1}: loss {loss:.4f}, grad norm {gn:.4f}, wall {w * 1e3:.1f} ms, "
-              f"{audio_s / w:.1f} train audio-s/s  [{card}]")
+              f"{audio_s / w:.1f} train audio-s/s{beside}  [{card}]")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"  launches over {TRAIN_STEPS} steps: {counts} (the configuration implies {want})")
     require(all(np.isfinite(x) for mt in metrics for x in mt), "non-finite loss or grad norm")
@@ -521,11 +643,14 @@ def train(torch, ops, card, profile=None):
     require(state.step == TRAIN_STEPS, "the step counter did not advance")
     if profile:
         profile_run(torch, lambda: step(state, batch), card, walls[-1] * 1e3, profile,
-                    "one training step")
-    return counts
+                    f"one {'fused ' if fused else ''}training step")
+    return counts, walls
 
 
-def train_f32_agreement(torch, ops):
+def train_f32_agreement(torch, ops, fused=False):
+    """Phase 6 (``fused=False``) or phase 8: one f32 step with every kernel
+    of the configuration (and the fused LayerNorm switches in phase 8)
+    against the all-plain configuration."""
     from whisper_context_biasing_tpu_torch.audio import log_mel_spectrogram
     from whisper_context_biasing_tpu_torch.models import build_model, get_config
     from whisper_context_biasing_tpu_torch.train import (
@@ -538,7 +663,8 @@ def train_f32_agreement(torch, ops):
         np.random.default_rng(7)).items()}
     runs = []
     for kernels in (True, False):
-        cfg = get_config("base.en", dtype="float32", flash_attention=kernels, remat="full")
+        cfg = get_config("base.en", dtype="float32", flash_attention=kernels, remat="full",
+                         **(FUSED_LN if fused and kernels else {}))
         model = build_model(cfg, seed=0, device="cuda", train=True)
         opt = make_optimizer(peak_lr=1e-5, warmup_steps=50, total_steps=1000)
         step = make_train_step(cfg, opt, bias_weight=1.5, grad_accum=ACCUM,
@@ -572,7 +698,8 @@ def train_f32_agreement(torch, ops):
     # f32 on both routes, TF32 off: the kernels and the plain attention sum in
     # other orders (~1e-6 relative per attention output), carried through 12
     # layers and the backward; the limit leaves an order of magnitude of room
-    print(f"f32 training step, kernels vs plain versions: loss {kl:.7f} vs {pl:.7f} "
+    print(f"f32 {'fused ' if fused else ''}training step, kernels vs plain versions: "
+          f"loss {kl:.7f} vs {pl:.7f} "
           f"(rel {abs(kl - pl) / abs(pl):.2e}, limit 1e-5), grad norm {kn:.6f} vs {pn:.6f}, "
           f"|g_kernel - g_plain| / |g_plain| = {diff / ref:.2e} (limit 1e-4), worst tensor "
           f"{worst}: max |err| / max |g| = {worst_rel:.2e}")
@@ -580,12 +707,132 @@ def train_f32_agreement(torch, ops):
     require(diff <= 1e-4 * ref, f"f32 training gradients disagree: {diff / ref}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the fine-tuning entry point
+# ---------------------------------------------------------------------------
+
+CORPUS_ROWS = {"train": 2 * BATCH, "dev": BATCH}  # 2 optimizer steps' worth, one eval batch
+EVAL_MAX_LEN = 32
+
+
+def write_corpus(root, rng) -> None:
+    """``{root}/jsonl/{phase}.jsonl`` rows (text, description, bias words from
+    the training phase's vocabulary) and ``{root}/audio/{phase}/*.wav`` clips
+    of 5-30 s of speech-like signal, 16 kHz int16."""
+    import wave
+
+    (root / "jsonl").mkdir(parents=True)
+    for phase, n in CORPUS_ROWS.items():
+        (root / "audio" / phase).mkdir(parents=True)
+        with open(root / "jsonl" / f"{phase}.jsonl", "w") as f:
+            for i in range(n):
+                words = [BIAS_WORDS[(i + j) % len(BIAS_WORDS)] for j in range(1 + i % 2)]
+                text = f"Patient {i} takes {' and '.join(words)} daily."
+                f.write(json.dumps({"id": str(i), "file": f"{phase}{i}.wav", "text": text,
+                                    "description": CONTEXT, "bias_words": words}) + "\n")
+                clip = synthetic_audio(rng, 5 + 25 * (i % BATCH) / (BATCH - 1))
+                with wave.open(str(root / "audio" / phase / f"{phase}{i}.wav"), "wb") as w:
+                    w.setnchannels(1)
+                    w.setsampwidth(2)
+                    w.setframerate(16000)
+                    w.writeframes((np.clip(clip, -1, 1) * 32767).astype(np.int16).tobytes())
+
+
+def entry_point(torch, ops, card):
+    """``train_and_evaluate`` with the --fused_ln config: 2 optimizer steps
+    of batch 8 x accum 2, an eval and a save at step 2. Returns the
+    launches of the run."""
+    import pathlib
+    import tempfile
+
+    from whisper_context_biasing_tpu_torch.data import PromptWhisperDataset, SpeechSeq2SeqCollator
+    from whisper_context_biasing_tpu_torch.metrics import parse_refs_and_pred_file
+    from whisper_context_biasing_tpu_torch.models import get_config
+    from whisper_context_biasing_tpu_torch.tokenizer import load_tokenizer
+    from whisper_context_biasing_tpu_torch.train import (
+        TrainingConfig,
+        load_checkpoint,
+        train_and_evaluate,
+    )
+    from whisper_context_biasing_tpu_torch.utils import RunLogger
+
+    stamps = []
+
+    class StampedLogger(RunLogger):
+        """Records the host clock at each logged entry (a step's entry is
+        logged once its loss is read, i.e. after the step has finished)."""
+
+        def log(self, event, step=None):
+            stamps.append((dict(event), time.perf_counter()))
+            super().log(event, step)
+
+    tok = load_tokenizer()
+    cfg = get_config("base.en", dtype="bfloat16", flash_attention=True, remat="full", **FUSED_LN)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        write_corpus(root / "corpus", np.random.default_rng(8))
+        data = {phase: PromptWhisperDataset(str(root / "corpus" / "audio"),
+                                            str(root / "corpus" / "jsonl"), phase,
+                                            tokenizer=tok, prompt=True, bias_list=True,
+                                            bias_nums=3)
+                for phase in CORPUS_ROWS}
+        coll = SpeechSeq2SeqCollator(pad_token_id=tok.pad_token_id,
+                                     decoder_start_token_id=tok.sot,
+                                     decoder_prev_token_id=tok.sop, pad_to_multiple=32)
+        out = root / "run"
+        tcfg = TrainingConfig(output_dir=str(out), per_device_train_batch_size=BATCH,
+                              gradient_accumulation_steps=ACCUM, num_train_epochs=2,
+                              eval_steps=2, save_steps=2, logging_steps=1,
+                              per_device_eval_batch_size=BATCH,
+                              generation_max_length=EVAL_MAX_LEN, bias_boost=2.0)
+        logger = StampedLogger(str(out), echo=False)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, hist = train_and_evaluate(cfg, None, tok, data["train"], data["dev"], coll,
+                                         tcfg, logger=logger, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.launches)
+        logger.close()
+        stamp = {(e["step"], "eval_wer" in e): t for e, t in stamps}
+        rows = parse_refs_and_pred_file(str(out / "refs_and_pred.txt"))
+        sd, _, meta = load_checkpoint(str(out / "checkpoint-2"), cfg)
+        same = all(torch.equal(sd[n], p.detach().cpu()) for n, p in model.named_parameters())
+    eval_batches = -(-CORPUS_ROWS["dev"] // BATCH)
+    per_step = expected_train_launches(cfg, 1, mel=False)["fused_ln_matmul"]
+    want_fused = 2 * per_step + eval_batches * 2 * cfg.n_audio_layers
+    print(f"fine-tuning entry point (train_and_evaluate, base.en bf16 --fused_ln, flash, remat "
+          f"full, batch {BATCH} x accum {ACCUM}, 2 steps, eval of {CORPUS_ROWS['dev']} rows at "
+          f"generation_max_length {EVAL_MAX_LEN}, bias boost 2.0) on {card}:")
+    print(f"  step 1 {1e3 * (stamp[1, False] - t0):.1f} ms after the call (model build, "
+          f"loader start and first-use set-up included), step 2 "
+          f"{1e3 * (stamp[2, False] - stamp[1, False]):.1f} ms, eval "
+          f"{1e3 * (stamp[2, True] - stamp[2, False]):.1f} ms, whole call {wall:.2f} s "
+          f"(checkpoint write and best-checkpoint reload included)  [{card}]")
+    print(f"  log history: {[{k: v for k, v in e.items() if k != 'elapsed_s'} for e in hist]}")
+    print(f"  refs_and_pred.txt: {len(rows[0])} rows; checkpoint-2 step {meta['step']}, "
+          f"params equal to the trained model: {same}")
+    print(f"  launches: {counts} (fused LN+matmul: 2 steps x {per_step} + {eval_batches} eval "
+          f"batch(es) x {2 * cfg.n_audio_layers} = {want_fused})")
+    require(any("loss" in e and np.isfinite(e["loss"]) for e in hist), "no finite loss logged")
+    require(any("eval_wer" in e for e in hist), "no eval_wer logged")
+    require(len(rows[0]) == CORPUS_ROWS["dev"], f"refs_and_pred.txt has {len(rows[0])} rows")
+    require(meta["step"] == 2 and same, "checkpoint-2 does not hold the trained model")
+    require(counts.get("fused_ln_matmul") == want_fused,
+            f"fused LN+matmul launches {counts.get('fused_ln_matmul')} != {want_fused}")
+    require(counts.get("flash_attention", 0) > 0 and counts.get("flash_attention_bwd", 0) > 0,
+            "the entry point never launched the flash kernels")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="TABLE_PATH",
-                    help="also profile one serving run and one training step: device "
-                         "time by kernel, the full profiler tables written to "
-                         "TABLE_PATH and TABLE_PATH.train")
+                    help="also profile one serving run, one training step and one "
+                         "fused training step: device time by kernel, the full profiler "
+                         "tables written to TABLE_PATH, TABLE_PATH.train and "
+                         "TABLE_PATH.fused")
     args = ap.parse_args()
 
     import torch
@@ -604,7 +851,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     out = _build.build_all()
     print(f"built kernels in {time.perf_counter() - t0:.1f} s into {out}")
     for log in sorted(out.glob("*.log")):
@@ -613,17 +860,29 @@ def main() -> int:
                 print(f"  {log.stem}: {line.strip()}")
 
     kernels = [check_mel(torch, ops), check_flash(torch, ops), check_flash_bwd(torch, ops),
-               check_quant_cross(torch, ops)]
+               check_quant_cross(torch, ops), check_fused_ln(torch, ops)]
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']}, library {k['library_ms']}) [{card}]")
+    phase = time.perf_counter()
+    print(f"phases 1-2 took {phase - start:.1f} s")
     serve_counts = serve(torch, Pipeline, ops, card, args.profile)
     f32_agreement(torch, Pipeline, ops)
-    train_counts = train(torch, ops, card, args.profile and args.profile + ".train")
+    train_counts, walls = train(torch, ops, card, args.profile and args.profile + ".train")
     train_f32_agreement(torch, ops)
-    # launches: the serving path's run plus the training path's run
+    print(f"phases 3-6 took {time.perf_counter() - phase:.1f} s")
+    phase = time.perf_counter()
+    fused_counts, _ = train(torch, ops, card, args.profile and args.profile + ".fused",
+                            fused=True, baseline=walls)
+    train_f32_agreement(torch, ops, fused=True)
+    entry_counts = entry_point(torch, ops, card)
+    print(f"phases 7-9 took {time.perf_counter() - phase:.1f} s")
+    # launches: the runs of the main-path phases (3, 5, 7 and 9)
     for k in kernels:
-        k["launches"] = serve_counts.get(k["name"], 0) + train_counts.get(k["name"], 0)
+        k["launches"] = sum(c.get(k["name"], 0) for c in (serve_counts, train_counts,
+                                                          fused_counts, entry_counts))
+        require(k["launches"] > 0, f"the main path never launched {k['name']}")
+    print(f"chip_smoke total {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

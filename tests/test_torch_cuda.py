@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain torch versions, at edge
 shapes the main path does not reach (ragged tiles, kv_len < Tk, Tq != Tk,
-causal, strided views, every layer offset, 128 mels), plus a small
-end-to-end decode and a small training step with the kernels on and off.
+causal, strided views, every layer offset, 128 mels, the fused
+LayerNorm+matmul at every model width's d), plus a small end-to-end decode
+and small training steps (unfused and fused) with the kernels on and off.
 
 These need an NVIDIA GPU and nvcc: they carry the ``cuda`` marker and skip
 elsewhere. On a machine with the card (no JAX needed):
@@ -199,6 +200,98 @@ def test_train_step_kernels_match_plain(dev):
     # per microbatch: mel 1; 6 flash uses (2 encoder, 2 x 2 decoder), each
     # forward run twice under full remat, each backward once
     assert kc == {"mel": 2, "flash_attention": 24, "flash_attention_bwd": 12}
+    assert not pc
+    assert kl == pytest.approx(pl, rel=1e-5)
+    for a, b in zip(kg, pg):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+
+
+# the fused LayerNorm+matmul kernel: f32 sums over d in another order;
+# bf16 rounds y = LN(x) * g + beta to bf16 before the product on both
+# routes (a value at a rounding boundary may go either way) and the output
+# once more: 1% of the largest output
+@pytest.mark.parametrize("d", [384, 512, 1280])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "gelu", "gelu_tanh"])
+def test_fused_ln_matmul_kernel(dev, act, dtype, d):
+    rng = np.random.default_rng(d)
+    e = 3 * d + 72  # a ragged last column tile
+    x = (_rand(rng, (2, 151, d), dev) * 2 + 0.5).to(dtype)  # N = 302, a ragged row tile
+    g, beta = 1 + 0.1 * _rand(rng, (d,), dev), 0.1 * _rand(rng, (d,), dev)
+    w = (_rand(rng, (e, d), dev) / d ** 0.5).to(dtype).t()  # an nn.Linear weight, transposed
+    b = _rand(rng, (e,), dev)
+    ops.reset_launch_counts()
+    got = ops.fused_ln_matmul(x, g, beta, w, b, act=act)
+    assert ops.launches["fused_ln_matmul"] == 1
+    want = ops.fused_ln_matmul_plain(x, g, beta, w, b, act=act)
+    assert got.dtype == dtype and got.shape == (2, 151, e)
+    atol = 2e-5 if dtype == torch.float32 else 1e-2 * want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    nobias = ops.fused_ln_matmul(x, g, beta, w.contiguous(), act=act)  # W copied to W^T
+    torch.testing.assert_close(nobias.float(), ops.fused_ln_matmul_plain(
+        x, g, beta, w, act=act).float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "gelu", "gelu_tanh"])
+def test_fused_ln_matmul_grads(dev, act, dtype):
+    """The kernel's forward with the hand-derived backward against torch
+    autograd through the plain version: 1e-4 (f32) or 1% (bf16) of each
+    gradient's largest value."""
+    rng = np.random.default_rng(9)
+    inputs = [_rand(rng, (3, 70, 256), dev).to(dtype), 1 + 0.1 * _rand(rng, (256,), dev),
+              0.1 * _rand(rng, (256,), dev), (_rand(rng, (256, 520), dev) / 16).to(dtype),
+              _rand(rng, (520,), dev)]
+    r = _rand(rng, (3, 70, 520), dev)
+    grads = []
+    for fn in (ops.fused_ln_matmul, ops.fused_ln_matmul_plain):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        (fn(*leaves, act=act).float() * r).sum().backward()
+        grads.append([t.grad for t in leaves])
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    for name, got, want in zip(("x", "g", "beta", "w", "b"), *grads):
+        assert got.dtype == want.dtype, name
+        scale = want.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), atol=rel * scale, rtol=0,
+                                   msg=f"d{name}")
+
+
+def test_fused_ln_matmul_rejects_what_the_kernel_does_not_take(dev):
+    x = torch.zeros((4, 12), device=dev)
+    with pytest.raises(ValueError, match="d % 8"):
+        ops.fused_ln_matmul(x, torch.ones(12, device=dev), torch.zeros(12, device=dev),
+                            torch.zeros((12, 16), device=dev))
+    x = torch.zeros((4, 16), device=dev)
+    with pytest.raises(ValueError, match="one dtype"):
+        ops.fused_ln_matmul(x, torch.ones(16, device=dev), torch.zeros(16, device=dev),
+                            torch.zeros((16, 16), device=dev, dtype=torch.bfloat16))
+
+
+def test_fused_train_step_kernels_match_plain(dev):
+    """A one-head tiny model (head dim 64): one f32 step with grad
+    accumulation 2 under both fused LayerNorm switches with every kernel,
+    against the all-plain config (unfused, no flash: in f32 the same
+    function up to rounding)."""
+    rng = np.random.default_rng(10)
+    feats = (rng.standard_normal((2, 2, 80, 128)) * 0.3).astype(np.float32)
+    ids = rng.integers(100, 5000, (2, 2, 12)).astype(np.int32)
+    batch = dict(input_features=feats, decoder_input_ids=ids, labels=ids,
+                 bias_spans=np.full((2, 2, 1, 2), 50256, np.int32))
+    runs = []
+    for kernels in (True, False):
+        cfg = tiny_test_config(n_heads=1, flash_attention=kernels, flash_decoder_min_seq=0,
+                               fused_ln_qkv=kernels, fused_ln_mlp=kernels)
+        model = build_model(cfg, seed=0, device=dev, train=True)
+        opt = make_optimizer(peak_lr=1e-3, warmup_steps=0, total_steps=10)
+        step = make_train_step(cfg, opt, grad_accum=2)
+        ops.reset_launch_counts()
+        _, m = step(init_train_state(model, opt), batch)
+        runs.append((float(m["loss"]), [p.grad.clone() for p in model.parameters()],
+                     dict(ops.launches)))
+    (kl, kg, kc), (pl, pg, pc) = runs
+    # per microbatch: 2 fused sites per encoder block, 3 per decoder block,
+    # each forward run twice under full remat; flash as in the unfused step
+    assert kc == {"fused_ln_matmul": 40, "flash_attention": 24, "flash_attention_bwd": 12}
     assert not pc
     assert kl == pytest.approx(pl, rel=1e-5)
     for a, b in zip(kg, pg):

@@ -13,6 +13,7 @@ import torch
 
 import whisper_context_biasing_tpu_torch as port
 from whisper_context_biasing_tpu_torch import Pipeline, ops
+from whisper_context_biasing_tpu_torch.data import prefetch_to_device
 from whisper_context_biasing_tpu_torch.decode import greedy_decode
 from whisper_context_biasing_tpu_torch.models import (
     build_model,
@@ -21,7 +22,7 @@ from whisper_context_biasing_tpu_torch.models import (
     get_config,
     tiny_test_config,
 )
-from whisper_context_biasing_tpu_torch.ops import _build
+from whisper_context_biasing_tpu_torch.ops import _build, fused_block
 
 PKG = pathlib.Path(port.__file__).parent
 
@@ -51,6 +52,13 @@ def test_entry_points_default_to_cuda():
     model = build_model(tiny_test_config(), device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         greedy_decode(model, np.zeros((1, 80, 128), np.float32), [[50257]], [[True]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(prefetch_to_device(iter([{}])))
+    from whisper_context_biasing_tpu_torch.train import TrainingConfig, train_and_evaluate
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_and_evaluate(tiny_test_config(), None, None, [], [], None,
+                           TrainingConfig(output_dir="unused"))
 
 
 @pytest.fixture(scope="module")
@@ -99,14 +107,87 @@ def test_wrappers_count_only_kernel_launches():
     kq = torch.zeros((2, 1, 128, 64), dtype=torch.int8)
     ks = torch.ones((2, 1, 1, 128))
     ops.quant_cross_attention_step_indexed(torch.zeros((1, 1, 64)), kq, ks, kq, ks, 1, 1)
+    x = torch.ones((2, 5, 16), requires_grad=True)
+    ops.fused_ln_matmul(x, torch.ones(16), torch.zeros(16), torch.ones((16, 24)),
+                        act="gelu").sum().backward()
+    ops.fused_ln_matmul_plain(x, torch.ones(16), torch.zeros(16), torch.ones((16, 24)))
     assert sum(ops.launches.values()) == 0
 
 
 @pytest.mark.parametrize("field", ["fused_ln_qkv", "fused_ln_mlp"])
-def test_fused_layernorm_switches_raise(field):
-    for make in (lambda **kw: get_config("base.en", **kw), tiny_test_config):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue B.5"):
-            make(**{field: True})
+def test_fused_layernorm_switches_raise(field, monkeypatch):
+    """The switches raise nothing: they are accepted, and on CPU tensors the
+    model reaches the fused kernel's plain version (once per encoder block
+    under each switch), launching nothing."""
+    assert getattr(get_config("base.en", **{field: True}), field)
+    calls = []
+    plain = fused_block.fused_ln_matmul_plain
+    monkeypatch.setattr(fused_block, "fused_ln_matmul_plain",
+                        lambda *a, **kw: calls.append(kw.get("act", a[5] if len(a) > 5 else None))
+                        or plain(*a, **kw))
+    cfg = tiny_test_config(**{field: True})
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        encode_audio(build_model(cfg, device="cpu"), torch.zeros((1, 80, 128)))
+    assert not ops.launches
+    want = None if field == "fused_ln_qkv" else "gelu"
+    assert calls == [want] * cfg.n_audio_layers
+
+
+def _tiny_loop_args(tmp_path, **over):
+    from whisper_context_biasing_tpu_torch.data import SpeechSeq2SeqCollator
+    from whisper_context_biasing_tpu_torch.tokenizer import load_tokenizer
+    from whisper_context_biasing_tpu_torch.train import TrainingConfig
+
+    tok = load_tokenizer()
+    coll = SpeechSeq2SeqCollator(pad_token_id=tok.pad_token_id, decoder_start_token_id=tok.sot)
+    return (tiny_test_config(), None, tok, [], [], coll,
+            TrainingConfig(output_dir=str(tmp_path), **over))
+
+
+def _evaluate(tmp_path, **kw):
+    from whisper_context_biasing_tpu_torch.train import evaluate_wer
+
+    _, _, tok, _, _, coll, _ = _tiny_loop_args(tmp_path)
+    evaluate_wer(build_model(tiny_test_config(), device="cpu"), tok, [], coll, 1, 4, **kw)
+
+
+def _train(tmp_path, **over):
+    from whisper_context_biasing_tpu_torch.train import train_and_evaluate
+
+    train_and_evaluate(*_tiny_loop_args(tmp_path, **over), device="cpu")
+
+
+def _mp3_item(tmp_path):
+    from whisper_context_biasing_tpu_torch.data import PromptWhisperDataset
+    from whisper_context_biasing_tpu_torch.tokenizer import load_tokenizer
+
+    (tmp_path / "train.jsonl").write_text('{"file": "a.mp3", "text": "x"}\n')
+    PromptWhisperDataset(str(tmp_path), str(tmp_path), "train", tokenizer=load_tokenizer())[0]
+
+
+def _save_orbax(tmp_path):
+    from whisper_context_biasing_tpu_torch.train import save_checkpoint
+
+    save_checkpoint(str(tmp_path), 1, build_model(tiny_test_config(), device="cpu"),
+                    backend="orbax")
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda p: _evaluate(p, num_beams=2), "A.6"),
+    (lambda p: _evaluate(p, medusa={}), "A.7"),
+    (lambda p: _evaluate(p, mesh=object()), "A.9"),
+    (lambda p: _train(p, lora_rank=4), "A.8"),
+    (lambda p: _train(p, spec_augment=True), "A.8"),
+    (lambda p: _train(p, hub_model_id="org/model"), "A.9"),
+    (lambda p: _train(p, checkpoint_backend="orbax"), "A.9"),
+    (_save_orbax, "A.9"),
+    (_mp3_item, "A.1"),
+], ids=["num_beams", "medusa", "mesh", "lora_rank", "spec_augment", "hub_model_id",
+        "orbax_loop", "orbax_save", "mp3_dataset"])
+def test_unported_loop_options_raise(tmp_path, call, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue {item}"):
+        call(tmp_path)
 
 
 def test_kernel_sources_and_build_flags():

@@ -1,5 +1,16 @@
-"""Data layer: the batch collator's bias-span padding contract."""
+"""Data layer: the prompted jsonl dataset, the batch collator's bias-span
+padding contract, and the threaded loader with device prefetch."""
 
 from .collator import BIAS_SPAN_PAD_ID, SpeechSeq2SeqCollator
+from .dataset import PromptWhisperDataset, read_jsonl
+from .prefetch import BatchLoader, batched_indices, prefetch_to_device
 
-__all__ = ["BIAS_SPAN_PAD_ID", "SpeechSeq2SeqCollator"]
+__all__ = [
+    "BIAS_SPAN_PAD_ID",
+    "SpeechSeq2SeqCollator",
+    "PromptWhisperDataset",
+    "read_jsonl",
+    "BatchLoader",
+    "batched_indices",
+    "prefetch_to_device",
+]

@@ -49,6 +49,14 @@ class WhisperConfig:
     fused_quant_cross: bool = False
     # tanh-approximate gelu instead of exact erf (the serving fast path)
     gelu_approx: bool = False
+    # fused LayerNorm+matmul kernel (ops/fused_block.py) for the
+    # pre-attention LN + QKV projection (and the cross-attention query), and
+    # for the pre-MLP LN + first MLP matmul + gelu. The encoder and the
+    # full-sequence (training) decoder use them; the cached single-token
+    # decode path keeps the unfused ops either way. In bf16 the fused config
+    # adds the bias before rounding, so it is not the unfused function
+    fused_ln_qkv: bool = False
+    fused_ln_mlp: bool = False
 
     def __post_init__(self):
         if self.remat in ("dots", "wide"):
@@ -65,20 +73,6 @@ class WhisperConfig:
     def pad_token_id(self) -> int:
         """<|endoftext|>: the label pad, and the lowest special-token id."""
         return 50257 if self.multilingual else 50256
-
-
-# the JAX package's fused LayerNorm+matmul switches; their kernel
-# (ops/fused_block.py) is not ported yet
-_UNPORTED_FIELDS = ("fused_ln_qkv", "fused_ln_mlp")
-
-
-def _replace(cfg: WhisperConfig, overrides: dict) -> WhisperConfig:
-    unported = [k for k in _UNPORTED_FIELDS if k in overrides]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: the fused LayerNorm+matmul kernel is not ported yet "
-            "(ROADMAP Queue B.5)")
-    return replace(cfg, **overrides)
 
 
 # the serving fast path (the JAX package's Pipeline(fast=True)): the
@@ -139,7 +133,7 @@ def get_config(name: str, **overrides) -> WhisperConfig:
         n_vocab=vocab,
         multilingual=not english,
     )
-    return _replace(cfg, overrides)
+    return replace(cfg, **overrides)
 
 
 def tiny_test_config(**overrides) -> WhisperConfig:
@@ -149,4 +143,4 @@ def tiny_test_config(**overrides) -> WhisperConfig:
         n_audio_layers=2, n_text_layers=2, n_vocab=51864, n_text_ctx=448,
         dtype="float32",
     )
-    return _replace(cfg, overrides)
+    return replace(cfg, **overrides)

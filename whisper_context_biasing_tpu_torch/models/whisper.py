@@ -16,6 +16,12 @@ over. The numerics follow the JAX functions:
     its bias in the compute dtype (``_proj``)
   * masks use the f32 minimum, not -inf, so fully masked rows (left-padded
     prefix slots) stay finite
+  * with ``cfg.fused_ln_qkv`` / ``cfg.fused_ln_mlp`` the encoder and the
+    full-sequence decoder run each pre-attention LayerNorm + QKV (and the
+    cross-attention query), and each pre-MLP LayerNorm + first MLP product
+    + gelu, through the fused LayerNorm+matmul kernel (``_ln_qkv``,
+    ``_ln_proj``, ``_ln_mlp``), which adds the bias in f32 before its one
+    rounding; the cached decoder keeps the unfused ops, as in JAX
 
 The decoder has two modes: cached (prefill and single-token steps over a
 preallocated KV cache, written in place) and full-sequence (training:
@@ -36,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
+from ..ops.fused_block import fused_ln_matmul
 from ..ops.quant_cross_attention import (
     quant_cross_attention_plain,
     quant_cross_attention_step_indexed,
@@ -105,6 +112,40 @@ def _gelu(x, cfg: WhisperConfig):
     return F.gelu(x, approximate="tanh" if cfg.gelu_approx else "none")
 
 
+def _ln_qkv(h, ln: nn.LayerNorm, attn: "Attention", cfg: WhisperConfig):
+    """Pre-attention LayerNorm + QKV projections -> (q, k, v). With
+    ``cfg.fused_ln_qkv`` one fused pass over h computes the three as one
+    (N, 3d) product with W = [Wq | Wk | Wv] in the compute dtype and the
+    bias [bq, 0, bv] (Whisper's key has no bias); q, k and v are views of
+    its output."""
+    if cfg.fused_ln_qkv:
+        d = h.shape[-1]
+        w = torch.cat([attn.query.weight, attn.key.weight, attn.value.weight]).to(h.dtype)
+        b = torch.cat([attn.query.bias, attn.query.bias.new_zeros(d), attn.value.bias])
+        qkv = fused_ln_matmul(h, ln.weight, ln.bias, w.t(), b)
+        return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    a = layer_norm(h, ln)
+    return _proj(a, attn.query), _proj(a, attn.key), _proj(a, attn.value)
+
+
+def _ln_proj(h, ln: nn.LayerNorm, lin: nn.Linear, cfg: WhisperConfig):
+    """LayerNorm + one projection (the cross-attention query), fused under
+    ``cfg.fused_ln_qkv``."""
+    if cfg.fused_ln_qkv:
+        return fused_ln_matmul(h, ln.weight, ln.bias, lin.weight.to(h.dtype).t(), lin.bias)
+    return _proj(layer_norm(h, ln), lin)
+
+
+def _ln_mlp(h, ln: nn.LayerNorm, mlp: "MLP", cfg: WhisperConfig):
+    """Pre-MLP LayerNorm + MLP. With ``cfg.fused_ln_mlp`` the LayerNorm, the
+    first product, its bias and the gelu are one fused pass."""
+    if cfg.fused_ln_mlp:
+        wide = fused_ln_matmul(h, ln.weight, ln.bias, mlp.fc1.weight.to(h.dtype).t(),
+                               mlp.fc1.bias, act="gelu_tanh" if cfg.gelu_approx else "gelu")
+        return _proj(wide, mlp.fc2)
+    return mlp(layer_norm(h, ln), cfg)
+
+
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
@@ -137,14 +178,13 @@ class EncoderBlock(nn.Module):
         self.mlp = MLP(d, dtype)
 
     def forward(self, h, cfg: WhisperConfig):
-        a = layer_norm(h, self.attn_ln)
-        q, k, v = _proj(a, self.attn.query), _proj(a, self.attn.key), _proj(a, self.attn.value)
+        q, k, v = _ln_qkv(h, self.attn_ln, self.attn, cfg)
         if cfg.flash_attention:
             att = flash_attention(q, k, v, cfg.n_heads)
         else:
             att = attention(q, k, v, cfg.n_heads)
         h = h + _proj(att, self.attn.out)
-        return h + self.mlp(layer_norm(h, self.mlp_ln), cfg)
+        return h + _ln_mlp(h, self.mlp_ln, self.mlp, cfg)
 
 
 class AudioEncoder(nn.Module):
@@ -291,21 +331,19 @@ def _decoder_block_full(blk: DecoderBlock, h, ck, cv, cfg: WhisperConfig, use_fl
                         causal_mask):
     """One decoder block in full-sequence mode: causal self-attention over
     the whole sequence, cross-attention over one layer's (B, T, D) K/V."""
-    a = layer_norm(h, blk.self_attn_ln)
-    q, k, v = (_proj(a, blk.self_attn.query), _proj(a, blk.self_attn.key),
-               _proj(a, blk.self_attn.value))
+    q, k, v = _ln_qkv(h, blk.self_attn_ln, blk.self_attn, cfg)
     if use_flash:
         att = flash_attention(q, k, v, cfg.n_heads, causal=True)
     else:
         att = attention(q, k, v, cfg.n_heads, causal_mask)
     h = h + _proj(att, blk.self_attn.out)
-    cq = _proj(layer_norm(h, blk.cross_attn_ln), blk.cross_attn.query)
+    cq = _ln_proj(h, blk.cross_attn_ln, blk.cross_attn.query, cfg)
     if use_flash:
         catt = flash_attention(cq, ck, cv, cfg.n_heads)
     else:
         catt = attention(cq, ck, cv, cfg.n_heads)
     h = h + _proj(catt, blk.cross_attn.out)
-    return h + blk.mlp(layer_norm(h, blk.mlp_ln), cfg)
+    return h + _ln_mlp(h, blk.mlp_ln, blk.mlp, cfg)
 
 
 def decode_tokens(

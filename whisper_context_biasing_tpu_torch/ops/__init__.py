@@ -10,6 +10,12 @@ from .flash_attention import (
     flash_attention_fwd,
     flash_attention_fwd_plain,
 )
+from .fused_block import (
+    fused_ln_matmul,
+    fused_ln_matmul_bwd,
+    fused_ln_matmul_fwd,
+    fused_ln_matmul_plain,
+)
 from .mel_kernel import log_mel_spectrogram_fused, mel_energies, mel_energies_plain
 from .quant_cross_attention import (
     quant_cross_attention_plain,
@@ -25,6 +31,10 @@ __all__ = [
     "flash_attention_bwd_plain",
     "flash_attention_fwd",
     "flash_attention_fwd_plain",
+    "fused_ln_matmul",
+    "fused_ln_matmul_bwd",
+    "fused_ln_matmul_fwd",
+    "fused_ln_matmul_plain",
     "log_mel_spectrogram_fused",
     "mel_energies",
     "mel_energies_plain",

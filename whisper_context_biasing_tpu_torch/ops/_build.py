@@ -25,7 +25,8 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / ".torch_ext_build"
-KERNELS = ("mel", "flash_attention", "flash_attention_bwd", "quant_cross_attention")
+KERNELS = ("mel", "flash_attention", "flash_attention_bwd", "quant_cross_attention",
+           "fused_ln_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

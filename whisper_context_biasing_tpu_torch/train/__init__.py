@@ -1,6 +1,16 @@
 """Training layer: the WeightCE loss, clipped AdamW with a warmup-cosine
-schedule, and the training step with microbatch accumulation."""
+schedule, the training step with microbatch accumulation, npz checkpoints in
+the JAX package's layout, and the fine-tuning loop with WER evaluation."""
 
+from .checkpoint import (
+    find_best_checkpoint,
+    is_native_checkpoint,
+    latest_checkpoint,
+    list_checkpoints,
+    load_checkpoint,
+    save_checkpoint,
+)
+from .loop import TrainingConfig, evaluate_wer, train_and_evaluate
 from .loss import bias_span_weights, weighted_ce_loss
 from .optim import AdamW, OptState, global_norm, make_optimizer, warmup_cosine_schedule
 from .step import (
@@ -13,6 +23,15 @@ from .step import (
 )
 
 __all__ = [
+    "find_best_checkpoint",
+    "is_native_checkpoint",
+    "latest_checkpoint",
+    "list_checkpoints",
+    "load_checkpoint",
+    "save_checkpoint",
+    "TrainingConfig",
+    "evaluate_wer",
+    "train_and_evaluate",
     "bias_span_weights",
     "weighted_ce_loss",
     "AdamW",

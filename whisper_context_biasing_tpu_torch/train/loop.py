@@ -1,0 +1,390 @@
+"""Training loop: the fine-tune with periodic WER evaluation, checkpoints,
+early stopping and resume.
+
+The counterpart of the JAX package's ``train/loop.py``, the native
+replacement for HF ``Seq2SeqTrainer`` as the reference drives it
+(scripts/train.py:225-273):
+
+  * effective batch = per-step batch × grad accumulation (8×4)
+  * AdamW + cosine w/ warmup, weight decay, grad clipping
+  * eval every ``eval_steps`` optimizer steps: batched greedy decode over the
+    KV cache, scored by the compute_wer flow, refs_and_pred.txt written
+  * checkpoint every ``save_steps`` (the JAX package's npz layout) with the
+    accumulated log_history, written on a background thread; retention
+    keep-N + best (load_best_model_at_end on lowest eval_wer)
+  * early stopping patience on eval_wer
+  * resume from the newest local checkpoint, optimizer state included
+
+Generation during eval is UNPROMPTED (prefix = <|startoftranscript|> only),
+matching the reference pipeline; ``prompt_generation=True`` decodes from
+each label's context prefix instead.
+
+The loop trains a ``Whisper`` model (f32 masters, ``build_model(...,
+train=True)``) in place through the port's ``TrainState``; with
+``cfg.fused_ln_qkv`` / ``fused_ln_mlp`` (the ``--fused_ln`` switch) its
+steps and the eval's encoder run the fused LayerNorm+matmul kernel. Options
+whose modules are not ported yet raise ``NotImplementedError`` naming their
+ROADMAP item: beams and Medusa eval (A.6, A.7), LoRA and SpecAugment (A.8),
+meshes, shard functions, the Hub and the Orbax backend (A.9).
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+import threading
+import time
+from dataclasses import dataclass
+
+import numpy as np
+
+from .._device import resolve_device
+from ..data.collator import SpeechSeq2SeqCollator
+from ..data.prefetch import BatchLoader, prefetch_to_device
+from ..decode.bias_processor import sanitize_bias_spans
+from ..decode.greedy import greedy_decode, pack_prefixes
+from ..metrics.evaluate import score_predictions
+from ..models.config import WhisperConfig
+from ..models.convert import build_model
+from ..models.whisper import Whisper
+from ..utils.logging import RunLogger
+from .checkpoint import (
+    find_best_checkpoint,
+    host_arrays,
+    latest_checkpoint,
+    load_checkpoint,
+    write_checkpoint,
+)
+from .optim import make_optimizer
+from .step import init_train_state, make_train_step
+
+
+@dataclass
+class TrainingConfig:
+    output_dir: str
+    per_device_train_batch_size: int = 8
+    per_device_eval_batch_size: int = 2
+    gradient_accumulation_steps: int = 4
+    learning_rate: float = 1e-5
+    num_train_epochs: float = 5
+    warmup_steps: int = 50
+    weight_decay: float = 0.01
+    max_grad_norm: float = 1.0
+    eval_steps: int = 135
+    save_steps: int = 135
+    logging_steps: int = 50
+    save_total_limit: int = 1
+    checkpoint_backend: str = "npz"  # "orbax" is not ported (ROADMAP A.9)
+    early_stopping_patience: int = 3
+    generation_max_length: int = 225
+    bias_weight: float = 1.5
+    freeze_encoder: bool = False
+    seed: int = 42
+    label_pad_multiple: int = 32
+    prompt_generation: bool = False
+    bias_boost: float = 0.0
+    load_best_model_at_end: bool = True
+    dataloader_num_workers: int = 4
+    mel_on_device: bool = False  # dataset must be built with return_audio=True
+    spec_augment: bool = False   # not ported (ROADMAP A.8)
+    lora_rank: int = 0           # >0 not ported (ROADMAP A.8)
+    lora_alpha: float = 16.0
+    use_wandb: bool = False
+    wandb_project: str | None = None
+    hub_model_id: str | None = None  # not ported (ROADMAP A.9)
+    hub_token: str | None = None
+    hub_push_on_save: bool = True
+
+
+def _check_ported(tcfg: TrainingConfig) -> None:
+    if tcfg.lora_rank > 0:
+        raise NotImplementedError("LoRA training is not ported yet (ROADMAP Queue A.8, "
+                                  "train/lora.py)")
+    if tcfg.spec_augment:
+        raise NotImplementedError("SpecAugment is not ported yet (ROADMAP Queue A.8, "
+                                  "train/augment.py)")
+    if tcfg.hub_model_id:
+        raise NotImplementedError("Hub sync is not ported yet (ROADMAP Queue A.9, "
+                                  "utils/hub.py)")
+    if tcfg.checkpoint_backend == "orbax":
+        raise NotImplementedError("the Orbax checkpoint backend is not ported yet "
+                                  "(ROADMAP Queue A.9)")
+    if tcfg.checkpoint_backend != "npz":
+        raise ValueError(f"unknown checkpoint backend {tcfg.checkpoint_backend!r} "
+                         "(expected 'npz' or 'orbax')")
+
+
+def evaluate_wer(
+    model: Whisper,
+    tokenizer,
+    dataset,
+    collator: SpeechSeq2SeqCollator,
+    batch_size: int,
+    max_new: int,
+    refs_pred_file: str | None = None,
+    prompt_generation: bool = False,
+    bias_boost: float = 0.0,
+    num_beams: int = 1,
+    num_workers: int = 4,
+    mesh=None,
+    medusa: dict | None = None,
+) -> dict:
+    """Batched greedy decode over a dataset + compute_wer scoring, on the
+    model's device. Returns {"wer": percent}.
+
+    Item prep runs on BatchLoader threads, the final partial batch is padded
+    up to ``batch_size`` by repeating its first row (stripped after decode),
+    prefix lengths are bucketed to multiples of 32 and bias-span dims to
+    multiples of 4, as in the JAX package (there for its compiled shapes;
+    here they keep the batches, and so the results, the same)."""
+    if num_beams > 1:
+        raise NotImplementedError("beam search is not ported yet (ROADMAP Queue A.6, "
+                                  "decode/beam.py)")
+    if medusa is not None:
+        raise NotImplementedError("Medusa decoding is not ported yet (ROADMAP Queue A.7)")
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded evaluation is not ported yet "
+                                  "(ROADMAP Queue A.9)")
+    # shallow-copy the collator: mid-training evals run while the training
+    # BatchLoader threads still collate with the shared instance — mutating
+    # span_pad_multiple on it would change train batch shapes mid-flight
+    collator = copy.copy(collator)
+
+    all_preds: list[list[int]] = []
+    all_labels: list[list[int]] = []
+
+    def collate(items):
+        batch = collator(items)
+        if prompt_generation:
+            prefixes = []
+            for item in items:
+                seq = np.asarray(item["labels"]).tolist()
+                sot_at = seq.index(tokenizer.sot) if tokenizer.sot in seq else 0
+                prefixes.append(seq[: sot_at + 1])  # context + sot
+        else:
+            prefixes = [[tokenizer.sot]] * len(items)
+        batch["_prefixes"] = prefixes
+        return batch
+
+    if collator.max_spans is None and collator.span_pad_multiple is None:
+        collator.span_pad_multiple = 4
+    loader = BatchLoader(dataset, collate, batch_size, num_workers=num_workers)
+    for batch in loader:
+        _eval_decode_batch(batch, all_preds, all_labels, model, tokenizer, collator,
+                           batch_size, max_new, bias_boost)
+    return score_predictions(all_preds, all_labels, tokenizer, refs_pred_file)
+
+
+def _pad_rows(a: np.ndarray, b_full: int) -> np.ndarray:
+    """Repeat the first row to reach the static batch size."""
+    if a.shape[0] == b_full:
+        return a
+    reps = np.repeat(a[:1], b_full - a.shape[0], axis=0)
+    return np.concatenate([a, reps], axis=0)
+
+
+def _eval_decode_batch(batch, all_preds, all_labels, model: Whisper, tokenizer, collator,
+                       batch_size, max_new, bias_boost):
+    prefixes = batch.pop("_prefixes")
+    b = len(prefixes)
+    ids, mask = pack_prefixes(prefixes, tokenizer.eot, pad_to_multiple=32)
+    feats = np.asarray(batch["input_features"])
+    if b < batch_size:  # pad the trailing partial batch to the full shape
+        feats = _pad_rows(feats, batch_size)
+        ids = _pad_rows(ids, batch_size)
+        mask = _pad_rows(mask, batch_size)
+    spans = None
+    if bias_boost and "bias_spans" in batch:
+        # drop the collator's all-empty (B,1,1) zeros fallback — it is
+        # NOT a real length-1 span of token id 0
+        spans = sanitize_bias_spans(batch["bias_spans"])
+        if spans is not None:
+            spans = _pad_rows(np.asarray(spans), batch_size)
+    res = greedy_decode(
+        model, feats, ids, mask, max_new=max_new, eot_id=tokenizer.eot,
+        bias_spans=spans, bias_boost=bias_boost, span_pad_id=collator.bias_span_pad_id,
+        device=next(model.parameters()).device,
+    )
+    toks = res.tokens.cpu().numpy()
+    lens = res.lengths.cpu().numpy()
+    for i in range(b):
+        all_preds.append(toks[i, : lens[i]].tolist())
+        all_labels.append(batch["labels"][i].tolist())
+
+
+def train_and_evaluate(
+    model_cfg: WhisperConfig,
+    params: dict | None,
+    tokenizer,
+    data_train,
+    data_eval,
+    collator: SpeechSeq2SeqCollator,
+    tcfg: TrainingConfig,
+    resume: bool = False,
+    shard_fn=None,
+    logger: RunLogger | None = None,
+    mesh=None,
+    device="cuda",
+):
+    """Runs the full fine-tune on ``device`` from ``params`` (a state dict:
+    ``params_from_jax``, ``load_checkpoint``, or None for the seeded init).
+    Returns (the trained ``Whisper`` model, log_history); with
+    ``load_best_model_at_end`` the model holds the best checkpoint's
+    weights."""
+    _check_ported(tcfg)
+    if shard_fn is not None or mesh is not None:
+        raise NotImplementedError("sharded training is not ported yet (ROADMAP Queue A.9)")
+    device = resolve_device(device)
+    os.makedirs(tcfg.output_dir, exist_ok=True)
+    if logger is None:
+        logger = RunLogger(tcfg.output_dir, use_wandb=tcfg.use_wandb,
+                           wandb_project=tcfg.wandb_project)
+    accum = tcfg.gradient_accumulation_steps
+    chunk = tcfg.per_device_train_batch_size * accum
+    steps_per_epoch = max(1, len(data_train) // chunk)
+    total_steps = int(steps_per_epoch * tcfg.num_train_epochs)
+
+    optimizer = make_optimizer(
+        peak_lr=tcfg.learning_rate, warmup_steps=tcfg.warmup_steps,
+        total_steps=total_steps, weight_decay=tcfg.weight_decay,
+        max_grad_norm=tcfg.max_grad_norm,
+    )
+    step_fn = make_train_step(
+        model_cfg, optimizer, bias_weight=tcfg.bias_weight, grad_accum=accum,
+        freeze_encoder=tcfg.freeze_encoder, mel_on_device=tcfg.mel_on_device,
+    )
+
+    log_history: list[dict] = []
+    start_step = 0
+    resumed_opt_state = None
+    if resume:
+        ckpt = latest_checkpoint(tcfg.output_dir)
+        if ckpt:
+            # restore optimizer moments + schedule count too: re-initializing
+            # them would silently re-warm the LR and zero the Adam moments
+            params, resumed_opt_state, meta = load_checkpoint(ckpt, model_cfg,
+                                                              load_opt_state=True)
+            start_step = meta.get("step", 0)
+            log_history = meta.get("log_history", [])
+            print(f"resumed from {ckpt} at step {start_step} "
+                  f"(opt_state {'restored' if resumed_opt_state is not None else 'reset'})")
+
+    model = build_model(model_cfg, params, device=device, train=True)
+    state = init_train_state(model, optimizer)
+    if resumed_opt_state is not None:
+        resumed_opt_state.mu = [m.to(device) for m in resumed_opt_state.mu]
+        resumed_opt_state.nu = [v.to(device) for v in resumed_opt_state.nu]
+        state.opt_state = resumed_opt_state
+    state.step = start_step
+
+    best_wer = min((e["eval_wer"] for e in log_history if "eval_wer" in e), default=float("inf"))
+    # latest eval (value + the step whose params produced it) at (re)start;
+    # updated in the eval branch thereafter
+    last_wer, last_eval_step = next(
+        ((e["eval_wer"], e["step"]) for e in reversed(log_history)
+         if "eval_wer" in e), (None, None))
+    bad_evals = 0
+    step = start_step
+    t0 = time.time()
+    loss_window: list[float] = []
+    stop = False
+    save_thread: threading.Thread | None = None
+
+    def prep(items):
+        batch = collator(items)
+        if "bias_spans" in batch and sanitize_bias_spans(batch["bias_spans"]) is None:
+            # all-empty fallback: replace with an all-pad span (span_len 0,
+            # weights stay 1.0) instead of the zeros quirk the loss would
+            # read as a real span of token id 0
+            batch["bias_spans"] = np.full_like(
+                np.asarray(batch["bias_spans"]), collator.bias_span_pad_id)
+        if accum > 1:
+            batch = {
+                k: v.reshape((accum, tcfg.per_device_train_batch_size) + v.shape[1:])
+                for k, v in batch.items()
+            }
+        return batch
+
+    # threaded item prep (audio decode + mel + tokenize) + double-buffered
+    # device copies: the card never waits on host-side batch building
+    loader = BatchLoader(
+        data_train, prep, chunk, shuffle=True, seed=tcfg.seed, drop_last=True,
+        num_workers=tcfg.dataloader_num_workers,
+    )
+    # resumable data order: continue with the epoch permutation the run
+    # would have had, skipping the already-trained batches of the partial
+    # epoch (BatchLoader.resume docstring)
+    loader.resume(start_step // steps_per_epoch, start_step % steps_per_epoch)
+
+    for epoch in range(int(np.ceil(tcfg.num_train_epochs))):
+        if stop or step >= total_steps:
+            break
+        for batch in prefetch_to_device(loader, size=2, device=device):
+            if stop or step >= total_steps:
+                break
+            state, metrics = step_fn(state, batch)
+            step += 1
+            loss_window.append(float(metrics["loss"]))
+
+            if step % tcfg.logging_steps == 0:
+                entry = {
+                    "step": step, "epoch": round(step / steps_per_epoch, 3),
+                    "loss": float(np.mean(loss_window)),
+                    "grad_norm": float(metrics["grad_norm"]),
+                    "elapsed_s": round(time.time() - t0, 1),
+                }
+                loss_window.clear()
+                log_history.append(entry)
+                logger.log(entry)
+
+            if step % tcfg.eval_steps == 0:
+                last_wer = evaluate_wer(
+                    model, tokenizer, data_eval, collator,
+                    tcfg.per_device_eval_batch_size,
+                    tcfg.generation_max_length - 1,
+                    refs_pred_file=os.path.join(tcfg.output_dir, "refs_and_pred.txt"),
+                    prompt_generation=tcfg.prompt_generation,
+                    bias_boost=tcfg.bias_boost,
+                )["wer"]
+                entry = {"step": step, "eval_wer": last_wer}
+                last_eval_step = step
+                log_history.append(entry)
+                logger.log(entry)
+                if last_wer < best_wer:
+                    best_wer, bad_evals = last_wer, 0
+                else:
+                    bad_evals += 1
+                if bad_evals >= tcfg.early_stopping_patience:
+                    print(f"early stopping at step {step} (patience "
+                          f"{tcfg.early_stopping_patience} on eval_wer)")
+                    stop = True
+
+            # saving is independent of evaluation (save_steps need not be a
+            # multiple of eval_steps); the metadata carries the latest wer
+            # plus the step it was measured at, so find_best_checkpoint can
+            # attribute the metric only to the params that achieved it.
+            # The arrays are copied to the host here, and the write runs on
+            # a background thread so the step loop never blocks on disk
+            if step % tcfg.save_steps == 0 or stop:
+                meta = {"log_history": list(log_history)}
+                if last_wer is not None:
+                    meta["eval_wer"] = last_wer
+                    meta["eval_step"] = last_eval_step
+                if save_thread is not None:
+                    save_thread.join()
+                host_params, host_opt = host_arrays(model, state.opt_state)
+                save_thread = threading.Thread(
+                    target=write_checkpoint,
+                    args=(tcfg.output_dir, step, host_params, host_opt, meta,
+                          tcfg.save_total_limit))
+                save_thread.start()
+
+    if save_thread is not None:
+        save_thread.join()
+    if tcfg.load_best_model_at_end:
+        best = find_best_checkpoint(tcfg.output_dir)
+        if best:
+            best_params, _, _ = load_checkpoint(best, model_cfg)
+            model.load_state_dict(best_params)
+            print(f"loaded best checkpoint: {best} (eval_wer {best_wer:.3f})")
+    return model, log_history
