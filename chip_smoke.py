@@ -14,10 +14,10 @@ on failure:
    (one nvcc per source, in parallel) and holds each kernel against its
    plain torch version at base.en shapes with batch 8 (serving, and the
    training step's flash uses: encoder full, decoder causal and decoder
-   cross), printing the max error, the median of CUDA-event-timed runs,
-   the plain version's time, the least time the card could take (its
-   bound) and, where one PyTorch call computes the same function, that
-   call's time;
+   cross), printing the max error, the median device time over
+   CUDA-event-timed bursts of calls, the plain version's time, the least
+   time the card could take (its bound) and, where one PyTorch call
+   computes the same function, that call's time;
 3. the serving path: ``Pipeline("base.en", device="cuda")`` with seeded
    random weights on the fast path (bf16, every kernel) serves 8
    short-form requests with a context and bias words; the launch counts of
@@ -48,15 +48,24 @@ on failure:
 
 Phase 2 also holds the fused LayerNorm+matmul kernel (forward and
 gradients) against its plain version at the encoder's and the decoder's
-shapes. The line before the last is the kernel table as JSON, with each
-kernel's launches summed over the main-path phases (3, 5, 7 and 9); the last
-line is ``{"ok": true, "device": {...}}``.
+shapes, and prints what the compiler and the runtime report of each flash
+kernel (registers, spills, shared memory, resident blocks per SM) and the
+rate each reaches beside its bound. The line before the last is the kernel
+table as JSON, with each kernel's launches summed over the main-path phases
+(3, 5, 7 and 9); the last line is ``{"ok": true, "device": {...}}``.
+
+``--flash-only [TREE]`` stops after the flash kernels' part of phase 2 and
+prints no result line; with TREE, a checkout of another commit, it runs that
+checkout's package, so two versions of K2 and K4 can be timed in turns on one
+card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -79,7 +88,8 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12     # CUDA cores, no tensor cores
 PEAK_BF16_FLOP_S = 989e12   # tensor cores
 
-REPS = 20  # CUDA-event-timed runs per kernel
+REPS = 20  # CUDA-event-timed bursts per kernel
+BURST = 5  # calls per burst
 
 # base.en training shapes: label length n_text_ctx (the longest prompted
 # label sequence), so the decoder takes the flash path
@@ -98,18 +108,32 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+_blocker = []  # one (8192, 8192) bf16 operand, made at first use
+
+
 def median_ms(torch, fn) -> float:
+    """Device time of one ``fn()``: the median over REPS bursts, each BURST
+    calls between two CUDA events that queue up behind ~7 ms of matmul, so
+    the device runs the burst back to back and the host's launch overhead
+    (tens of microseconds a call, more than the smallest kernels take) is
+    not in the reading."""
+    if not _blocker:
+        _blocker.append(torch.randn(8192, 8192, device="cuda").to(torch.bfloat16))
+    block = _blocker[0]
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        for _ in range(4):
+            block @ block
         start.record()
-        fn()
+        for _ in range(BURST):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / BURST)
     return statistics.median(times)
 
 
@@ -137,6 +161,49 @@ def synthetic_audio(rng: np.random.Generator, seconds: float) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
+
+def kernel_name(mangled: str) -> str:
+    """The kernel's own name out of its mangled one (``_ZN<len><scope>
+    <len><name>E...`` or ``_Z<len><name>...``): the last length-prefixed
+    identifier of the leading run."""
+    m = re.match(r"_ZN?", mangled)
+    pos, name = (m.end() if m else 0), mangled
+    while m := re.match(r"\d+", mangled[pos:]):
+        pos += m.end()
+        name = mangled[pos:pos + int(m.group())]
+        pos += int(m.group())
+    return name
+
+
+def print_build_logs(out) -> None:
+    """What ptxas said of each kernel (``-Xptxas -v`` in the build logs):
+    registers, static shared memory, stack and spill bytes."""
+    for log in sorted(out.glob("*.log")):
+        entry = "?"
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = kernel_name(m.group(1))
+            elif "spill" in line or "registers" in line:
+                print(f"  {log.stem} {entry}: {line.replace('ptxas info    :', '').strip()}")
+
+
+def print_flash_kernel_info(card) -> None:
+    """Registers, shared memory a block (static + dynamic) and resident
+    blocks per SM of the flash kernels, as the CUDA runtime reports them."""
+    import importlib
+
+    # by its full name: ops.flash_attention is the function of that name
+    fa = importlib.import_module("whisper_context_biasing_tpu_torch.ops.flash_attention")
+    if not hasattr(fa, "kernel_info"):
+        print("  (this checkout's package has no kernel_info)")
+        return
+    for r in fa.kernel_info():
+        print(f"  {r['kernel']} {r['dtype']}: {r['registers']} registers x {r['threads']} "
+              f"threads, {r['smem_bytes']} B shared memory a block, {r['local_bytes']} B local "
+              f"memory a thread, {r['blocks_per_sm']} blocks ("
+              f"{r['blocks_per_sm'] * r['threads'] // 32} warps) an SM  [{card}]")
+
 
 def check_mel(torch, ops):
     from whisper_context_biasing_tpu_torch.audio.mel import log_mel_tail, mel_filter_bank
@@ -229,8 +296,9 @@ def check_flash(torch, ops):
         plain_ms = median_ms(torch, lambda: ops.flash_attention_fwd_plain(*qkv, causal=causal))
         lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(*heads,
                                                                          is_causal=causal))
-        print(f"  flash_attention {label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms by {b_by}, SDPA {lib_ms:.4f} ms)")
+        print(f"  flash_attention {label}: {ms:.4f} ms = {n_ops / ms / 1e9:.1f} TFLOP/s of "
+              f"{n_ops / 1e9:.2f} GFLOP (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+              f"SDPA {lib_ms:.4f} ms)")
         if entry is None:  # the JSON line carries the encoder shape, as before
             entry = dict(
                 name="flash_attention", route="cuda",
@@ -285,7 +353,9 @@ def check_flash_bwd(torch, ops):
         doh = do.transpose(1, 2)
         lib_ms = median_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
                                                               retain_graph=True))
-        print(f"  flash_attention_bwd {label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+        print(f"  flash_attention_bwd {label}: {ms:.4f} ms = {n_ops / ms / 1e9:.1f} TFLOP/s of "
+              f"the 5 products' {n_ops / 1e9:.2f} GFLOP (the two kernels do 7: "
+              f"{1.4 * n_ops / ms / 1e9:.1f} TFLOP/s executed; plain {plain_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms by {b_by}, SDPA backward {lib_ms:.4f} ms)")
         if entry is None:
             entry = dict(
@@ -833,6 +903,11 @@ def main() -> int:
                          "fused training step: device time by kernel, the full profiler "
                          "tables written to TABLE_PATH, TABLE_PATH.train and "
                          "TABLE_PATH.fused")
+    ap.add_argument("--flash-only", metavar="TREE", nargs="?", const=".",
+                    help="stop after checking and timing the flash kernels (K2, K4) and "
+                         "print no result line; TREE (default: this checkout) is the "
+                         "checkout whose package to run, e.g. an unpacked earlier commit, to "
+                         "time two versions in turns on one card")
     args = ap.parse_args()
 
     import torch
@@ -840,6 +915,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.flash_only:
+        sys.path.insert(0, os.path.abspath(args.flash_only))
     from whisper_context_biasing_tpu_torch import Pipeline, ops
     from whisper_context_biasing_tpu_torch.ops import _build
 
@@ -854,10 +931,14 @@ def main() -> int:
     start = t0 = time.perf_counter()
     out = _build.build_all()
     print(f"built kernels in {time.perf_counter() - t0:.1f} s into {out}")
-    for log in sorted(out.glob("*.log")):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {log.stem}: {line.strip()}")
+    print_build_logs(out)
+    print_flash_kernel_info(card)
+    if args.flash_only:
+        check_flash(torch, ops)
+        check_flash_bwd(torch, ops)
+        print(f"chip_smoke --flash-only {os.path.abspath(args.flash_only)} took "
+              f"{time.perf_counter() - start:.1f} s  [{card}]")
+        return 0
 
     kernels = [check_mel(torch, ops), check_flash(torch, ops), check_flash_bwd(torch, ops),
                check_quant_cross(torch, ops), check_fused_ln(torch, ops)]

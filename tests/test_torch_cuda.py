@@ -54,9 +54,16 @@ def test_mel_kernel(dev, n_samples, n_mels):
     torch.testing.assert_close(log_mel_tail(kern), log_mel_tail(plain), atol=1e-4, rtol=0)
 
 
+# shapes that straddle the kernels' tiles (f32: 64 query rows x 64 keys;
+# bf16: 128 x 64 forward, 64 x 64 backward, worked 16 rows a warp), with
+# kv_len inside the first and the last key tile
+FLASH_SHAPES = [(100, 100, 100), (100, 100, 77), (40, 300, 300), (129, 65, 1), (1, 1, 1),
+                (15, 8, 8), (127, 63, 63), (128, 65, 65), (129, 300, 300), (257, 300, 300),
+                (1, 300, 300), (257, 8, 3), (128, 300, 17), (257, 300, 290), (15, 65, 64)]
+
+
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("tq,tk,kv_len", [(100, 100, 100), (100, 100, 77), (40, 300, 300),
-                                          (129, 65, 1)])
+@pytest.mark.parametrize("tq,tk,kv_len", FLASH_SHAPES)
 def test_flash_kernel(dev, dtype, atol, tq, tk, kv_len):
     rng = np.random.default_rng(tq + tk + kv_len)
     q = _rand(rng, (2, tq, 3, 64), dev, dtype)
@@ -124,7 +131,7 @@ def test_greedy_decode_kernels_match_plain(dev):
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("t", [1, 64, 100, 129])
+@pytest.mark.parametrize("t", [1, 64, 100, 127, 129, 448])
 def test_flash_kernel_causal(dev, dtype, atol, t):
     rng = np.random.default_rng(t)
     q, k, v = (_rand(rng, (2, t, 3, 64), dev, dtype) for _ in range(3))
@@ -141,8 +148,9 @@ def test_flash_kernel_causal(dev, dtype, atol, t):
 # dS = P (dP - D) is f32 cancellation noise around an exact 0
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tq,tk,kv_len,causal", [
-    (100, 100, 100, False), (100, 100, 77, False), (40, 300, 300, False),
-    (129, 65, 1, False), (1, 1, 1, True), (100, 100, 100, True), (129, 129, 129, True)])
+    *((tq, tk, kv_len, False) for tq, tk, kv_len in FLASH_SHAPES),
+    (1, 1, 1, True), (100, 100, 100, True), (127, 127, 127, True), (129, 129, 129, True),
+    (448, 448, 448, True)])
 def test_flash_backward_kernel(dev, dtype, tq, tk, kv_len, causal):
     rng = np.random.default_rng(tq + 7 * tk + kv_len)
     q = _rand(rng, (2, tq, 3, 64), dev, dtype)
@@ -158,6 +166,82 @@ def test_flash_backward_kernel(dev, dtype, tq, tk, kv_len, causal):
         atol = 2e-5 if dtype == torch.float32 else 1e-2 * w.float().abs().max().item() + 1e-5
         torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0)
     assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+def _strided_views(rng, dev, dtype, layout, t):
+    """q, k, v, do as (2, t, 2, 64) views that are not contiguous: every
+    other batch row of a larger tensor, or (q, k, v) side by side in one
+    (2, t, 3 * 128) projection output as the fused QKV path hands them."""
+    if layout == "batch strided":
+        return [_rand(rng, (4, t, 2, 64), dev, dtype)[::2] for _ in range(4)]
+    qkv = _rand(rng, (2, t, 3 * 128), dev, dtype)
+    views = [qkv[..., i * 128:(i + 1) * 128].view(2, t, 2, 64) for i in range(3)]
+    return views + [_rand(rng, (2, t, 2, 64), dev, dtype)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["batch strided", "fused qkv"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_read_strided_views(dev, dtype, layout, causal):
+    """Forward and backward through views (aligned for the bf16 kernels'
+    16-byte copies) give what they give on contiguous copies."""
+    q, k, v, do = _strided_views(np.random.default_rng(11), dev, dtype, layout, 150)
+    assert not q.is_contiguous()
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    qc, kc, vc, doc = (x.contiguous() for x in (q, k, v, do))
+    oc, lsec = ops.flash_attention_fwd(qc, kc, vc, causal=causal)
+    assert torch.equal(o, oc) and torch.equal(lse, lsec)
+    for g, w in zip(got, ops.flash_attention_bwd(qc, kc, vc, oc, lsec, doc, causal=causal)):
+        assert g.is_contiguous() and torch.equal(g, w)
+    po, _ = ops.flash_attention_fwd_plain(q, k, v, causal=causal)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), po.float(), atol=atol, rtol=0)
+
+
+def _misaligned(dev, dtype):
+    """Two (2, 20, 2, 64) views: one starting an element into its storage,
+    one with rows an odd number of elements (129) apart."""
+    offset = torch.zeros(2 * 20 * 2 * 64 + 1, device=dev, dtype=dtype)[1:].view(2, 20, 2, 64)
+    odd_rows = torch.zeros((2, 20, 129), device=dev, dtype=dtype)[..., :128].view(2, 20, 2, 64)
+    return offset, odd_rows
+
+
+def test_flash_wrappers_reject_misaligned_bf16(dev):
+    """The bf16 kernels copy 16 bytes at a time: a view that starts 2 bytes
+    into its storage, or whose rows are an odd number of elements apart,
+    raises from both wrappers (no copy behind the caller's back); the f32
+    kernels load element by element and take both."""
+    good = torch.zeros((2, 20, 2, 64), device=dev, dtype=torch.bfloat16)
+    lse = torch.zeros((2, 2, 20), device=dev)
+    ops.reset_launch_counts()
+    for bad in _misaligned(dev, torch.bfloat16):
+        with pytest.raises(ValueError, match="tensor k must start on a 16-byte boundary"):
+            ops.flash_attention_fwd(good, bad, good)
+        with pytest.raises(ValueError, match="tensor do must start on a 16-byte boundary"):
+            ops.flash_attention_bwd(good, good, good, good, lse, bad)
+    assert not ops.launches
+    for bad in _misaligned(dev, torch.float32):
+        o, _ = ops.flash_attention_fwd(good.float(), bad, good.float())
+        assert not o.any()  # v is zero
+    assert ops.launches == {"flash_attention": 2}
+
+
+@pytest.mark.parametrize("tq,tk,causal", [(300, 300, False), (448, 448, True), (130, 300, False)])
+def test_flash_backward_is_deterministic(dev, tq, tk, causal):
+    """No atomics and every sum in a fixed order: two runs of the bf16
+    backward give the same bits."""
+    rng = np.random.default_rng(12)
+    q, do = (_rand(rng, (2, tq, 3, 64), dev, torch.bfloat16) for _ in range(2))
+    k, v = (_rand(rng, (2, tk, 3, 64), dev, torch.bfloat16) for _ in range(2))
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+    o2, lse2 = ops.flash_attention_fwd(q, k, v, causal=causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    first = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    for _ in range(3):
+        again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        for name, a, b in zip(("dq", "dk", "dv"), first, again):
+            assert torch.equal(a, b), name
 
 
 def test_flash_autograd_reads_merged_heads_in_place(dev):

@@ -13,6 +13,13 @@ online softmax, and also returns the per-row logsumexp. The backward
 (``csrc/flash_attention_bwd.cu``) recomputes the probabilities from that
 logsumexp in two deterministic kernels (dq over q-tiles, dk/dv over
 k-tiles). ``flash_attention`` ties them together as an autograd function.
+
+bf16 runs every product on the tensor cores, with tiles moved by 16-byte
+asynchronous copies: each bf16 tensor must start on a 16-byte boundary and
+have batch, row and head strides that are multiples of 8 elements, or the
+wrappers raise ``ValueError`` (contiguous tensors, merged-head views and
+slices of a fused QKV projection at multiples of 8 all qualify). f32 is
+true f32 on the CUDA cores and takes any strides.
 """
 
 from __future__ import annotations
@@ -31,12 +38,15 @@ _FWD_SIGNATURES = {
     # dtype, q, k, v, o, lse, B, H, Tq, kv_len, scale, causal,
     # 4 x (batch, row, head) strides, stream
     "wcb_flash_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I] + [_L] * 12 + [_P],
+    "wcb_flash_fwd_info": [_I, _P],  # dtype, int out[5]
 }
 _BWD_SIGNATURES = {
     # dtype, q, k, v, o, lse, do, dq, dk, dv, dterm, B, H, Tq, Tk, kv_len, scale,
     # causal, strides (24 int64: q, k, v, o, do, dq, dk, dv), stream
     "wcb_flash_bwd": [_I] + [_P] * 10 + [_I] * 5 + [_F, _I, _P, _P],
+    "wcb_flash_bwd_info": [_I, _I, _P],  # dtype, dq (0) or dk/dv (1) kernel, int out[5]
 }
+ALIGN_BYTES = 16  # the bf16 kernels' copy width: 8 elements
 
 
 def _keep_mask(tq: int, tk: int, kv_len: int, causal: bool, device) -> torch.Tensor:
@@ -101,6 +111,14 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, kv_len: int | None = None,
             dv.transpose(1, 2).to(v.dtype))
 
 
+def _copy_aligned(x: torch.Tensor) -> bool:
+    """Whether every head row of ``x`` (B, T, H, dh) starts on a 16-byte
+    boundary; the stride of an axis of size 1 addresses nothing."""
+    per = ALIGN_BYTES // x.element_size()
+    return x.data_ptr() % ALIGN_BYTES == 0 and all(
+        x.stride(i) % per == 0 for i in range(3) if x.shape[i] > 1)
+
+
 def _check_kernel_inputs(what: str, tensors: dict, kv_len: int, tk: int) -> None:
     q = tensors["q"]
     bad = {n: x.dtype for n, x in tensors.items() if x.dtype != q.dtype}
@@ -115,6 +133,14 @@ def _check_kernel_inputs(what: str, tensors: dict, kv_len: int, tk: int) -> None
         raise ValueError(f"{what} needs the head-dim axis contiguous")
     if any(x.device != q.device for x in tensors.values()):
         raise ValueError(f"{what}: tensors on different devices")
+    if q.dtype == torch.bfloat16:
+        for n, x in tensors.items():
+            if not _copy_aligned(x):
+                raise ValueError(
+                    f"{what}: bf16 tensor {n} must start on a {ALIGN_BYTES}-byte boundary and "
+                    f"have batch, row and head strides that are multiples of 8 elements (the "
+                    f"kernels copy 16 bytes at a time), got data_ptr % {ALIGN_BYTES} = "
+                    f"{x.data_ptr() % ALIGN_BYTES}, strides {tuple(x.stride())}")
     if not 0 < kv_len <= tk:
         raise ValueError(f"{what}: kv_len {kv_len} outside (0, {tk}]")
 
@@ -187,6 +213,27 @@ def flash_attention_bwd(q, k, v, o, lse, do, kv_len: int | None = None,
     return dq, dk, dv
 
 
+def kernel_info() -> list[dict]:
+    """Registers per thread, shared memory per block (static + dynamic),
+    local memory per thread (stack and spills), resident blocks per SM and
+    threads per block of each flash kernel on the current CUDA device, as
+    the runtime reports them for the built libraries."""
+    fwd = _build.library("flash_attention", _FWD_SIGNATURES)
+    bwd = _build.library("flash_attention_bwd", _BWD_SIGNATURES)
+    rows = []
+    for dtype, code in _DTYPES.items():
+        out = (_I * 5)()
+        for kernel, lib, call in (
+                ("fwd", fwd, lambda: fwd.wcb_flash_fwd_info(code, out)),
+                ("bwd dq", bwd, lambda: bwd.wcb_flash_bwd_info(code, 0, out)),
+                ("bwd dk/dv", bwd, lambda: bwd.wcb_flash_bwd_info(code, 1, out))):
+            _build.check(lib, call(), f"flash {kernel} info")
+            rows.append(dict(kernel=f"flash {kernel}", dtype=str(dtype)[6:], registers=out[0],
+                             smem_bytes=out[1], local_bytes=out[2], blocks_per_sm=out[3],
+                             threads=out[4]))
+    return rows
+
+
 class _FlashAttention(torch.autograd.Function):
     """The forward kernel with the backward kernels as its gradient; saves
     q, k, v, the output and the logsumexp the forward writes."""
@@ -201,7 +248,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
+        # autograd's tensor, not a caller's: bring it to a layout the kernels take
+        if do.stride(-1) != 1 or (do.dtype == torch.bfloat16 and not _copy_aligned(do)):
             do = do.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal)
         return dq, dk, dv, None
