@@ -47,22 +47,29 @@ on failure:
    ``refs_and_pred.txt`` and ``checkpoint-2`` read back.
 
 Phase 2 also holds the fused LayerNorm+matmul kernel (forward and
-gradients) against its plain version at the encoder's and the decoder's
-shapes, and prints what the compiler and the runtime report of each flash
-kernel (registers, spills, shared memory, resident blocks per SM) and the
-rate each reaches beside its bound. The line before the last is the kernel
-table as JSON, with each kernel's launches summed over the main-path phases
-(3, 5, 7 and 9); the last line is ``{"ok": true, "device": {...}}``.
+gradients) against its plain version at every site of the encoder and the
+decoder, the int8 cross-attention in f32 and bf16 at every layer (and
+bit-identical over 4 runs), and prints what the compiler and the runtime
+report of each flash, int8 cross-attention and fused kernel (registers,
+spills, shared memory, resident blocks per SM) and the rate each reaches
+beside its bound. The int8 cross-attention is timed as a decode step runs
+it, in bursts that rotate over the 6 layers (75 MB of K/V, more than the
+50 MB L2 holds), so its time is fed from device memory. The line before the
+last is the kernel table as JSON, with each kernel's launches summed over
+the main-path phases (3, 5, 7 and 9); the last line is
+``{"ok": true, "device": {...}}``.
 
-``--flash-only [TREE]`` stops after the flash kernels' part of phase 2 and
-prints no result line; with TREE, a checkout of another commit, it runs that
-checkout's package, so two versions of K2 and K4 can be timed in turns on one
-card.
+``--kernels-only [TREE]`` stops after phase 2 (all five kernels checked and
+timed) and prints no result line; with TREE, a checkout of another commit,
+it runs that checkout's package, so two versions of a kernel can be timed in
+turns on one card. ``--flash-only [TREE]`` does the same for the flash
+kernels (K2, K4) alone.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import re
@@ -113,7 +120,7 @@ _blocker = []  # one (8192, 8192) bf16 operand, made at first use
 
 def median_ms(torch, fn) -> float:
     """Device time of one ``fn()``: the median over REPS bursts, each BURST
-    calls between two CUDA events that queue up behind ~7 ms of matmul, so
+    calls between two CUDA events that queue up behind ~3.5 ms of matmul, so
     the device runs the burst back to back and the host's launch overhead
     (tens of microseconds a call, more than the smallest kernels take) is
     not in the reading."""
@@ -126,7 +133,7 @@ def median_ms(torch, fn) -> float:
     for _ in range(REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        for _ in range(4):
+        for _ in range(2):
             block @ block
         start.record()
         for _ in range(BURST):
@@ -188,21 +195,28 @@ def print_build_logs(out) -> None:
                 print(f"  {log.stem} {entry}: {line.replace('ptxas info    :', '').strip()}")
 
 
-def print_flash_kernel_info(card) -> None:
+def print_kernel_info(card, kernels=("flash_attention", "quant_cross_attention",
+                                      "fused_block")) -> None:
     """Registers, shared memory a block (static + dynamic) and resident
-    blocks per SM of the flash kernels, as the CUDA runtime reports them."""
+    blocks per SM of the flash, int8 cross-attention and fused LayerNorm+matmul
+    kernels at the main path's shapes, as the CUDA runtime reports them."""
     import importlib
 
-    # by its full name: ops.flash_attention is the function of that name
-    fa = importlib.import_module("whisper_context_biasing_tpu_torch.ops.flash_attention")
-    if not hasattr(fa, "kernel_info"):
-        print("  (this checkout's package has no kernel_info)")
-        return
-    for r in fa.kernel_info():
-        print(f"  {r['kernel']} {r['dtype']}: {r['registers']} registers x {r['threads']} "
-              f"threads, {r['smem_bytes']} B shared memory a block, {r['local_bytes']} B local "
-              f"memory a thread, {r['blocks_per_sm']} blocks ("
-              f"{r['blocks_per_sm'] * r['threads'] // 32} warps) an SM  [{card}]")
+    for name in kernels:
+        # by its full name: ops.flash_attention is the function of that name
+        mod = importlib.import_module(f"whisper_context_biasing_tpu_torch.ops.{name}")
+        if not hasattr(mod, "kernel_info"):
+            print(f"  (this checkout's ops.{name} has no kernel_info)")
+            continue
+        if name == "quant_cross_attention":  # a block's share of the serving shape's keys
+            rows = mod.kernel_info(T_PAD // mod.pick_splits(T_PAD, BATCH * N_HEADS))
+        else:
+            rows = mod.kernel_info(D_MODEL) if name == "fused_block" else mod.kernel_info()
+        for r in rows:
+            print(f"  {r['kernel']} {r['dtype']}: {r['registers']} registers x {r['threads']} "
+                  f"threads, {r['smem_bytes']} B shared memory a block, {r['local_bytes']} B "
+                  f"local memory a thread, {r['blocks_per_sm']} blocks ("
+                  f"{r['blocks_per_sm'] * r['threads'] // 32} warps) an SM  [{card}]")
 
 
 def check_mel(torch, ops):
@@ -375,38 +389,60 @@ def check_quant_cross(torch, ops):
     scales = rng.uniform(0.005, 0.05, (2, N_LAYERS, BATCH, 1, T_PAD)).astype(np.float32)
     scales[..., T_AUDIO:] = 0.0  # zero scale marks the padding
     k_s, v_s = (torch.from_numpy(s).cuda() for s in scales)
-    q = torch.from_numpy(rng.standard_normal((BATCH, 1, D_MODEL), np.float32)).cuda()
-    q = q.to(torch.bfloat16)
-    err = 0.0
-    for layer in range(N_LAYERS):
-        kern = ops.quant_cross_attention_step_indexed(q, k_q, k_s, v_q, v_s, layer, N_HEADS)
-        plain = ops.quant_cross_attention_step_indexed_plain(q, k_q, k_s, v_q, v_s, layer,
-                                                             N_HEADS)
-        err = max(err, max_err(kern, plain))
-    print(f"K3 int8 cross-attention bf16 (6, 8, 1536, 512), every layer: "
-          f"max |err| = {err:.3e} (atol 1e-2)")
-    require(err <= 1e-2, f"int8 cross-attention disagrees: {err}")
+    q32 = torch.from_numpy(rng.standard_normal((BATCH, 1, D_MODEL), np.float32)).cuda()
+
+    def kernel(q, layer):
+        return ops.quant_cross_attention_step_indexed(q, k_q, k_s, v_q, v_s, layer, N_HEADS)
+
+    def plain(q, layer):
+        return ops.quant_cross_attention_step_indexed_plain(q, k_q, k_s, v_q, v_s, layer,
+                                                            N_HEADS)
+
+    # f32: sums over 1,500 keys in another order; bf16: the weights round to
+    # bf16 before the product on both routes, the output once more
+    for dtype, limit in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        q = q32.to(dtype)
+        err = max(max_err(kernel(q, layer), plain(q, layer)) for layer in range(N_LAYERS))
+        print(f"K3 int8 cross-attention {str(dtype)[6:]} (6, 8, 1536, 512), every layer: "
+              f"max |err| = {err:.3e} (atol {limit:g})")
+        require(err <= limit, f"int8 cross-attention {dtype} disagrees: {err}")
+        runs = [kernel(q, N_LAYERS - 1) for _ in range(4)]
+        require(all(torch.equal(runs[0], r) for r in runs[1:]),
+                f"int8 cross-attention {dtype}: 4 runs on the same inputs differ")
+    print("K3 int8 cross-attention: 4 runs on the same inputs are bit-identical (f32, bf16)")
     # K/V rows of the real positions, every scale, q and the output
     n_bytes = 2 * BATCH * T_AUDIO * D_MODEL + 2 * 4 * BATCH * T_PAD + 2 * 2 * BATCH * D_MODEL
     n_ops = 4 * BATCH * T_AUDIO * D_MODEL
     b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_FLOP_S)
+    # as a decode step walks it: layer after layer, 75 MB of K/V in all, which
+    # the 50 MB L2 cannot hold, so every launch is fed from device memory
+    layers = itertools.cycle(range(N_LAYERS))
+    ms = median_ms(torch, lambda: kernel(q, next(layers)))
+    one_layer_ms = median_ms(torch, lambda: kernel(q, 3))
+    print(f"  quant_cross_attention bf16, bursts rotating over the {N_LAYERS} layers (fed from "
+          f"device memory): {ms:.4f} ms = {n_bytes / ms / 1e6:.0f} GB/s of the "
+          f"{n_bytes / 1e6:.2f} MB it must move (bound {b_ms:.4f} ms by {b_by} at "
+          f"{PEAK_BYTES_S / 1e9:.0f} GB/s); on layer 3 alone (12.6 MB, L2-resident after the "
+          f"first call): {one_layer_ms:.4f} ms")
     return dict(
         name="quant_cross_attention", route="cuda",
         source="whisper_context_biasing_tpu_torch/ops/csrc/quant_cross_attention.cu",
         replaces="whisper_context_biasing_tpu/ops/quant_cross_attention.py:48",
-        max_abs_err=err,
-        ms=median_ms(torch, lambda: ops.quant_cross_attention_step_indexed(
-            q, k_q, k_s, v_q, v_s, 3, N_HEADS)),
-        plain_ms=median_ms(torch, lambda: ops.quant_cross_attention_step_indexed_plain(
-            q, k_q, k_s, v_q, v_s, 3, N_HEADS)),
+        max_abs_err=err, ms=ms, plain_ms=median_ms(torch, lambda: plain(q, 3)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-# the fused LayerNorm+matmul sites at base.en batch 8: (N, E, act)
+# the fused LayerNorm+matmul sites at base.en batch 8: (N, E, act), and the
+# launches of each in one fused training step (6 layers x 2 microbatches x 2
+# forwards under full remat; the training config's gelu is the erf one)
 FUSED_SHAPES = {"encoder QKV": (BATCH * T_AUDIO, 3 * D_MODEL, None),
                 "encoder MLP gelu": (BATCH * T_AUDIO, 4 * D_MODEL, "gelu"),
                 "encoder MLP gelu_tanh": (BATCH * T_AUDIO, 4 * D_MODEL, "gelu_tanh"),
-                "decoder cross q": (BATCH * T_TEXT, D_MODEL, None)}
+                "decoder QKV": (BATCH * T_TEXT, 3 * D_MODEL, None),
+                "decoder cross q": (BATCH * T_TEXT, D_MODEL, None),
+                "decoder MLP gelu": (BATCH * T_TEXT, 4 * D_MODEL, "gelu")}
+FUSED_LAUNCHES_PER_STEP = {"encoder QKV": 24, "encoder MLP gelu": 24, "encoder MLP gelu_tanh": 0,
+                           "decoder QKV": 24, "decoder cross q": 24, "decoder MLP gelu": 24}
 
 
 def fused_inputs(torch, rng, n, e, dtype):
@@ -421,7 +457,7 @@ def fused_inputs(torch, rng, n, e, dtype):
 
 
 def check_fused_ln(torch, ops):
-    """K5 against its plain version at the model's four fused sites, bf16
+    """K5 against its plain version at the model's fused sites, bf16
     and f32, its gradients through the autograd function against autograd
     of the plain version, and its time beside the bound, the plain
     version's and the unfused torch sequence it replaces."""
@@ -459,8 +495,10 @@ def check_fused_ln(torch, ops):
             return y if act is None else F.gelu(y, approximate="tanh" if act == "gelu_tanh"
                                                 else "none")
         unfused_ms = median_ms(torch, unfused)
-        print(f"  fused_ln_matmul {label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms by {b_by}; the unfused torch sequence layer_norm -> linear"
+        n_ops = 2 * n * D_MODEL * e
+        print(f"  fused_ln_matmul {label}, {FUSED_LAUNCHES_PER_STEP[label]} launches a fused "
+              f"step: {ms:.4f} ms = {n_ops / ms / 1e9:.1f} TFLOP/s (plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms by {b_by}; the unfused torch sequence layer_norm -> linear"
               f"{'' if act is None else ' -> gelu'} in bf16: {unfused_ms:.4f} ms, not a "
               f"library call for the same function)")
         if entry is None:  # the JSON line carries the encoder QKV shape
@@ -903,20 +941,23 @@ def main() -> int:
                          "fused training step: device time by kernel, the full profiler "
                          "tables written to TABLE_PATH, TABLE_PATH.train and "
                          "TABLE_PATH.fused")
-    ap.add_argument("--flash-only", metavar="TREE", nargs="?", const=".",
-                    help="stop after checking and timing the flash kernels (K2, K4) and "
+    ap.add_argument("--kernels-only", metavar="TREE", nargs="?", const=".",
+                    help="stop after checking and timing the five kernels (phase 2) and "
                          "print no result line; TREE (default: this checkout) is the "
                          "checkout whose package to run, e.g. an unpacked earlier commit, to "
                          "time two versions in turns on one card")
+    ap.add_argument("--flash-only", metavar="TREE", nargs="?", const=".",
+                    help="as --kernels-only, for the flash kernels (K2, K4) alone")
     args = ap.parse_args()
+    tree = args.kernels_only or args.flash_only
 
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if args.flash_only:
-        sys.path.insert(0, os.path.abspath(args.flash_only))
+    if tree:
+        sys.path.insert(0, os.path.abspath(tree))
     from whisper_context_biasing_tpu_torch import Pipeline, ops
     from whisper_context_biasing_tpu_torch.ops import _build
 
@@ -932,11 +973,11 @@ def main() -> int:
     out = _build.build_all()
     print(f"built kernels in {time.perf_counter() - t0:.1f} s into {out}")
     print_build_logs(out)
-    print_flash_kernel_info(card)
-    if args.flash_only:
+    print_kernel_info(card)
+    if args.flash_only and not args.kernels_only:
         check_flash(torch, ops)
         check_flash_bwd(torch, ops)
-        print(f"chip_smoke --flash-only {os.path.abspath(args.flash_only)} took "
+        print(f"chip_smoke --flash-only {os.path.abspath(tree)} took "
               f"{time.perf_counter() - start:.1f} s  [{card}]")
         return 0
 
@@ -945,6 +986,10 @@ def main() -> int:
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']}, library {k['library_ms']}) [{card}]")
+    if tree:
+        print(f"chip_smoke --kernels-only {os.path.abspath(tree)} took "
+              f"{time.perf_counter() - start:.1f} s  [{card}]")
+        return 0
     phase = time.perf_counter()
     print(f"phases 1-2 took {phase - start:.1f} s")
     serve_counts = serve(torch, Pipeline, ops, card, args.profile)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain torch versions, at edge
 shapes the main path does not reach (ragged tiles, kv_len < Tk, Tq != Tk,
-causal, strided views, every layer offset, 128 mels, the fused
-LayerNorm+matmul at every model width's d), plus a small end-to-end decode
+causal, strided views, every layer offset, 128 mels, the int8
+cross-attention at every batch, head count and split of T_pad, the fused
+LayerNorm+matmul at every model width's d, row count and column count), plus
+a small end-to-end decode
 and small training steps (unfused and fused) with the kernels on and off.
 
 These need an NVIDIA GPU and nvcc: they carry the ``cuda`` marker and skip
@@ -18,6 +20,7 @@ from whisper_context_biasing_tpu_torch import ops
 from whisper_context_biasing_tpu_torch.audio.mel import log_mel_tail
 from whisper_context_biasing_tpu_torch.decode import greedy_decode, pack_prefixes
 from whisper_context_biasing_tpu_torch.models import attention, build_model, tiny_test_config
+from whisper_context_biasing_tpu_torch.ops.quant_cross_attention import pick_splits
 from whisper_context_biasing_tpu_torch.train import (
     init_train_state,
     make_optimizer,
@@ -97,6 +100,86 @@ def test_quant_cross_kernel_every_layer(dev, dtype, atol):
         got = ops.quant_cross_attention_step_indexed(q, k_q, k_s, v_q, v_s, layer, 2)
         want = ops.quant_cross_attention_step_indexed_plain(q, k_q, k_s, v_q, v_s, layer, 2)
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def _bf16_ulp(x: torch.Tensor) -> float:
+    """One bf16 ulp at the largest |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(x.float().abs().max().item())) - 7)
+
+
+def _quant_kv(rng, dev, n_layers, b, t_pad, d, t_real):
+    shape = (n_layers, b, t_pad, d)
+    k_q = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).to(dev)
+    v_q = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).to(dev)
+    sc = rng.uniform(0.005, 0.05, (2, n_layers, b, 1, t_pad)).astype(np.float32)
+    sc[..., t_real:] = 0.0  # zero scale marks the padding
+    k_s, v_s = (torch.from_numpy(x).to(dev) for x in sc)
+    return k_q, k_s, v_q, v_s
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("heads", [6, 8, 20])
+@pytest.mark.parametrize("t_pad,t_real", [(128, 100), (1536, 1500)])
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_quant_cross_kernel_shapes(dev, b, t_pad, t_real, heads, dtype, atol):
+    """Every layer of a 2-layer stack at the family's head counts, from one
+    row (8 blocks share a head's keys) to 64 (3 do), against the plain
+    version; and the same bits from 4 runs on the same inputs. f32: scores
+    of up to 64 terms and outputs of up to 1,500 summed in another order,
+    1e-5 of the largest output (|out| reaches ~4 over 82,000 outputs). bf16:
+    the output's last rounding may go either way, so the limit is 1e-2 or,
+    over 100 keys where |out| reaches ~4, one bf16 ulp of the largest output."""
+    rng = np.random.default_rng(b + t_pad + heads)
+    d = 64 * heads
+    kv = _quant_kv(rng, dev, 2, b, t_pad, d, t_real)
+    q = _rand(rng, (b, 1, d), dev, dtype)
+    for layer in range(2):
+        ops.reset_launch_counts()
+        got = ops.quant_cross_attention_step_indexed(q, *kv, layer, heads)
+        assert ops.launches["quant_cross_attention"] == 1
+        want = ops.quant_cross_attention_step_indexed_plain(q, *kv, layer, heads)
+        if dtype == torch.bfloat16:
+            atol = max(atol, _bf16_ulp(want))
+        else:
+            atol = max(atol, 1e-5 * want.abs().max().item())
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+        for _ in range(3):
+            assert torch.equal(got, ops.quant_cross_attention_step_indexed(q, *kv, layer, heads))
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("t_real", [1500, 1000, 1])
+@pytest.mark.parametrize("b,splits", [(22, 3), (17, 4), (11, 6), (3, 8)])
+def test_quant_cross_kernel_every_split(dev, b, splits, dtype, atol, t_real):
+    """Every way the wrapper splits T_pad = 1,536 over a cluster (chosen by
+    the batch size at 2 heads) gives the plain version's result, also where
+    whole splits are padding (1,000 real keys: the last of 3, the last 2 of
+    8; one real key: all but the first)."""
+    assert pick_splits(1536, 2 * b) == splits
+    rng = np.random.default_rng(t_real + b)
+    kv = _quant_kv(rng, dev, 1, b, 1536, 128, t_real)
+    q = _rand(rng, (b, 1, 128), dev, dtype)
+    want = ops.quant_cross_attention_step_indexed_plain(q, *kv, 0, 2)
+    got = ops.quant_cross_attention_step_indexed(q, *kv, 0, 2)
+    assert torch.isfinite(got.float()).all()
+    if dtype == torch.bfloat16:  # one real key: |out| = |v| up to 6
+        atol = max(atol, _bf16_ulp(want))
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def test_quant_cross_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q = torch.zeros((1, 1, 64), device=dev)
+    ks = torch.ones((1, 1, 1, 1536), device=dev)
+    kq = torch.zeros((1, 1, 1536, 64), dtype=torch.int8, device=dev)
+    ops.reset_launch_counts()
+    odd = torch.zeros((1, 1, 100, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="T_pad = 100"):
+        ops.quant_cross_attention_step_indexed(q, odd, ks[..., :100].contiguous(), odd,
+                                               ks[..., :100].contiguous(), 0, 1)
+    shifted = torch.zeros(1536 * 64 + 1, dtype=torch.int8, device=dev)[1:].view(1, 1, 1536, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.quant_cross_attention_step_indexed(q, shifted, ks, kq, ks, 0, 1)
+    assert not ops.launches
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -316,6 +399,30 @@ def test_fused_ln_matmul_kernel(dev, act, dtype, d):
         x, g, beta, w, act=act).float(), atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("d", [384, 512, 1280])
+@pytest.mark.parametrize("e", [512, 1536, 2048, 5120])
+@pytest.mark.parametrize("n", [1, 63, 64, 129, 3584, 12000])
+def test_fused_ln_matmul_bf16_kernel_shapes(dev, n, e, d):
+    """The bf16 kernel at one row, either side of its 64- and 128-row
+    blocks and at the model's row counts, for every activation, with and
+    without the bias: within 1% of the plain version's largest output."""
+    rng = np.random.default_rng(n + e + d)
+    x = (_rand(rng, (n, d), dev) * 2 + 0.5).to(torch.bfloat16)
+    g, beta = 1 + 0.1 * _rand(rng, (d,), dev), 0.1 * _rand(rng, (d,), dev)
+    w = (_rand(rng, (e, d), dev) / d ** 0.5).to(torch.bfloat16).t()
+    b = _rand(rng, (e,), dev)
+    ops.reset_launch_counts()
+    for act in (None, "gelu", "gelu_tanh"):
+        for bias in (b, None):
+            got = ops.fused_ln_matmul(x, g, beta, w, bias, act=act)
+            want = ops.fused_ln_matmul_plain(x, g, beta, w, bias, act=act)
+            assert got.dtype == torch.bfloat16 and got.shape == (n, e)
+            atol = 1e-2 * want.float().abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0,
+                                       msg=lambda m: f"act {act}, bias {bias is not None}: {m}")
+    assert ops.launches["fused_ln_matmul"] == 6
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", [None, "gelu", "gelu_tanh"])
 def test_fused_ln_matmul_grads(dev, act, dtype):
@@ -349,6 +456,15 @@ def test_fused_ln_matmul_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="one dtype"):
         ops.fused_ln_matmul(x, torch.ones(16, device=dev), torch.zeros(16, device=dev),
                             torch.zeros((16, 16), device=dev, dtype=torch.bfloat16))
+    # the bf16 kernel: whole 64-deep k-slabs up to d = 1,280, 16-byte output stores
+    ops.reset_launch_counts()
+    for d, e, match in ((72, 64, "x has d = 72"), (1344, 64, "x has d = 1344"),
+                        (128, 36, "w has E = 36")):
+        with pytest.raises(ValueError, match=match):
+            ops.fused_ln_matmul(torch.zeros((4, d), device=dev, dtype=torch.bfloat16),
+                                torch.ones(d, device=dev), torch.zeros(d, device=dev),
+                                torch.zeros((d, e), device=dev, dtype=torch.bfloat16))
+    assert not ops.launches
 
 
 def test_fused_train_step_kernels_match_plain(dev):

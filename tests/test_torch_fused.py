@@ -3,7 +3,9 @@
 The port's plain version (what its wrapper runs for CPU tensors) against the
 JAX ``fused_ln_matmul`` run by its Pallas kernel in interpret mode, for every
 activation in f32 and bf16, with row counts both a multiple and not a
-multiple of the JAX call's 256-row padding; the hand-derived backward
+multiple of the JAX call's 256-row padding (down to one row, and either side
+of the CUDA kernel's 64- and 128-row blocks) at two widths; the choice of
+the CUDA kernel's column groups; the hand-derived backward
 against ``jax.grad`` of the JAX call (its ``custom_vjp``); and the fused
 encoder, full-sequence decoder and WeightCE step against the JAX package's
 fused config (``flash_interpret=True`` runs its kernels on the CPU)."""
@@ -27,6 +29,7 @@ from whisper_context_biasing_tpu.train import init_train_state as jax_init_state
 from whisper_context_biasing_tpu.train import make_optimizer as jax_make_optimizer
 from whisper_context_biasing_tpu.train import make_train_step as jax_make_step
 from whisper_context_biasing_tpu_torch import ops
+from whisper_context_biasing_tpu_torch.ops.fused_block import bf16_smem_bytes, tiles_per_group
 from whisper_context_biasing_tpu_torch.models import (
     build_model,
     encode_audio,
@@ -46,15 +49,15 @@ ACTS = [None, "gelu", "gelu_tanh"]
 D, E = 64, 192
 
 
-def _inputs(seed, rows, dtype):
-    """x (1, rows, D), g, beta (D,) f32, w (D, E), b (E,) f32 as numpy f32,
+def _inputs(seed, rows, dtype, d=D):
+    """x (1, rows, d), g, beta (d,) f32, w (d, E), b (E,) f32 as numpy f32,
     and the torch / JAX tensors in ``dtype`` (x and w; the LayerNorm
     parameters and the bias stay f32, as the model passes them)."""
     rng = np.random.default_rng(seed)
-    a = dict(x=rng.standard_normal((1, rows, D)).astype(np.float32) * 2 + 0.5,
-             g=(1.0 + 0.1 * rng.standard_normal(D)).astype(np.float32),
-             beta=(0.1 * rng.standard_normal(D)).astype(np.float32),
-             w=(rng.standard_normal((D, E)) * 0.2).astype(np.float32),
+    a = dict(x=rng.standard_normal((1, rows, d)).astype(np.float32) * 2 + 0.5,
+             g=(1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32),
+             beta=(0.1 * rng.standard_normal(d)).astype(np.float32),
+             w=(rng.standard_normal((d, E)) * 0.2).astype(np.float32),
              b=(rng.standard_normal(E) * 0.5).astype(np.float32))
     jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
     jx = {k: jnp.asarray(v, jdt if k in ("x", "w") else jnp.float32) for k, v in a.items()}
@@ -68,11 +71,15 @@ def _bf16_ulp(x: np.ndarray) -> float:
     return 2.0 ** (np.floor(np.log2(np.abs(x).max())) - 7)
 
 
-@pytest.mark.parametrize("rows", [256, 300])
+@pytest.mark.parametrize("rows,d", [
+    pytest.param(256, D, id="256"), pytest.param(300, D, id="300"), pytest.param(1, D, id="1"),
+    pytest.param(63, D, id="63"), pytest.param(129, D, id="129"),
+    pytest.param(1, 384, id="1-d384"), pytest.param(63, 384, id="63-d384"),
+    pytest.param(129, 384, id="129-d384")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ACTS)
-def test_plain_matches_jax_kernel(act, dtype, rows):
-    jx, tx = _inputs(rows, rows, dtype)
+def test_plain_matches_jax_kernel(act, dtype, rows, d):
+    jx, tx = _inputs(rows, rows, dtype, d)
     ref = np.asarray(jax_fused(jx["x"], jx["g"], jx["beta"], jx["w"], jx["b"], act=act,
                                interpret=True).astype(jnp.float32))
     ops.reset_launch_counts()
@@ -84,6 +91,23 @@ def test_plain_matches_jax_kernel(act, dtype, rows):
     # rounding boundary: one bf16 ulp of the largest output
     atol = 2e-5 if dtype == torch.float32 else _bf16_ulp(ref)
     np.testing.assert_allclose(got.float().numpy(), ref, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("n,d,e,want", [
+    # base.en batch 8 on 132 SMs, 128-row blocks and 128-column tiles: the
+    # encoder's 94 row blocks sweep all 12 QKV tiles in one wave, or the 16
+    # MLP tiles in 4 groups (3 waves); the decoder's 28 row blocks split
+    # their tiles 4 ways to fill one wave
+    (12000, 512, 1536, 12), (12000, 512, 2048, 4),
+    (3584, 512, 1536, 3), (3584, 512, 512, 1), (3584, 512, 2048, 4),
+    (1, 384, 512, 1), (12000, 1280, 5120, 20)])
+def test_tiles_per_group(n, d, e, want):
+    assert tiles_per_group(n, d, e, 132) == want
+
+
+def test_bf16_block_fits_shared_memory():
+    for d in (384, 512, 768, 1024, 1280):
+        assert bf16_smem_bytes(d) <= 227 * 1024, d
 
 
 def test_plain_without_bias_and_unknown_activation():

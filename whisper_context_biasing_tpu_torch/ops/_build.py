@@ -114,6 +114,17 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
 
 
+def kernel_info_row(lib: ctypes.CDLL, info_fn, args: tuple, kernel: str, dtype) -> dict:
+    """One kernel's registers per thread, shared memory per block (static +
+    dynamic), local memory per thread (stack and spills), resident blocks
+    per SM and threads per block on the current CUDA device, as the runtime
+    reports them: ``info_fn(*args, int out[5])`` of the built library."""
+    out = (ctypes.c_int * 5)()
+    check(lib, info_fn(*args, out), f"{kernel} info")
+    return dict(kernel=kernel, dtype=str(dtype).removeprefix("torch."), registers=out[0],
+                smem_bytes=out[1], local_bytes=out[2], blocks_per_sm=out[3], threads=out[4])
+
+
 def stream_handle(device) -> int:
     import torch
 

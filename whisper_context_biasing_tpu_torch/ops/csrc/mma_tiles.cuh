@@ -1,13 +1,15 @@
 // Tensor-core tile building blocks shared by the bf16 flash-attention
-// kernels (flash_attention.cu, flash_attention_bwd.cu).
+// kernels (flash_attention.cu, flash_attention_bwd.cu) and the bf16 fused
+// LayerNorm+matmul (fused_ln_matmul.cu).
 //
-// A tile is 64 x 64 bf16 values of one head: 64 rows of a (T, 64) head
-// slice, 128 bytes a row. Tiles arrive in shared memory by 16-byte cp.async
-// copies along the head dim (eight lanes cover one 128-byte row: coalesced),
-// rows past the end zero-filled, into the 128-byte-swizzled layout that
-// wgmma reads without bank conflicts. Products run on wgmma m64n64k16 (bf16
-// in, f32 accumulators): one warpgroup of 4 warps multiplies a 64-row tile,
-// B always from shared memory, A from shared memory or from registers.
+// A tile is 64 x 64 bf16 values: 64 rows of a (T, 64) head slice, or of 64
+// columns of a wider matrix, 128 bytes a row. Tiles arrive in shared memory
+// by 16-byte cp.async copies along the head dim (eight lanes cover one
+// 128-byte row: coalesced), rows past the end zero-filled, into the
+// 128-byte-swizzled layout that wgmma reads without bank conflicts. Products
+// run on wgmma m64n64k16 (bf16 in, f32 accumulators): one warpgroup of 4
+// warps multiplies a 64-row tile, B always from shared memory, A from shared
+// memory or from registers.
 //
 // Register layouts, lane = gid * 4 + tig, warp w of the warpgroup owning
 // rows 16 w .. 16 w + 15 of the 64:
@@ -88,10 +90,11 @@ __device__ __forceinline__ void cp_async_wait() {
 // [row0, row0 + 16) below n as bf16: through 16 rows of shared memory that
 // are the warp's own (`stage`, TILE_LD elements a row: the 16 bytes of
 // padding keep the 4-byte stores off each other's banks), so that each lane
-// stores 16 bytes and eight lanes cover one 128-byte row.
+// stores 16 bytes and eight lanes cover one 128-byte row. Only the first
+// n_cols columns (a multiple of 8) are written.
 __device__ __forceinline__ void store_tile_16x64(const float (*acc)[4], __nv_bfloat16* stage,
                                                  __nv_bfloat16* __restrict__ base, long long st,
-                                                 int row0, int n, int lane) {
+                                                 int row0, int n, int lane, int n_cols = 64) {
   const int gid = lane >> 2, tig = lane & 3;
   __syncwarp();
 #pragma unroll
@@ -105,7 +108,7 @@ __device__ __forceinline__ void store_tile_16x64(const float (*acc)[4], __nv_bfl
 #pragma unroll
   for (int i = lane; i < 16 * 8; i += 32) {
     const int r = i >> 3, c = (i & 7) * 8;
-    if (row0 + r < n)
+    if (row0 + r < n && c < n_cols)
       *reinterpret_cast<uint4*>(base + (row0 + r) * st + c) =
           *reinterpret_cast<const uint4*>(stage + r * TILE_LD + c);
   }
@@ -195,6 +198,12 @@ __device__ __forceinline__ void wgmma_commit() {
 // accumulator's reads behind the wait with fence_regs
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait_pending() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // A 64 x 64 f32 accumulator: d[j][e] is C fragment e of n-tile j of the

@@ -214,24 +214,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, kv_len: int | None = None,
 
 
 def kernel_info() -> list[dict]:
-    """Registers per thread, shared memory per block (static + dynamic),
-    local memory per thread (stack and spills), resident blocks per SM and
-    threads per block of each flash kernel on the current CUDA device, as
-    the runtime reports them for the built libraries."""
+    """``_build.kernel_info_row`` of each flash kernel (forward, backward dq,
+    backward dk/dv) in f32 and bf16."""
     fwd = _build.library("flash_attention", _FWD_SIGNATURES)
     bwd = _build.library("flash_attention_bwd", _BWD_SIGNATURES)
-    rows = []
-    for dtype, code in _DTYPES.items():
-        out = (_I * 5)()
-        for kernel, lib, call in (
-                ("fwd", fwd, lambda: fwd.wcb_flash_fwd_info(code, out)),
-                ("bwd dq", bwd, lambda: bwd.wcb_flash_bwd_info(code, 0, out)),
-                ("bwd dk/dv", bwd, lambda: bwd.wcb_flash_bwd_info(code, 1, out))):
-            _build.check(lib, call(), f"flash {kernel} info")
-            rows.append(dict(kernel=f"flash {kernel}", dtype=str(dtype)[6:], registers=out[0],
-                             smem_bytes=out[1], local_bytes=out[2], blocks_per_sm=out[3],
-                             threads=out[4]))
-    return rows
+    return [_build.kernel_info_row(lib, fn, args, f"flash {kernel}", dtype)
+            for dtype, code in _DTYPES.items()
+            for kernel, lib, fn, args in (("fwd", fwd, fwd.wcb_flash_fwd_info, (code,)),
+                                          ("bwd dq", bwd, bwd.wcb_flash_bwd_info, (code, 0)),
+                                          ("bwd dk/dv", bwd, bwd.wcb_flash_bwd_info, (code, 1)))]
 
 
 class _FlashAttention(torch.autograd.Function):

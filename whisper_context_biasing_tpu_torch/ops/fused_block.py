@@ -17,7 +17,14 @@ activation in f32, one cast to x's dtype. In bf16 this differs from the
 unfused ``_proj``, which rounds the product before adding the bias, so the
 fused and unfused configs are different functions there.
 
-The forward kernel is ``csrc/fused_ln_matmul.cu``. The backward is
+The forward kernels are in ``csrc/fused_ln_matmul.cu``. The bf16 one
+normalizes a block's 128 rows (64 above d = 512) once into a shared-memory
+tile and sweeps a group of 128-column tiles of W against it on the tensor
+cores (``wgmma``);
+``tiles_per_group`` picks the group so that the grid fills the card. It
+needs d to be a multiple of 64 up to 1,280 and E a multiple of 8. The f32
+one runs true f32 on the CUDA cores and needs d to be a multiple of 8. The
+backward is
 ``_core_bwd`` written in torch: the saved tensors are exactly the inputs;
 it recomputes ``xhat`` in f32 and re-runs the product only for an
 activation site (gelu' needs the pre-activation). JAX computes that
@@ -34,6 +41,7 @@ instead, so nothing is padded here.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -45,9 +53,16 @@ _ACTS = {None: 0, "gelu": 1, "gelu_tanh": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # dtype, x, g, beta, w, b, out, N, d, E, ldx, ldw, act, stream
-    "wcb_fused_ln_matmul": [_I] + [_P] * 6 + [_I] * 3 + [_L, _L, _I, _P],
+    # dtype, x, g, beta, w, b, out, N, d, E, ldx, ldw, act, tiles_per_group, stream
+    "wcb_fused_ln_matmul": [_I] + [_P] * 6 + [_I] * 3 + [_L, _L, _I, _I, _P],
+    "wcb_fused_ln_matmul_info": [_I, _I, _P],  # dtype, d, int out[5]
 }
+# the bf16 kernel's shape (csrc/fused_ln_matmul.cu): 128-column tiles of W in
+# 64-deep slabs through a ring; a block owns 64 rows per warpgroup
+BF16_TILE_COLS = 128
+BF16_MAX_D = 1280
+SM_SMEM_BYTES = 228 * 1024  # shared memory of one H100 SM; 1 KB a block is reserved
+LN_COST_TILES = 1.75        # a block's LayerNorm pass, in units of one tile's products
 
 
 def _check_act(act) -> None:
@@ -97,6 +112,39 @@ def _check_kernel_inputs(x2d, g, beta, w, b) -> None:
         raise ValueError(f"fused_ln_matmul kernel needs d % 8 == 0 (16-byte k-groups), got {d}")
 
 
+def bf16_block_rows(d: int) -> int:
+    """Rows of x a bf16 block owns: two warpgroups of 64 where the
+    normalized tile leaves room for the ring, else one."""
+    return 128 if d <= 512 else 64
+
+
+def bf16_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of a bf16 block: the normalized (rows, d) tile,
+    the ring of (128, 64) W slabs (4 stages, 3 above d = 1,024) and 16 x 72
+    staging values per warp."""
+    rows = bf16_block_rows(d)
+    stages = 4 if d <= 1024 else 3
+    return 2 * (rows * d + stages * BF16_TILE_COLS * 64 + rows // 16 * 16 * 72)
+
+
+def tiles_per_group(n: int, d: int, e: int, n_sms: int) -> int:
+    """How many 128-column tiles of W one bf16 block sweeps against its
+    resident normalized tile. Fewer tiles a block means more blocks (the row
+    blocks alone do not fill the card) but the LayerNorm redone once more
+    for each group; the choice minimises waves x (tiles + the LayerNorm's
+    cost) with the card's resident blocks as the wave."""
+    slots = n_sms * max(1, SM_SMEM_BYTES // (bf16_smem_bytes(d) + 1024))
+    row_blocks = -(-n // bf16_block_rows(d))
+    n_tiles = -(-e // BF16_TILE_COLS)
+
+    def cost(tpg: int) -> float:
+        groups = -(-n_tiles // tpg)
+        return math.ceil(row_blocks * groups / slots) * (tpg + LN_COST_TILES)
+
+    # ties go to the larger group: the LayerNorm redone fewer times
+    return min(range(n_tiles, 0, -1), key=cost)
+
+
 def fused_ln_matmul_fwd(x2d, g, beta, w, b=None, act=None):
     """``act(LN(x2d) @ w + b)`` over x2d (N, d), w (d, E): the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors. Returns (N, E) in
@@ -122,15 +170,35 @@ def fused_ln_matmul_fwd(x2d, g, beta, w, b=None, act=None):
     e = wt.shape[0]
     g32, beta32 = g.float().contiguous(), beta.float().contiguous()
     b32 = None if b is None else b.float().contiguous()
+    tpg = 0
+    if x2d.dtype == torch.bfloat16:
+        if d % 64 or d > BF16_MAX_D:
+            raise ValueError(f"fused_ln_matmul bf16 kernel: x has d = {d}; it takes a multiple "
+                             f"of 64 up to {BF16_MAX_D} (whole k-slabs of the normalized tile)")
+        if e % 8:
+            raise ValueError(f"fused_ln_matmul bf16 kernel: w has E = {e} columns; it takes a "
+                             f"multiple of 8 (16-byte output stores)")
+        if any(t.data_ptr() % 16 for t in (g32, beta32) + (() if b32 is None else (b32,))):
+            raise ValueError("fused_ln_matmul bf16 kernel needs 16-byte aligned g, beta and b")
+        tpg = tiles_per_group(
+            n, d, e, torch.cuda.get_device_properties(x2d.device).multi_processor_count)
     out = torch.empty((n, e), dtype=x2d.dtype, device=x2d.device)
     lib = _build.library("fused_ln_matmul", _SIGNATURES)
     err = lib.wcb_fused_ln_matmul(
         _DTYPES[x2d.dtype], x2d.data_ptr(), g32.data_ptr(), beta32.data_ptr(), wt.data_ptr(),
         None if b32 is None else b32.data_ptr(), out.data_ptr(), n, d, e, x2d.stride(0),
-        wt.stride(0), _ACTS[act], _build.stream_handle(x2d.device))
+        wt.stride(0), _ACTS[act], tpg, _build.stream_handle(x2d.device))
     _build.check(lib, err, "fused_ln_matmul")
     _build.launches["fused_ln_matmul"] += 1
     return out
+
+
+def kernel_info(d: int) -> list[dict]:
+    """``_build.kernel_info_row`` of the f32 kernel and of the bf16 kernel
+    at width ``d`` (its erf gelu instance, the largest)."""
+    lib = _build.library("fused_ln_matmul", _SIGNATURES)
+    return [_build.kernel_info_row(lib, lib.wcb_fused_ln_matmul_info, (code, d),
+                                   "fused LN+matmul", dtype) for dtype, code in _DTYPES.items()]
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

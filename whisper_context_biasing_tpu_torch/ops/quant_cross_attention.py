@@ -5,9 +5,14 @@ The counterpart of the JAX package's ``ops/quant_cross_attention.py``
 (``quant_cross_attention_step_indexed``). K/V are int8 with one f32 scale
 per (layer, row, position), stored (L, B, 1, T_pad); a zero k-scale marks a
 padded position. The kernel (``csrc/quant_cross_attention.cu``) reads
-layer ``l`` of the stacked tensors through a pointer offset, one block per
-(head, batch row). The one-layer form (``quant_cross_attention_step`` in
-JAX) is this applied to ``layer=0`` of a (1, B, T_pad, D) view.
+layer ``l`` of the stacked tensors through a pointer offset; a thread block
+cluster of up to 8 blocks shares one (batch row, head) along T_pad and
+exchanges the softmax statistics and the partial outputs through
+distributed shared memory (one launch, no workspace, the same bits on every
+run). It needs T_pad to be a multiple of 64 (``quantize_cross_kv`` pads to
+128) and at most 8 x 512 rows. The one-layer form
+(``quant_cross_attention_step`` in JAX) is this applied to ``layer=0`` of a
+(1, B, T_pad, D) view.
 """
 
 from __future__ import annotations
@@ -22,8 +27,15 @@ from . import _build
 HEAD_DIM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# dtype, q, k_q, k_s, v_q, v_s, out, B, T_pad, D, sqrt(dh), stream
-_SIGNATURES = {"wcb_quant_cross": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]}
+_SIGNATURES = {
+    # dtype, q, k_q, k_s, v_q, v_s, out, B, T_pad, D, splits, sqrt(dh), stream
+    "wcb_quant_cross": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "wcb_quant_cross_info": [_I, _I, _P],  # dtype, key rows a block, int out[5]
+}
+SPLIT_ROWS = 64         # a block's slice of T_pad is a whole multiple of this
+MAX_SPLITS = 8          # blocks of one cluster
+MAX_BLOCK_ROWS = 512    # a thread holds its part of 8 x 64 key and value rows in registers
+TARGET_BLOCKS = 132     # a block for each of the card's SMs
 
 
 def quant_cross_attention_plain(q, k_q, k_s, v_q, v_s, n_heads: int):
@@ -55,6 +67,19 @@ def quant_cross_attention_step_indexed_plain(q, k_q, k_s, v_q, v_s, layer: int,
                                        v_s[layer], n_heads)
 
 
+def pick_splits(t_pad: int, rows_heads: int) -> int:
+    """How many blocks (one cluster) share a (batch row, head) along T_pad:
+    the fewest that put TARGET_BLOCKS blocks on the card, so that every SM
+    has loads in flight, else the most there are. A block's slice must be a
+    whole multiple of SPLIT_ROWS and at most MAX_BLOCK_ROWS."""
+    fits = [c for c in range(1, MAX_SPLITS + 1)
+            if t_pad % (c * SPLIT_ROWS) == 0 and t_pad // c <= MAX_BLOCK_ROWS]
+    if not fits:
+        raise ValueError(f"quant cross attention: k_q has T_pad = {t_pad}; the kernel takes a "
+                         f"multiple of {SPLIT_ROWS} up to {MAX_SPLITS * MAX_BLOCK_ROWS}")
+    return next((c for c in fits if c * rows_heads >= TARGET_BLOCKS), fits[-1])
+
+
 def quant_cross_attention_step_indexed(q, k_q, k_s, v_q, v_s, layer: int,
                                        n_heads: int):
     """Single-query cross attention of q (B, 1, D) against layer ``layer``
@@ -79,8 +104,12 @@ def quant_cross_attention_step_indexed(q, k_q, k_s, v_q, v_s, layer: int,
         raise ValueError("quant cross attention: inputs must be contiguous")
     if not all(x.device == q.device for x in (k_q, k_s, v_q, v_s)):
         raise ValueError("quant cross attention: inputs on different devices")
+    if q.data_ptr() % 16 or k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
+        raise ValueError("quant cross attention: q, k_q and v_q must start on a 16-byte boundary "
+                         "(the kernel loads 16 bytes at a time)")
     if not 0 <= layer < n_layers:
         raise ValueError(f"quant cross attention: layer {layer} outside [0, {n_layers})")
+    splits = pick_splits(t_pad, b * n_heads)
     out = torch.empty_like(q)
     kv_off = layer * b * t_pad * d          # int8: elements are bytes
     s_off = layer * b * t_pad * 4           # f32 scales
@@ -88,7 +117,15 @@ def quant_cross_attention_step_indexed(q, k_q, k_s, v_q, v_s, layer: int,
     err = lib.wcb_quant_cross(
         _DTYPES[q.dtype], q.data_ptr(), k_q.data_ptr() + kv_off, k_s.data_ptr() + s_off,
         v_q.data_ptr() + kv_off, v_s.data_ptr() + s_off, out.data_ptr(), b, t_pad, d,
-        math.sqrt(d // n_heads), _build.stream_handle(q.device))
+        splits, math.sqrt(d // n_heads), _build.stream_handle(q.device))
     _build.check(lib, err, "quant cross attention")
     _build.launches["quant_cross_attention"] += 1
     return out
+
+
+def kernel_info(block_rows: int) -> list[dict]:
+    """``_build.kernel_info_row`` of the f32 and bf16 kernels when a block
+    owns ``block_rows`` key rows."""
+    lib = _build.library("quant_cross_attention", _SIGNATURES)
+    return [_build.kernel_info_row(lib, lib.wcb_quant_cross_info, (code, block_rows),
+                                   "quant cross", dtype) for dtype, code in _DTYPES.items()]
