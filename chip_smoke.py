@@ -21,7 +21,10 @@ on failure:
 3. the serving path: ``Pipeline("base.en", device="cuda")`` with seeded
    random weights on the fast path (bf16, every kernel) serves 8
    short-form requests with a context and bias words; the launch counts of
-   that run show it went through every serving kernel;
+   that run show it went through every serving kernel; then ``mel_ms``
+   taken apart, inside ``transcribe`` (host pad and stack, the
+   ``Pipeline.mel`` call, GC pauses) and piece by piece (host pad and
+   stack, the copy to the card, K1, the log tail);
 4. the same requests in f32, once with the kernels and once with their
    plain versions (chosen by config and by calling the plain mel frontend,
    not by fallback; the launch counts show which ran): the tokens must be
@@ -46,13 +49,17 @@ on failure:
    2 optimizer steps, a WER evaluation whose encoder runs the fused kernel,
    ``refs_and_pred.txt`` and ``checkpoint-2`` read back.
 
-Phase 2 also holds the fused LayerNorm+matmul kernel (forward and
-gradients) against its plain version at every site of the encoder and the
-decoder, the int8 cross-attention in f32 and bf16 at every layer (and
-bit-identical over 4 runs), and prints what the compiler and the runtime
-report of each flash, int8 cross-attention and fused kernel (registers,
-spills, shared memory, resident blocks per SM) and the rate each reaches
-beside its bound. The int8 cross-attention is timed as a decode step runs
+Phase 2 also holds the mel kernel against its plain version at 80 and 128
+mels, a 3 s window and batch 1, and against the float64 numpy frontend on a
+loud and a quiet clip, and times it beside the cuFFT sequence (``torch.stft``,
+``|X|^2``, the filterbank product); the fused
+LayerNorm+matmul kernel (forward and gradients) against its plain version at
+every site of the encoder and the decoder, the int8 cross-attention in f32
+and bf16 at every layer (and bit-identical over 4 runs) and through its
+one-layer wrapper, and prints what the compiler and the runtime report of
+each mel, flash, int8 cross-attention and fused kernel (registers, spills,
+shared memory, resident blocks per SM) and the rate each reaches beside its
+bound. The int8 cross-attention is timed as a decode step runs
 it, in bursts that rotate over the 6 layers (75 MB of K/V, more than the
 50 MB L2 holds), so its time is fed from device memory. The line before the
 last is the kernel table as JSON, with each kernel's launches summed over
@@ -195,11 +202,12 @@ def print_build_logs(out) -> None:
                 print(f"  {log.stem} {entry}: {line.replace('ptxas info    :', '').strip()}")
 
 
-def print_kernel_info(card, kernels=("flash_attention", "quant_cross_attention",
+def print_kernel_info(card, kernels=("mel_kernel", "flash_attention", "quant_cross_attention",
                                       "fused_block")) -> None:
     """Registers, shared memory a block (static + dynamic) and resident
-    blocks per SM of the flash, int8 cross-attention and fused LayerNorm+matmul
-    kernels at the main path's shapes, as the CUDA runtime reports them."""
+    blocks per SM of the mel, flash, int8 cross-attention and fused
+    LayerNorm+matmul kernels at the main path's shapes, as the CUDA runtime
+    reports them."""
     import importlib
 
     for name in kernels:
@@ -219,8 +227,28 @@ def print_kernel_info(card, kernels=("flash_attention", "quant_cross_attention",
                   f"{r['blocks_per_sm'] * r['threads'] // 32} warps) an SM  [{card}]")
 
 
+def mel_clip(rng, kind: str) -> np.ndarray:
+    """A 30 s clip for the float64 reference check: "loud" tones over noise
+    (the f32 rounding stress case) or "quiet", the speech-like signal at
+    1/1000 of its level."""
+    t = np.arange(N_SAMPLES) / 16000.0
+    if kind == "loud":
+        return (0.5 * np.sin(2 * np.pi * 440 * t) + 0.2 * np.sin(2 * np.pi * 1337 * t)
+                + 0.05 * rng.standard_normal(N_SAMPLES)).astype(np.float32)
+    return 1e-3 * synthetic_audio(rng, N_SAMPLES / 16000.0)
+
+
 def check_mel(torch, ops):
-    from whisper_context_biasing_tpu_torch.audio.mel import log_mel_tail, mel_filter_bank
+    """K1 against its plain version at the serving shape and at 128 mels, a
+    short window and batch 1; against the float64 numpy reference on a loud
+    and a quiet clip; timed at the serving shape beside the plain version,
+    the bound and the cuFFT sequence that computes the same function."""
+    from whisper_context_biasing_tpu_torch.audio.mel import (
+        hann_window_periodic,
+        log_mel_spectrogram_np,
+        log_mel_tail,
+        mel_filter_bank,
+    )
 
     rng = np.random.default_rng(1)
     audio = np.zeros((BATCH, N_SAMPLES), np.float32)
@@ -233,27 +261,58 @@ def check_mel(torch, ops):
             clip = synthetic_audio(rng, 5 + 25 * i / (BATCH - 1))
             audio[i, : clip.size] = clip
     x = torch.from_numpy(audio).cuda()
-    kern = ops.mel_energies(x, N_MELS)
-    plain = ops.mel_energies_plain(x, N_MELS)
-    err = max_err(log_mel_tail(kern), log_mel_tail(plain))
-    print(f"K1 mel: log-mel max |kernel - plain| = {err:.3e} (atol 1e-4, f32, TF32 off)")
-    require(err <= 1e-4, f"mel kernel disagrees with its plain version: {err}")
-    # the least work of the function, not of the kernel's dense-DFT design:
-    # a 400-point real FFT per frame (~2.5 N log2 N operations), the power
-    # of 201 bins, a multiply-add per nonzero of the filterbank; the audio
-    # read once and the energies written once
+    # two f32 algorithms apart: the plain version's dense DFT sums 200
+    # products twice, the kernel's FFT rounds through ~log2(400) levels
+    err = 0.0
+    for label, xs, n_mels in (("8 x 480000, 80 mels", x, N_MELS),
+                              ("8 x 480000, 128 mels", x, 128),
+                              ("8 x 48000 (3 s window), 80 mels", x[:, :48000].contiguous(), N_MELS),
+                              ("1 x 480000, 80 mels", x[3:4], N_MELS)):
+        kern = ops.mel_energies(xs, n_mels)
+        plain = ops.mel_energies_plain(xs, n_mels)
+        e = max_err(log_mel_tail(kern), log_mel_tail(plain))
+        print(f"K1 mel {label}: log-mel max |kernel - plain| = {e:.3e} (atol 1e-4, f32, TF32 off)")
+        require(e <= 1e-4, f"mel kernel disagrees with its plain version at {label}: {e}")
+        if n_mels == N_MELS and xs is x:
+            err = e
+    for kind in ("loud", "quiet"):
+        clip = mel_clip(rng, kind)
+        got = log_mel_tail(ops.mel_energies(torch.from_numpy(clip[None]).cuda(), N_MELS))[0]
+        e = float(np.abs(got.cpu().numpy() - log_mel_spectrogram_np(clip, N_MELS)).max())
+        print(f"K1 mel {kind} clip: log-mel max |kernel - float64 numpy reference| = {e:.3e} "
+              f"(atol 1e-4)")
+        require(e <= 1e-4, f"mel kernel disagrees with the float64 reference on a {kind} clip: {e}")
+    # the least work of the function: a 400-point real FFT per frame (~2.5 N
+    # log2 N operations), the power of 201 bins, a multiply-add per nonzero
+    # of the filterbank; the audio read once and the energies written once
     frames = BATCH * (N_SAMPLES // 160)
-    fb_nonzeros = int(np.count_nonzero(mel_filter_bank(n_mels=N_MELS)))
-    n_ops = frames * (2.5 * 400 * np.log2(400) + 3 * 201 + 2 * fb_nonzeros)
+    fb_np = mel_filter_bank(n_mels=N_MELS)
+    n_ops = frames * (2.5 * 400 * np.log2(400) + 3 * 201 + 2 * np.count_nonzero(fb_np))
     n_bytes = 4 * (audio.size + frames * N_MELS)
     b_ms, b_by = bound(n_bytes, n_ops, PEAK_F32_FLOP_S)
+    # the yardstick: cuFFT's real FFT through torch.stft, |X|^2, the dense
+    # filterbank product (f32, TF32 off): a sequence of library calls, not one
+    window = torch.from_numpy(hann_window_periodic()).cuda()
+    fb = torch.from_numpy(fb_np.T.copy()).cuda()
+
+    def stft_sequence():
+        spec = torch.stft(x, n_fft=400, hop_length=160, window=window, center=True,
+                          pad_mode="reflect", return_complex=True)[..., :-1]
+        return (spec.abs() ** 2).transpose(1, 2) @ fb
+
+    lib_err = max_err(log_mel_tail(stft_sequence()), log_mel_tail(ops.mel_energies_plain(x, N_MELS)))
+    ms = median_ms(torch, lambda: ops.mel_energies(x, N_MELS))
+    plain_ms = median_ms(torch, lambda: ops.mel_energies_plain(x, N_MELS))
+    lib_ms = median_ms(torch, stft_sequence)
+    print(f"  mel kernel 8 x 480000, 80 mels: {ms:.4f} ms = {n_bytes / ms / 1e6:.0f} GB/s of the "
+          f"{n_bytes / 1e6:.2f} MB it must move (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by "
+          f"{b_by}; the cuFFT sequence torch.stft -> |X|^2 -> @ filterbank {lib_ms:.4f} ms, "
+          f"log-mel {lib_err:.1e} from the plain version)")
     return dict(
         name="mel", route="cuda", source="whisper_context_biasing_tpu_torch/ops/csrc/mel.cu",
         replaces="whisper_context_biasing_tpu/ops/mel_kernel.py:61",
-        max_abs_err=err,
-        ms=median_ms(torch, lambda: ops.mel_energies(x, N_MELS)),
-        plain_ms=median_ms(torch, lambda: ops.mel_energies_plain(x, N_MELS)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, library="the cuFFT sequence torch.stft -> abs()**2 -> @ filterbank")
 
 
 # the three flash uses of the training step: (Tq, Tk, causal)
@@ -410,6 +469,15 @@ def check_quant_cross(torch, ops):
         require(all(torch.equal(runs[0], r) for r in runs[1:]),
                 f"int8 cross-attention {dtype}: 4 runs on the same inputs differ")
     print("K3 int8 cross-attention: 4 runs on the same inputs are bit-identical (f32, bf16)")
+    # K3': the one-layer wrapper, off every path, on layer 0's (B, T_pad, D) K/V
+    # (a checkout from before it had one has none)
+    if hasattr(ops, "quant_cross_attention_step"):
+        one = [t[0] for t in (k_q, k_s, v_q, v_s)]
+        err1 = max_err(ops.quant_cross_attention_step(q, *one, N_HEADS),
+                       ops.quant_cross_attention_plain(q, *one, N_HEADS))
+        print(f"K3' quant_cross_attention_step bf16 (8, 1536, 512), one layer: max |err| = "
+              f"{err1:.3e} (atol 1e-2); off every path, as in JAX")
+        require(err1 <= 1e-2, f"quant_cross_attention_step disagrees: {err1}")
     # K/V rows of the real positions, every scale, q and the output
     n_bytes = 2 * BATCH * T_AUDIO * D_MODEL + 2 * 4 * BATCH * T_PAD + 2 * 2 * BATCH * D_MODEL
     n_ops = 4 * BATCH * T_AUDIO * D_MODEL
@@ -429,7 +497,9 @@ def check_quant_cross(torch, ops):
         source="whisper_context_biasing_tpu_torch/ops/csrc/quant_cross_attention.cu",
         replaces="whisper_context_biasing_tpu/ops/quant_cross_attention.py:48",
         max_abs_err=err, ms=ms, plain_ms=median_ms(torch, lambda: plain(q, 3)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        also="K3' (whisper_context_biasing_tpu/ops/quant_cross_attention.py:102) is this kernel "
+             "on a one-layer view, ops.quant_cross_attention_step; off every path, as in JAX")
 
 
 # the fused LayerNorm+matmul sites at base.en batch 8: (N, E, act), and the
@@ -540,6 +610,12 @@ def requests(rng):
     return [synthetic_audio(rng, 5 + 25 * i / (BATCH - 1)) for i in range(BATCH)]
 
 
+def kernel_name_of(key: str) -> str:
+    """``ns::name<args>(params)`` -> ``name<args>``, for a profiler row."""
+    key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return key.split("(", 1)[0].split("::")[-1]
+
+
 def profile_run(torch, fn, card, wall_ms, table_path, what):
     """``fn`` once more under torch.profiler: device time by kernel, and the
     device's busy share of ``wall_ms``, the same work's wall time without
@@ -564,10 +640,114 @@ def profile_run(torch, fn, card, wall_ms, table_path, what):
           f"(idle {100 - 100 * busy_ms / wall_ms:.1f}%), {sum(r[1] for r in rows)} device ops")
     for us, n, key in rows[:12]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}%  x{n:<6d} {key[:90]}")
+    ours = [(us, n, kernel_name_of(key)) for us, n, key in rows
+            if any(k in key for k in ("mel_", "flash_", "quant_cross", "ln_matmul"))]
+    print("  the port's kernels in it: " + "; ".join(
+        f"{name} {us / 1e3:.3f} ms x{n}" for us, n, name in ours))
     table_path = pathlib.Path(table_path)
     table_path.parent.mkdir(parents=True, exist_ok=True)
     table_path.write_text(prof.key_averages().table(sort_by="self_device_time_total",
                                                     row_limit=60))
+
+
+def mel_split(torch, pipe, ops, clips, kwargs, card, rounds: int = 5) -> None:
+    """The serving path's ``mel_ms`` taken apart, median (and range) of
+    ``rounds`` rounds. A round runs ``transcribe`` as the main path does,
+    with its clock and ``Pipeline.mel`` watched from outside (a host-clock
+    mark beside each of the pipeline's CUDA events, and the garbage
+    collector's pauses), so that its own ``mel_ms`` splits into the host's
+    ``pad_or_trim`` + ``np.stack``, the ``Pipeline.mel`` call and the GC.
+    Then, in the state that decode leaves: the whole ``Pipeline.mel(np.stack
+    (...))`` call under the pipeline's clock, and its pieces one at a time:
+    pad + stack (host clock), the host-to-device copy of the pageable stack
+    (CUDA events, and its host clock), K1 and the log tail (CUDA events from
+    the end of the copy to the end of each, so the host's time to issue them
+    is in)."""
+    import gc
+
+    from whisper_context_biasing_tpu_torch import pipeline as pipeline_module
+    from whisper_context_biasing_tpu_torch.audio import pad_or_trim
+    from whisper_context_biasing_tpu_torch.audio.mel import log_mel_tail
+    from whisper_context_biasing_tpu_torch.decode.greedy import Clock
+
+    host, pauses = {}, []
+
+    class WatchedClock(Clock):
+        def mark(self, name):
+            super().mark(name)
+            host[name] = time.perf_counter()
+
+    def watched_mel(stacked):
+        host["mel_in"] = time.perf_counter()
+        out = type(pipe).mel(pipe, stacked)
+        host["mel_out"] = time.perf_counter()
+        return out
+
+    def on_gc(phase, info):
+        pauses.append((phase, time.perf_counter()))
+
+    def stack():
+        return np.stack([pad_or_trim(c, pipe.window_samples) for c in clips])
+
+    def whole_call():
+        torch.cuda.synchronize()
+        clock = Clock(torch.device("cuda"))
+        clock.mark("start")
+        pipe.mel(stack())
+        clock.mark("mel")
+        return clock.ms("start", "mel")
+
+    runs = []
+    for _ in range(rounds):
+        pauses.clear()
+        pipeline_module.Clock, pipe.mel = WatchedClock, watched_mel
+        gc.callbacks.append(on_gc)
+        try:
+            torch.cuda.synchronize()
+            pipe.transcribe(clips, **kwargs)
+            torch.cuda.synchronize()
+        finally:
+            gc.callbacks.remove(on_gc)
+            pipeline_module.Clock = Clock
+            del pipe.mel
+        starts = [t for ph, t in pauses if ph == "start"]
+        gc_ms = sum((stop - start) * 1e3 for start, stop in
+                    zip(starts, [t for ph, t in pauses if ph == "stop"])
+                    if host["start"] <= start <= host["mel"])
+        in_pipe = (pipe.last_timings["mel_ms"], (host["mel_in"] - host["start"]) * 1e3,
+                   (host["mel_out"] - host["mel_in"]) * 1e3, gc_ms)
+        whole = whole_call()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stacked = stack()
+        t1 = time.perf_counter()
+        ev[0].record()
+        audio = torch.as_tensor(stacked, dtype=torch.float32, device="cuda")
+        ev[1].record()
+        t2 = time.perf_counter()
+        energies = ops.mel_energies(audio, pipe.cfg.n_mels)
+        ev[2].record()
+        log_mel_tail(energies)
+        ev[3].record()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        runs.append(in_pipe + (whole, (t1 - t0) * 1e3, ev[0].elapsed_time(ev[1]),
+                               (t2 - t1) * 1e3, ev[1].elapsed_time(ev[2]),
+                               ev[2].elapsed_time(ev[3]), (t3 - t0) * 1e3, whole_call()))
+    (mel_ms, pad_stack_in, call_in, gc_in, whole, pad_stack, copy, copy_host, k1, tail, total,
+     whole_again) = (f"{statistics.median(c):.3f} ms ({min(c):.3f}-{max(c):.3f})"
+                     for c in zip(*runs))
+    print(f"  mel_ms split (median and range of {rounds} rounds, {stacked.nbytes / 1e6:.1f} MB of "
+          f"audio) [{card}]:\n"
+          f"    in transcribe: mel_ms {mel_ms} (the pipeline's CUDA events) = host pad_or_trim + "
+          f"np.stack {pad_stack_in} + the Pipeline.mel call {call_in} (host clock), GC pauses "
+          f"in that window {gc_in}\n"
+          f"    after the decode: Pipeline.mel(np.stack(...)) {whole} (the pipeline's clock), "
+          f"{whole_again} once more after the pieces\n"
+          f"    its pieces: host pad_or_trim + np.stack {pad_stack} (host clock); host-to-device "
+          f"copy {copy} (CUDA events; {copy_host} on the host clock); K1 issued and run {k1}; "
+          f"log tail issued and run {tail} (CUDA events); {total} in all (host clock)")
 
 
 def serve(torch, Pipeline, ops, card, profile=None):
@@ -600,6 +780,7 @@ def serve(torch, Pipeline, ops, card, profile=None):
                 "main path produced out-of-range tokens")
     for name in ("mel", "flash_attention", "quant_cross_attention"):
         require(counts.get(name, 0) > 0, f"main path never launched the {name} kernel")
+    mel_split(torch, pipe, ops, clips, kwargs, card)
     if profile:
         profile_run(torch, lambda: pipe.transcribe(clips, **kwargs), card, wall * 1e3,
                     profile, "the serving path")

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from whisper_context_biasing_tpu_torch import ops
-from whisper_context_biasing_tpu_torch.audio.mel import log_mel_tail
+from whisper_context_biasing_tpu_torch.audio.mel import log_mel_spectrogram_np, log_mel_tail
 from whisper_context_biasing_tpu_torch.decode import greedy_decode, pack_prefixes
 from whisper_context_biasing_tpu_torch.models import attention, build_model, tiny_test_config
 from whisper_context_biasing_tpu_torch.ops.quant_cross_attention import pick_splits
@@ -43,18 +43,33 @@ def _rand(rng, shape, dev, dtype=torch.float32):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
 
-@pytest.mark.parametrize("n_samples,n_mels", [(3217, 80), (48000, 128)])
-def test_mel_kernel(dev, n_samples, n_mels):
+@pytest.mark.parametrize("batch,n_samples,n_mels", [(3, 3217, 80), (3, 48000, 128),
+                                                    (8, 480000, 80), (1, 480000, 80),
+                                                    (2, 160 * 203 + 37, 80)])
+def test_mel_kernel(dev, batch, n_samples, n_mels):
     rng = np.random.default_rng(0)
     t = np.arange(n_samples) / 16000.0
-    audio = 0.5 * np.sin(2 * np.pi * 440 * t) + 0.05 * rng.standard_normal((3, n_samples))
+    audio = 0.5 * np.sin(2 * np.pi * 440 * t) + 0.05 * rng.standard_normal((batch, n_samples))
     x = torch.from_numpy(audio.astype(np.float32)).to(dev)
     ops.reset_launch_counts()
     kern = ops.mel_energies(x, n_mels)
     assert ops.launches["mel"] == 1
     plain = ops.mel_energies_plain(x, n_mels)
-    assert kern.shape == (3, n_samples // 160, n_mels)
+    assert kern.shape == (batch, n_samples // 160, n_mels)
     torch.testing.assert_close(log_mel_tail(kern), log_mel_tail(plain), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("level", [1.0, 1e-3])
+def test_mel_kernel_matches_float64_reference(dev, level):
+    """A loud and a quiet 30 s clip against the float64 numpy frontend."""
+    rng = np.random.default_rng(1)
+    t = np.arange(480000) / 16000.0
+    clip = level * (0.5 * np.sin(2 * np.pi * 440 * t) + 0.2 * np.sin(2 * np.pi * 1337 * t)
+                    + 0.05 * rng.standard_normal(t.size))
+    clip = clip.astype(np.float32)
+    got = log_mel_tail(ops.mel_energies(torch.from_numpy(clip[None]).to(dev), 80))[0]
+    np.testing.assert_allclose(got.cpu().numpy(), log_mel_spectrogram_np(clip, 80), atol=1e-4,
+                               rtol=0)
 
 
 # shapes that straddle the kernels' tiles (f32: 64 query rows x 64 keys;
@@ -100,6 +115,20 @@ def test_quant_cross_kernel_every_layer(dev, dtype, atol):
         got = ops.quant_cross_attention_step_indexed(q, k_q, k_s, v_q, v_s, layer, 2)
         want = ops.quant_cross_attention_step_indexed_plain(q, k_q, k_s, v_q, v_s, layer, 2)
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_quant_cross_one_layer_step(dev, dtype, atol):
+    """``quant_cross_attention_step`` on one layer's (B, T_pad, D) K/V
+    launches K3 once and gives its plain version's result."""
+    rng = np.random.default_rng(4)
+    k_q, k_s, v_q, v_s = (x[0] for x in _quant_kv(rng, dev, 1, 2, 1536, 512, 1500))
+    q = _rand(rng, (2, 1, 512), dev, dtype)
+    ops.reset_launch_counts()
+    got = ops.quant_cross_attention_step(q, k_q, k_s, v_q, v_s, 8)
+    assert ops.launches["quant_cross_attention"] == 1
+    want = ops.quant_cross_attention_plain(q, k_q, k_s, v_q, v_s, 8)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
 def _bf16_ulp(x: torch.Tensor) -> float:

@@ -3,7 +3,8 @@
 The same audio (numpy, seeded) goes through the JAX package's frontends and
 the port's; on CPU tensors the port's kernel wrapper runs its plain version.
 The mel kernel itself runs only on the card (chip_smoke.py holds it against
-this plain version there)."""
+this plain version there); the tables it is given, the sparse filterbank and
+the twiddles, are numpy and are checked here."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,8 +17,10 @@ from whisper_context_biasing_tpu_torch import ops
 from whisper_context_biasing_tpu_torch.audio.mel import (
     log_mel_spectrogram,
     log_mel_spectrogram_np,
+    mel_filter_bank,
     select_mel_frontend,
 )
+from whisper_context_biasing_tpu_torch.ops.mel_kernel import sparse_filterbank, twiddle_table
 
 # f32 products in both frameworks, summed in other orders: log-mel agrees to
 # well inside 1e-4 (the JAX package's own frontend tolerance vs numpy)
@@ -65,3 +68,31 @@ def test_select_mel_frontend_picks_kernel_or_plain(audio):
     got = select_mel_frontend()(x, n_mels=80)
     assert not ops.launches
     assert torch.equal(got, log_mel_spectrogram(x, n_mels=80))
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_sparse_filterbank_reproduces_mel_filter_bank(n_mels):
+    """The kernel's (first bin, count, offset) runs and weights rebuild the
+    dense filterbank exactly, and a projection through either is the same."""
+    ranges, weights = sparse_filterbank(n_mels)
+    fb = mel_filter_bank(n_mels=n_mels)
+    dense = np.zeros_like(fb)
+    for m, (first, count, offset) in enumerate(ranges):
+        dense[m, first:first + count] = weights[offset:offset + count]
+    np.testing.assert_array_equal(dense, fb)
+    assert ranges[:, 1].sum() == weights.size and (ranges[:, 1] > 0).all()
+    power = np.random.default_rng(0).random((6, 201))
+    sparse = np.stack([[p[f:f + c] @ weights[o:o + c].astype(np.float64) for f, c, o in ranges]
+                       for p in power])
+    np.testing.assert_allclose(sparse, power @ fb.T.astype(np.float64), rtol=1e-12, atol=0)
+
+
+def test_twiddle_table_is_the_rounded_float64_table():
+    """W_400^k as f32 (re, im): the float64 values rounded once, so each is
+    within half an f32 ulp of exp(-2 pi i k / 400)."""
+    tw = twiddle_table()
+    assert tw.dtype == np.float32 and tw.shape == (400, 2)
+    want = np.exp(-2j * np.pi * np.arange(400) / 400)
+    for got, ref in ((tw[:, 0], want.real), (tw[:, 1], want.imag)):
+        np.testing.assert_array_equal(got, ref.astype(np.float32))
+        assert (np.abs(got - ref) <= np.spacing(np.abs(ref).astype(np.float32)) / 2).all()

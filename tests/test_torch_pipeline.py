@@ -10,6 +10,7 @@ import wave
 
 import jax
 import numpy as np
+import pytest
 
 from whisper_context_biasing_tpu import Pipeline as JaxPipeline
 from whisper_context_biasing_tpu.audio import load_audio as jax_load_audio
@@ -37,6 +38,35 @@ def test_pipeline_matches_jax():
     assert [r.text for r in got] == [r.text for r in want]
     assert all(r.tokens for r in got)
     assert set(port.last_timings) == {"mel_ms", "encode_ms", "prefill_ms", "decode_ms", "steps"}
+
+
+def _tiny_pipelines():
+    jcfg = jax_tiny(quantize_cross_kv=True, gelu_approx=True)
+    params = jax.tree.map(np.asarray, jax_init(jcfg, 0))
+    ref = JaxPipeline("tiny.en", config=jcfg, params=params, model_parallelism=0)
+    port = Pipeline("tiny.en", config=tiny_test_config(**FAST_OVERRIDES), params=params,
+                    device="cpu")
+    return ref, port
+
+
+def test_pipeline_trims_a_long_clip_short_form_as_jax():
+    """long_form=False: a clip one second over the window is trimmed to the
+    window and decoded short-form, as the JAX Pipeline does."""
+    ref, port = _tiny_pipelines()
+    rng = np.random.default_rng(5)
+    clip = (0.1 * rng.standard_normal(port.window_samples + 16000)).astype(np.float32)
+    kw = dict(context="patient on aspirin", bias_words=["aspirin"], bias_boost=2.0,
+              max_tokens=12, long_form=False)
+    want, got = ref.transcribe(clip, **kw), port.transcribe(clip, **kw)
+    assert got.tokens == want.tokens and got.tokens
+    assert got.text == want.text
+
+
+def test_pipeline_long_clip_auto_is_not_ported():
+    _, port = _tiny_pipelines()
+    clip = np.zeros(port.window_samples + 16000, np.float32)
+    with pytest.raises(NotImplementedError, match="Queue A.6"):
+        port.transcribe(clip, long_form="auto", max_tokens=4)
 
 
 def test_load_audio_matches_jax(tmp_path):

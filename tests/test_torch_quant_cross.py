@@ -15,6 +15,7 @@ from whisper_context_biasing_tpu.models.whisper import (
     quantize_cross_kv as jax_quantize,
 )
 from whisper_context_biasing_tpu.ops.quant_cross_attention import (
+    quant_cross_attention_step as jax_step,
     quant_cross_attention_step_indexed as jax_step_indexed,
 )
 from whisper_context_biasing_tpu_torch import ops
@@ -126,3 +127,24 @@ def test_multi_query_plain_matches_jax_xla_path(both):
         jnp.asarray(q), {n: jnp.asarray(a[1]) for n, a in ref_kv.items()}, H))
     got = _attention_quant_cross(torch.from_numpy(q), {n: a[1] for n, a in kv.items()}, H)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_layer_step_matches_jax_kernel(both, dtype):
+    """``quant_cross_attention_step`` (K3 on one layer's K/V) on a CPU
+    tensor: its plain version against the JAX function's Pallas kernel in
+    interpret mode."""
+    ref_kv, kv = both
+    q = np.random.default_rng(3).standard_normal((B, 1, D)).astype(np.float32)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32,
+                                                                         torch.float32)
+    ref = np.asarray(jax_step(jnp.asarray(q, jdt), *(jnp.asarray(ref_kv[n][1]) for n in
+                                                     ("k_q", "k_s", "v_q", "v_s")),
+                              H, interpret=True).astype(jnp.float32))
+    ops.reset_launch_counts()
+    got = ops.quant_cross_attention_step(torch.from_numpy(q).to(tdt),
+                                         *(kv[n][1] for n in ("k_q", "k_s", "v_q", "v_s")), H)
+    assert not ops.launches  # CPU: the plain version
+    assert got.shape == (B, 1, D) and got.dtype == tdt
+    atol = 1e-5 if dtype == "float32" else _bf16_ulp(ref)
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=atol, rtol=0)

@@ -11,7 +11,8 @@ over. The numerics follow the JAX functions:
     masters, so its gradients are taken with respect to f32 weights; a
     serving model stores block weights and embeddings in the compute dtype,
     where the cast is a no-op. Layer norms and conv stems keep f32 weights,
-    and every layer norm, softmax and the vocab logits run in f32
+    and every layer norm, softmax, conv stem and the vocab logits run in
+    ``_acc``: f32, or float64 for a float64 model, as in the JAX package
   * a projection accumulates in f32, rounds to the compute dtype, then adds
     its bias in the compute dtype (``_proj``)
   * masks use the f32 minimum, not -inf, so fully masked rows (left-padded
@@ -41,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .._device import acc_dtype as _acc
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_block import fused_ln_matmul
 from ..ops.quant_cross_attention import (
@@ -48,9 +50,6 @@ from ..ops.quant_cross_attention import (
     quant_cross_attention_step_indexed,
 )
 from .config import WhisperConfig
-
-_F32_MIN = torch.finfo(torch.float32).min
-
 
 def sinusoids(length: int, channels: int) -> np.ndarray:
     """Fixed sinusoidal position embeddings (public Whisper formula)."""
@@ -68,8 +67,9 @@ def sinusoids(length: int, channels: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    """LayerNorm in f32 regardless of compute dtype."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+    """LayerNorm in f32 (float64 for a float64 x) regardless of compute dtype."""
+    ft = _acc(x)
+    return F.layer_norm(x.to(ft), ln.normalized_shape, ln.weight.to(ft), ln.bias.to(ft),
                         1e-5).to(x.dtype)
 
 
@@ -91,20 +91,22 @@ def attention(q, k, v, n_heads: int, mask=None):
     """Plain multi-head attention over merged-head (B, T, D) tensors; ``mask``
     broadcasts to (B, H, Tq, Tk), True = attend."""
     dh = q.shape[-1] // n_heads
-    qh, kh, vh = (_split_heads(x, n_heads).float() for x in (q, k, v))
+    ft = _acc(q)
+    qh, kh, vh = (_split_heads(x, n_heads).to(ft) for x in (q, k, v))
     scores = (qh @ kh.transpose(-1, -2)) / math.sqrt(dh)
     if mask is not None:
-        scores = torch.where(mask, scores, _F32_MIN)
+        scores = torch.where(mask, scores, torch.finfo(ft).min)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = w.float() @ vh
+    out = w.to(ft) @ vh
     b, _, tq, _ = out.shape
     return out.transpose(1, 2).reshape(b, tq, -1).to(q.dtype)
 
 
 def _conv1d(x: torch.Tensor, conv: nn.Conv1d, stride: int) -> torch.Tensor:
     """x (B, C_in, T) -> (B, C_out, T/stride), padding 1. The product runs in
-    the conv weight's dtype (f32), then rounds to x's dtype before the bias."""
-    y = F.conv1d(x.to(conv.weight.dtype), conv.weight, None, stride=stride, padding=1)
+    f32 (float64 for a float64 x), then rounds to x's dtype before the bias."""
+    ft = _acc(x)
+    y = F.conv1d(x.to(ft), conv.weight.to(ft), None, stride=stride, padding=1)
     return y.to(x.dtype) + conv.bias.to(x.dtype)[:, None]
 
 
@@ -219,20 +221,22 @@ class TextDecoder(nn.Module):
         self.pos_emb = nn.Parameter(torch.empty(cfg.n_text_ctx, d, dtype=dt))
         self.blocks = nn.ModuleList(DecoderBlock(d, dt) for _ in range(cfg.n_text_layers))
         self.ln = nn.LayerNorm(d)
-        self._vocab_f32 = None
+        self._vocab_acc = None
         self._vocab_key = None
 
-    def vocab_weight_f32(self, dtype: torch.dtype) -> torch.Tensor:
+    def vocab_weight_acc(self, dtype: torch.dtype) -> torch.Tensor:
         """The tied vocab projection (the token embedding, rounded to
-        ``dtype``) widened to f32 once, so the logits come out of an f32
-        product of the same values the JAX package multiplies. Detached:
-        for inference only (``project_vocab`` keeps training in the graph)."""
+        ``dtype``) widened once to ``_acc`` (f32, or float64 for a float64
+        ``dtype``), so the logits come out of a product of the same values,
+        in the same type, as the JAX package's. Detached: for inference only
+        (``project_vocab`` keeps training in the graph)."""
         w = self.token_emb
         key = (w.data_ptr(), w._version, w.device, w.dtype, dtype)
         if self._vocab_key != key:
-            self._vocab_f32 = w.detach().to(dtype).float()
+            wd = w.detach().to(dtype)
+            self._vocab_acc = wd.to(_acc(wd))
             self._vocab_key = key
-        return self._vocab_f32
+        return self._vocab_acc
 
 
 class Whisper(nn.Module):
@@ -429,14 +433,16 @@ def decode_tokens(
 
 
 def project_vocab(model: Whisper, x: torch.Tensor) -> torch.Tensor:
-    """Tied vocab projection of decoder states (B, S, D) -> f32 logits
-    (B, S, V): compute-dtype operands, f32 product and output. While
-    autograd records a trainable embedding, the cast stays in the graph, so
-    the token embedding gets the projection's share of its gradient."""
+    """Tied vocab projection of decoder states (B, S, D) -> ``_acc`` logits
+    (B, S, V), f32 (float64 for a float64 model): compute-dtype operands,
+    the product and its output in ``_acc``. While autograd records a trainable embedding, the
+    cast stays in the graph, so the token embedding gets the projection's
+    share of its gradient."""
     w = model.decoder.token_emb
+    ft = _acc(x)
     if torch.is_grad_enabled() and w.requires_grad:
-        return F.linear(x.float(), w.to(x.dtype).float())
-    return F.linear(x.float(), model.decoder.vocab_weight_f32(x.dtype))
+        return F.linear(x.to(ft), w.to(x.dtype).to(ft))
+    return F.linear(x.to(ft), model.decoder.vocab_weight_acc(x.dtype))
 
 
 def forward(model: Whisper, input_features: torch.Tensor,

@@ -19,6 +19,7 @@ from .fused_block import (
 from .mel_kernel import log_mel_spectrogram_fused, mel_energies, mel_energies_plain
 from .quant_cross_attention import (
     quant_cross_attention_plain,
+    quant_cross_attention_step,
     quant_cross_attention_step_indexed,
     quant_cross_attention_step_indexed_plain,
 )
@@ -39,6 +40,7 @@ __all__ = [
     "mel_energies",
     "mel_energies_plain",
     "quant_cross_attention_plain",
+    "quant_cross_attention_step",
     "quant_cross_attention_step_indexed",
     "quant_cross_attention_step_indexed_plain",
 ]

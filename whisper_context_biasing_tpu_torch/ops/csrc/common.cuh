@@ -43,6 +43,28 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32<T>(from_f32<T>(x));
 }
 
+// Registers, shared memory (static + dynamic), local memory (stack and
+// spills), resident blocks per SM and threads per block of a kernel, for
+// reports: out[0..4].
+template <typename Kernel>
+int kernel_info(Kernel* kernel, int threads, size_t dyn_smem, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(dyn_smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, dyn_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes + dyn_smem);
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = blocks;
+  out[4] = threads;
+  return 0;
+}
+
 WCB_EXPORT const char* wcb_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -268,24 +268,3 @@ __device__ __forceinline__ void wgmma_rs_bt(float (*d)[4], const uint32_t* a, ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
 }
 
-// Registers, shared memory (static + dynamic), local memory (stack and
-// spills), resident blocks per SM and threads per block of a kernel, for
-// reports: out[0..4].
-template <typename Kernel>
-int kernel_info(Kernel* kernel, int threads, size_t dyn_smem, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(dyn_smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, dyn_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.sharedSizeBytes + dyn_smem);
-  out[2] = static_cast<int>(attr.localSizeBytes);
-  out[3] = blocks;
-  out[4] = threads;
-  return 0;
-}

@@ -29,6 +29,7 @@ import math
 
 import torch
 
+from .._device import acc_dtype
 from . import _build
 
 HEAD_DIM = 64  # the kernels' head width (every Whisper size uses 64)
@@ -66,21 +67,22 @@ def _check_causal(tq: int, tk: int, causal: bool) -> None:
 
 def flash_attention_fwd_plain(q, k, v, kv_len: int | None = None, causal: bool = False):
     """Plain torch version of the forward kernel. q (B, Tq, H, dh), k/v
-    (B, Tk, H, dh) -> (o (B, Tq, H, dh) in q's dtype, lse (B, H, Tq) f32).
-    Masked keys get the f32 minimum; probabilities are cast to v's dtype
-    before P.V and the output is normalised after it."""
+    (B, Tk, H, dh) -> (o (B, Tq, H, dh) in q's dtype, lse (B, H, Tq) f32,
+    float64 for float64 inputs). Masked keys get the accumulator's minimum;
+    probabilities are cast to v's dtype before P.V and the output is
+    normalised after it."""
     tq, tk = q.shape[1], k.shape[1]
     _check_causal(tq, tk, causal)
     kv_len = tk if kv_len is None else kv_len
     scale = 1.0 / math.sqrt(q.shape[-1])
-    qh, kh, vh = (x.transpose(1, 2).float() for x in (q, k, v))  # (B, H, T, dh)
+    ft = acc_dtype(q)
+    qh, kh, vh = (x.transpose(1, 2).to(ft) for x in (q, k, v))  # (B, H, T, dh)
     s = (qh @ kh.transpose(-1, -2)) * scale
-    s = torch.where(_keep_mask(tq, tk, kv_len, causal, q.device), s,
-                    torch.finfo(torch.float32).min)
+    s = torch.where(_keep_mask(tq, tk, kv_len, causal, q.device), s, torch.finfo(ft).min)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
-    o = (p.to(v.dtype).float() @ vh) / denom
+    o = (p.to(v.dtype).to(ft) @ vh) / denom
     lse = (m + torch.log(denom))[..., 0]
     return o.transpose(1, 2).to(q.dtype), lse
 
@@ -97,16 +99,17 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, kv_len: int | None = None,
     _check_causal(tq, tk, causal)
     kv_len = tk if kv_len is None else kv_len
     scale = 1.0 / math.sqrt(q.shape[-1])
-    qh, kh, vh, oh, doh = (x.transpose(1, 2).float() for x in (q, k, v, o, do))
+    ft = acc_dtype(q)
+    qh, kh, vh, oh, doh = (x.transpose(1, 2).to(ft) for x in (q, k, v, o, do))
     s = (qh @ kh.transpose(-1, -2)) * scale
     keep = _keep_mask(tq, tk, kv_len, causal, q.device)
     p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
     dp = doh @ vh.transpose(-1, -2)
     dterm = (doh * oh).sum(dim=-1, keepdim=True)
     ds = p * (dp - dterm) * scale
-    dq = ds.to(k.dtype).float() @ kh
-    dk = ds.to(q.dtype).float().transpose(-1, -2) @ qh
-    dv = p.to(do.dtype).float().transpose(-1, -2) @ doh
+    dq = ds.to(k.dtype).to(ft) @ kh
+    dk = ds.to(q.dtype).to(ft).transpose(-1, -2) @ qh
+    dv = p.to(do.dtype).to(ft).transpose(-1, -2) @ doh
     return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
             dv.transpose(1, 2).to(v.dtype))
 

@@ -30,7 +30,7 @@ it recomputes ``xhat`` in f32 and re-runs the product only for an
 activation site (gelu' needs the pre-activation). JAX computes that
 backward with XLA ops outside any Pallas kernel, so there is no backward
 kernel to port: its products are ``torch.mm`` in the compute dtype with
-f32 output (``_mm_f32``: the JAX ``preferred_element_type=f32``
+f32 output (``_mm_acc``: the JAX ``preferred_element_type=f32``
 products), and it launches no kernel of the port.
 
 The JAX call pads rows to a multiple of 256 and tiles W's columns to fit
@@ -46,6 +46,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .._device import acc_dtype
 from . import _build
 
 EPS = 1e-5
@@ -77,8 +78,8 @@ def _apply_act(s: torch.Tensor, act: str | None) -> torch.Tensor:
 
 
 def _normalize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(xhat, rstd) of the last axis, in f32."""
-    xf = x.float()
+    """(xhat, rstd) of the last axis, in f32 (float64 for a float64 x)."""
+    xf = x.to(acc_dtype(x))
     xc = xf - xf.mean(dim=-1, keepdim=True)
     rstd = torch.rsqrt(xc.square().mean(dim=-1, keepdim=True) + EPS)
     return xc * rstd, rstd
@@ -86,13 +87,15 @@ def _normalize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def fused_ln_matmul_plain(x, g, beta, w, b=None, act=None):
     """Plain torch version of the kernel: ``act(LN(x) @ w + b)`` over
-    x (..., d), w (d, E) -> x.shape[:-1] + (E,) in x's dtype."""
+    x (..., d), w (d, E) -> x.shape[:-1] + (E,) in x's dtype, summed in f32
+    (float64 for a float64 x)."""
     _check_act(act)
     xhat, _ = _normalize(x)
-    y = xhat * g.float() + beta.float()
-    s = y.to(w.dtype).float() @ w.float()
+    ft = xhat.dtype
+    y = xhat * g.to(ft) + beta.to(ft)
+    s = y.to(w.dtype).to(ft) @ w.to(ft)
     if b is not None:
-        s = s + b.float()
+        s = s + b.to(ft)
     return _apply_act(s, act).to(x.dtype)
 
 
@@ -201,15 +204,16 @@ def kernel_info(d: int) -> list[dict]:
                                    "fused LN+matmul", dtype) for dtype, code in _DTYPES.items()]
 
 
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` over 2-D operands of one dtype, summed and returned in f32
-    (the JAX ``preferred_element_type=f32`` product): bf16 operands on the
-    card stay bf16 (tensor-core products, f32 output); elsewhere they are
-    widened first. bf16 products are exact in f32, so the two differ only
-    in the order of the sums."""
+def _mm_acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over 2-D operands of one dtype, summed and returned in f32,
+    float64 for float64 operands (the JAX ``preferred_element_type=_acc``
+    product): bf16 operands on the card stay bf16 (tensor-core products, f32
+    output); elsewhere they are widened first. bf16 products are exact in
+    f32, so the two differ only in the order of the sums."""
     if a.is_cuda and a.dtype == torch.bfloat16:
         return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
+    ft = acc_dtype(a)
+    return a.to(ft) @ b.to(ft)
 
 
 def fused_ln_matmul_bwd(x2d, g, beta, w, b, dout, act):
@@ -217,21 +221,22 @@ def fused_ln_matmul_bwd(x2d, g, beta, w, b, dout, act):
     output gradient ``dout``, each in its primal's dtype (db None without a
     bias): the JAX package's ``_core_bwd``."""
     xhat, rstd = _normalize(x2d)
-    gf = g.float()
-    yc = (xhat * gf + beta.float()).to(w.dtype)
-    df = dout.float()
+    ft = xhat.dtype
+    gf = g.to(ft)
+    yc = (xhat * gf + beta.to(ft)).to(w.dtype)
+    df = dout.to(ft)
     if act is not None:
-        s = _mm_f32(yc, w)
+        s = _mm_acc(yc, w)
         if b is not None:
-            s = s + b.float()
+            s = s + b.to(ft)
         ds = torch.ops.aten.gelu_backward(
             df, s, approximate="tanh" if act == "gelu_tanh" else "none")
     else:
         ds = df
     db = None if b is None else ds.sum(dim=0).to(b.dtype)
     dsc = ds.to(w.dtype)
-    dw = _mm_f32(yc.t(), dsc).to(w.dtype)
-    dy = _mm_f32(dsc, w.t())
+    dw = _mm_acc(yc.t(), dsc).to(w.dtype)
+    dy = _mm_acc(dsc, w.t())
     dg = (dy * xhat).sum(dim=0).to(g.dtype)
     dbeta = dy.sum(dim=0).to(beta.dtype)
     dxhat = dy * gf

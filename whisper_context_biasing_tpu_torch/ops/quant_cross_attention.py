@@ -10,9 +10,10 @@ cluster of up to 8 blocks shares one (batch row, head) along T_pad and
 exchanges the softmax statistics and the partial outputs through
 distributed shared memory (one launch, no workspace, the same bits on every
 run). It needs T_pad to be a multiple of 64 (``quantize_cross_kv`` pads to
-128) and at most 8 x 512 rows. The one-layer form
-(``quant_cross_attention_step`` in JAX) is this applied to ``layer=0`` of a
-(1, B, T_pad, D) view.
+128) and at most 8 x 512 rows. The one-layer form,
+``quant_cross_attention_step`` (JAX's function of that name), is this
+kernel applied to ``layer=0`` of a (1, B, T_pad, D) view; as in JAX, no
+path calls it.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import math
 
 import torch
 
+from .._device import acc_dtype
 from . import _build
 
 HEAD_DIM = 64
@@ -41,21 +43,22 @@ TARGET_BLOCKS = 132     # a block for each of the card's SMs
 def quant_cross_attention_plain(q, k_q, k_s, v_q, v_s, n_heads: int):
     """Cross attention of q (B, S, D) against one layer's int8 K/V: k_q/v_q
     (B, T_pad, D) int8, k_s/v_s (B, 1, T_pad) f32. The op order of the JAX
-    package's ``models.whisper._attention_quant_cross``."""
+    package's ``models.whisper._attention_quant_cross``, in f32 (float64 for
+    a float64 q)."""
     b, s, d = q.shape
     dh = d // n_heads
     t = k_q.shape[1]
-    qh = q.view(b, s, n_heads, dh).transpose(1, 2).float()             # (B, H, S, dh)
-    kh = k_q.to(q.dtype).view(b, t, n_heads, dh).permute(0, 2, 3, 1).float()  # (B, H, dh, T)
+    ft = acc_dtype(q)
+    qh = q.view(b, s, n_heads, dh).transpose(1, 2).to(ft)              # (B, H, S, dh)
+    kh = k_q.to(q.dtype).view(b, t, n_heads, dh).permute(0, 2, 3, 1).to(ft)  # (B, H, dh, T)
     scores = qh @ kh                                                   # (B, H, S, T)
     ks = k_s[:, None]                                                  # (B, 1, 1, T)
-    scores = torch.where(ks > 0.0, scores * (ks / math.sqrt(dh)),
-                         torch.finfo(torch.float32).min)
+    scores = torch.where(ks > 0.0, scores * (ks / math.sqrt(dh)), torch.finfo(ft).min)
     w = torch.softmax(scores, dim=-1)
     # fold the value scale into the probabilities
     w = (w * v_s[:, None]).to(q.dtype)
-    vh = v_q.to(q.dtype).view(b, t, n_heads, dh).transpose(1, 2).float()
-    out = w.float() @ vh                                               # (B, H, S, dh)
+    vh = v_q.to(q.dtype).view(b, t, n_heads, dh).transpose(1, 2).to(ft)
+    out = w.to(ft) @ vh                                                # (B, H, S, dh)
     return out.transpose(1, 2).reshape(b, s, d).to(q.dtype)
 
 
@@ -121,6 +124,17 @@ def quant_cross_attention_step_indexed(q, k_q, k_s, v_q, v_s, layer: int,
     _build.check(lib, err, "quant cross attention")
     _build.launches["quant_cross_attention"] += 1
     return out
+
+
+def quant_cross_attention_step(q, k_q, k_s, v_q, v_s, n_heads: int):
+    """Single-query cross attention of q (B, 1, D) against one layer's int8
+    K/V: k_q/v_q (B, T_pad, D) int8, k_s/v_s (B, 1, T_pad) f32. The kernel
+    (on ``layer=0`` of a one-layer view) for CUDA tensors, the plain version
+    for CPU tensors. Returns (B, 1, D) in q's dtype."""
+    if q.device.type == "cpu":
+        return quant_cross_attention_plain(q, k_q, k_s, v_q, v_s, n_heads)
+    return quant_cross_attention_step_indexed(q, k_q[None], k_s[None], v_q[None], v_s[None],
+                                              0, n_heads)
 
 
 def kernel_info(block_rows: int) -> list[dict]:

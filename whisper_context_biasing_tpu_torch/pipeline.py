@@ -140,8 +140,9 @@ class Pipeline:
         word_timestamps: bool = False,
         window_buckets=None,
     ) -> list[TranscriptionResult] | TranscriptionResult:
-        """Transcribe file paths and/or 16 kHz float arrays of at most one
-        window each, in one batch."""
+        """Transcribe file paths and/or 16 kHz float arrays in one batch, each
+        padded or trimmed to one window: a longer clip needs
+        ``long_form=False`` (trimmed), since long-form is not ported yet."""
         if num_beams > 1:
             _not_ported("beam search", "Queue A.6 (decode/beam.py)")
         if timestamps or word_timestamps:
@@ -155,7 +156,10 @@ class Pipeline:
         clips = [self._load(a) for a in ([audio] if single else audio)]
         n = len(clips)
         win = self.window_samples
-        if long_form is True or long_form == "chunked" or any(len(c) > win for c in clips):
+        # as in JAX, only "auto" routes a clip over one window to long-form;
+        # long_form=False trims it to the window (pad_or_trim below)
+        if long_form is True or long_form == "chunked" or (
+                long_form == "auto" and any(len(c) > win for c in clips)):
             _not_ported("long-form transcription (a clip over one window)",
                         "Queue A.6 (decode/long_form.py, decode/chunked.py)")
         boost = self.default_bias_boost if bias_boost is None else bias_boost
