@@ -47,7 +47,17 @@ on failure:
    ``--fused_ln`` config over a synthetic WAV corpus written to a
    temporary directory (``PromptWhisperDataset``, prompts and bias lists),
    2 optimizer steps, a WER evaluation whose encoder runs the fused kernel,
-   ``refs_and_pred.txt`` and ``checkpoint-2`` read back.
+   ``refs_and_pred.txt`` and ``checkpoint-2`` read back;
+10. the reference's entry points at base.en width: phase 3's seeded weights
+   written as ``model.safetensors`` by the port's own writer and read back
+   bit-identical, ``Pipeline(checkpoint=...)`` giving phase 3's tokens and
+   launches; ``cli.train --flash_attention --fused_ln`` from that file on a
+   WAV corpus (2 steps, an eval, a save, the test eval) with its result
+   files, ``checkpoint-2`` and exactly the launches its configuration
+   implies; ``cli.export_hf`` of the checkpoint, then ``cli.evaluation
+   --final_model`` on the export and ``--best_checkpoint`` on the run giving
+   the same ``refs_and_pred.txt``; whether libmpg123 is here (and, with
+   libmp3lame, one ``.mp3`` decoded); each CLI's wall time.
 
 Phase 2 also holds the mel kernel against its plain version at 80 and 128
 mels, a 3 s window and batch 1, and against the float64 numpy frontend on a
@@ -63,7 +73,7 @@ bound. The int8 cross-attention is timed as a decode step runs
 it, in bursts that rotate over the 6 layers (75 MB of K/V, more than the
 50 MB L2 holds), so its time is fed from device memory. The line before the
 last is the kernel table as JSON, with each kernel's launches summed over
-the main-path phases (3, 5, 7 and 9); the last line is
+the main-path phases (3, 5, 7, 9 and 10); the last line is
 ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only [TREE]`` stops after phase 2 (all five kernels checked and
@@ -784,7 +794,7 @@ def serve(torch, Pipeline, ops, card, profile=None):
     if profile:
         profile_run(torch, lambda: pipe.transcribe(clips, **kwargs), card, wall * 1e3,
                     profile, "the serving path")
-    return counts
+    return counts, [r.tokens for r in res]
 
 
 def f32_agreement(torch, Pipeline, ops):
@@ -1004,14 +1014,14 @@ CORPUS_ROWS = {"train": 2 * BATCH, "dev": BATCH}  # 2 optimizer steps' worth, on
 EVAL_MAX_LEN = 32
 
 
-def write_corpus(root, rng) -> None:
+def write_corpus(root, rng, rows=CORPUS_ROWS) -> None:
     """``{root}/jsonl/{phase}.jsonl`` rows (text, description, bias words from
     the training phase's vocabulary) and ``{root}/audio/{phase}/*.wav`` clips
-    of 5-30 s of speech-like signal, 16 kHz int16."""
+    of 5-30 s of speech-like signal, 16 kHz int16; ``rows``: phase -> count."""
     import wave
 
     (root / "jsonl").mkdir(parents=True)
-    for phase, n in CORPUS_ROWS.items():
+    for phase, n in rows.items():
         (root / "audio" / phase).mkdir(parents=True)
         with open(root / "jsonl" / f"{phase}.jsonl", "w") as f:
             for i in range(n):
@@ -1115,6 +1125,214 @@ def entry_point(torch, ops, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the reference's entry points
+# ---------------------------------------------------------------------------
+
+ENTRY_ROWS = {"train": 2 * BATCH, "dev": BATCH, "test": BATCH}
+
+
+def mp3_check() -> None:
+    """Whether libmpg123 (the ``.mp3`` decoder) and libmp3lame are here; with
+    both, a 1 s 440 Hz tone written with libmp3lame goes through
+    ``load_audio``: about 1 s at 16 kHz, its peak at 440 Hz. The corpus of
+    this phase is WAV, so neither library is required."""
+    import ctypes
+    import ctypes.util
+    import tempfile
+
+    from whisper_context_biasing_tpu_torch.audio import load_audio
+    from whisper_context_biasing_tpu_torch.audio.mp3 import available
+
+    lame = None
+    for cand in (ctypes.util.find_library("mp3lame"), "libmp3lame.so.0"):
+        try:
+            lame = ctypes.CDLL(cand) if cand else None
+        except OSError:
+            continue
+        if lame is not None:
+            break
+    print(f"  libmpg123 {'found' if available() else 'not found'}, libmp3lame "
+          f"{'found' if lame is not None else 'not found'}")
+    if lame is None or not available():
+        return
+    pcm = (0.5 * 32767 * np.sin(2 * np.pi * 440 * np.arange(16000) / 16000)).astype(np.int16)
+    lame.lame_init.restype = ctypes.c_void_p
+    h = ctypes.c_void_p(lame.lame_init())
+    lame.lame_set_in_samplerate(h, 16000)
+    lame.lame_set_num_channels(h, 1)
+    lame.lame_set_mode(h, 3)  # mono
+    lame.lame_set_brate(h, 96)
+    require(lame.lame_init_params(h) >= 0, "lame_init_params failed")
+    buf = ctypes.create_string_buffer(pcm.size * 5 // 4 + 7200)
+    ptr = pcm.ctypes.data_as(ctypes.c_void_p)
+    n = lame.lame_encode_buffer(h, ptr, ptr, pcm.size, buf, len(buf))
+    data = buf.raw[:n]
+    n = lame.lame_encode_flush(h, buf, len(buf))
+    data += buf.raw[:n]
+    lame.lame_close(h)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tone.mp3")
+        with open(path, "wb") as f:
+            f.write(data)
+        audio = load_audio(path)
+    spec = np.abs(np.fft.rfft(audio[4000:12000] * np.hanning(8000)))
+    peak = float(np.fft.rfftfreq(8000, 1 / 16000)[np.argmax(spec)])
+    print(f"  .mp3 decoded through libmpg123: {audio.size} samples at 16 kHz, peak at "
+          f"{peak:.0f} Hz")
+    require(abs(audio.size - 16000) < 4000 and abs(peak - 440) < 10, "the .mp3 decoded wrong")
+
+
+def entry_points(torch, ops, card, serve_counts, serve_tokens):
+    """The reference's entry points at base.en width, in-process:
+    (a) phase 3's seeded weights written as ``model.safetensors`` and read
+    back bit-identical, then ``Pipeline(checkpoint=...)`` on phase 3's
+    requests: phase 3's tokens and launches; (b) ``cli.train`` with
+    ``--init_checkpoint`` that file, ``--flash_attention --fused_ln``, 2
+    optimizer steps of batch 8 x accum 2, an eval and a save at step 2, the
+    test eval: its result files, ``checkpoint-2`` and exactly the launches
+    the configuration implies; (c) ``cli.export_hf`` of ``checkpoint-2``,
+    then ``cli.evaluation --final_model`` on the export and
+    ``--best_checkpoint`` on the run: the same ``refs_and_pred.txt``.
+    Returns the launches of (a) and (b) summed."""
+    import pathlib
+    import tempfile
+
+    from whisper_context_biasing_tpu_torch import Pipeline
+    from whisper_context_biasing_tpu_torch.cli import evaluation, export_hf
+    from whisper_context_biasing_tpu_torch.cli import train as train_cli
+    from whisper_context_biasing_tpu_torch.data import PromptWhisperDataset
+    from whisper_context_biasing_tpu_torch.metrics import parse_refs_and_pred_file
+    from whisper_context_biasing_tpu_torch.models import (
+        get_config,
+        init_state_dict,
+        load_safetensors,
+        save_safetensors,
+    )
+    from whisper_context_biasing_tpu_torch.tokenizer import load_tokenizer
+    from whisper_context_biasing_tpu_torch.train import load_checkpoint
+
+    start = time.perf_counter()
+    walls = {}
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        # (a) the checkpoint round trip and serving from it
+        base = get_config("base.en")
+        sd = init_state_dict(base, 0)  # what Pipeline("base.en", seed=0) builds
+        path = root / "init" / "model.safetensors"
+        t0 = time.perf_counter()
+        save_safetensors(sd, base, str(path))
+        t1 = time.perf_counter()
+        back, cfg = load_safetensors(str(path))
+        t2 = time.perf_counter()
+        print(f"  model.safetensors {path.stat().st_size / 1e6:.1f} MB: written in "
+              f"{t1 - t0:.2f} s, read back in {t2 - t1:.2f} s (host)")
+        require(back.keys() == sd.keys() and all(torch.equal(back[k], sd[k]) for k in sd),
+                "the safetensors round trip is not bit-identical")
+        dims = ("n_mels", "n_audio_ctx", "d_model", "n_heads", "n_audio_layers",
+                "n_text_layers", "n_vocab", "n_text_ctx", "multilingual")
+        require(all(getattr(cfg, f) == getattr(base, f) for f in dims),
+                f"config_from_state_dict gave {cfg}")
+        clips = requests(np.random.default_rng(4))
+        kwargs = dict(context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0,
+                      max_tokens=MAX_TOKENS)
+        t0 = time.perf_counter()
+        pipe = Pipeline("base.en", checkpoint=str(path), device="cuda", seed=0)
+        pipe.transcribe(clips, **kwargs)  # warm-up, as phase 3
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res = pipe.transcribe(clips, **kwargs)
+        torch.cuda.synchronize()
+        counts = dict(ops.launches)
+        walls["Pipeline(checkpoint=...) build + 2 batches"] = time.perf_counter() - t0
+        same = [r.tokens for r in res] == serve_tokens
+        print(f"  Pipeline(checkpoint=model.safetensors): tokens identical to phase 3: {same}; "
+              f"launches {counts} (phase 3: {serve_counts})")
+        require(same, "Pipeline(checkpoint=) tokens differ from the seeded Pipeline's")
+        require(counts == serve_counts, "Pipeline(checkpoint=) launches differ from phase 3's")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del pipe
+
+        # (b) the train CLI
+        corpus, out = root / "corpus", root / "run"
+        write_corpus(corpus, np.random.default_rng(9), ENTRY_ROWS)
+        data = ["--data_root", str(corpus), "--data_dir", "audio",
+                "--jsonl_data", str(corpus / "jsonl")]
+        tok = load_tokenizer()
+        longest = max(len(ds.build_label_sequence(i)) for ds in (
+            PromptWhisperDataset(str(corpus / "audio"), str(corpus / "jsonl"), phase,
+                                 tokenizer=tok, prompt=True, bias_list=True, seed=42)
+            for phase in ENTRY_ROWS) for i in range(len(ds)))
+        cfg = get_config("base.en", flash_attention=True, fused_ln_qkv=True, fused_ln_mlp=True)
+        # the collator pads labels to a multiple of 32
+        require(-(-longest // 32) * 32 < cfg.flash_decoder_min_seq,
+                f"labels of {longest} tokens take the decoder's flash path; the expected "
+                "launches assume they do not")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, hist = train_cli.main([
+            *data, "--output", str(out), "--init_checkpoint", str(path), "--flash_attention",
+            "--fused_ln", "--prompt", "--bias_list", "--batch", str(BATCH), "--grad_accum",
+            str(ACCUM), "--epoch", "2", "--eval_steps", "2", "--save_steps", "2",
+            "--logging_steps", "1", "--eval_batch", str(BATCH), "--device", "cuda"])
+        torch.cuda.synchronize()
+        walls["cli.train"] = time.perf_counter() - t0
+        counts = dict(ops.launches)
+        # the step-2 dev eval and the test eval
+        evals = -(-ENTRY_ROWS["dev"] // BATCH) + -(-ENTRY_ROWS["test"] // BATCH)
+        want = expected_train_launches(cfg, 2, s=0, mel=False)
+        want["flash_attention"] += evals * cfg.n_audio_layers
+        want["fused_ln_matmul"] += evals * 2 * cfg.n_audio_layers
+        results = {name: json.loads((out / name).read_text())
+                   for name in ("test_results.json", "bias_wer_results.json")}
+        refs, preds = parse_refs_and_pred_file(str(out / "refs_and_pred.txt"))
+        ckpt, _, meta = load_checkpoint(str(out / "checkpoint-2"), cfg)
+        reloaded = all(torch.equal(ckpt[n], p.detach().cpu()) for n, p in model.named_parameters())
+        print(f"  cli.train --flash_attention --fused_ln (labels up to {longest} tokens): log "
+              f"history {[{k: v for k, v in e.items() if k != 'elapsed_s'} for e in hist]}")
+        print(f"    {results}; refs_and_pred.txt {len(refs)} rows; checkpoint-2 step "
+              f"{meta['step']}, equal to the returned model: {reloaded}")
+        print(f"    launches {counts} (2 steps and {evals} eval batches imply {want})")
+        require(set(results["test_results.json"]) == {"wer"}, "test_results.json has no wer")
+        require(len(refs) == len(preds) == ENTRY_ROWS["test"],
+                f"refs_and_pred.txt has {len(refs)} rows")
+        require(meta["step"] == 2 and reloaded, "checkpoint-2 does not hold the trained model")
+        require(any("loss" in e and np.isfinite(e["loss"]) for e in hist), "no finite loss")
+        require(counts == want, f"cli.train launches {counts} != {want}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del model
+
+        # (c) export, then the evaluation CLI through the two loaders
+        t0 = time.perf_counter()
+        export_hf.main(["--model", "base.en", "--checkpoint", str(out / "checkpoint-2"),
+                        "--out", str(root / "export")])
+        walls["cli.export_hf"] = time.perf_counter() - t0
+        runs = {"--final_model": ["--final_model", "--model_path",
+                                  str(root / "export" / "model.safetensors"),
+                                  "--output", str(root / "eval_final")],
+                "--best_checkpoint": ["--best_checkpoint", "--output", str(out),
+                                      "--refs_pred_file", str(root / "best_refs_and_pred.txt")]}
+        for mode, argv in runs.items():
+            t0 = time.perf_counter()
+            evaluation.main([*data, "--batch", str(BATCH), "--device", "cuda", *argv])
+            torch.cuda.synchronize()
+            walls[f"cli.evaluation {mode}"] = time.perf_counter() - t0
+        files = [(root / "eval_final" / "refs_and_pred.txt").read_text(),
+                 (root / "best_refs_and_pred.txt").read_text()]
+        print(f"  cli.evaluation --final_model (the export) and --best_checkpoint (the run): "
+              f"refs_and_pred.txt identical: {files[0] == files[1]}")
+        require(files[0] == files[1], "the two loaders' refs_and_pred.txt differ")
+        mp3_check()
+    for name, w in walls.items():
+        print(f"  {name}: {w:.2f} s wall  [{card}]")
+    print(f"  phase 10 took {time.perf_counter() - start:.1f} s  [{card}]")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="TABLE_PATH",
@@ -1173,7 +1391,7 @@ def main() -> int:
         return 0
     phase = time.perf_counter()
     print(f"phases 1-2 took {phase - start:.1f} s")
-    serve_counts = serve(torch, Pipeline, ops, card, args.profile)
+    serve_counts, serve_tokens = serve(torch, Pipeline, ops, card, args.profile)
     f32_agreement(torch, Pipeline, ops)
     train_counts, walls = train(torch, ops, card, args.profile and args.profile + ".train")
     train_f32_agreement(torch, ops)
@@ -1184,10 +1402,14 @@ def main() -> int:
     train_f32_agreement(torch, ops, fused=True)
     entry_counts = entry_point(torch, ops, card)
     print(f"phases 7-9 took {time.perf_counter() - phase:.1f} s")
-    # launches: the runs of the main-path phases (3, 5, 7 and 9)
+    print("phase 10, the reference's entry points (safetensors, Pipeline(checkpoint=), "
+          "cli.train, cli.export_hf, cli.evaluation):")
+    cli_counts = entry_points(torch, ops, card, serve_counts, serve_tokens)
+    # launches: the runs of the main-path phases (3, 5, 7, 9 and 10)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in (serve_counts, train_counts,
-                                                          fused_counts, entry_counts))
+                                                          fused_counts, entry_counts,
+                                                          cli_counts))
         require(k["launches"] > 0, f"the main path never launched {k['name']}")
     print(f"chip_smoke total {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

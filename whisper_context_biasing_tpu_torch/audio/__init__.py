@@ -1,6 +1,11 @@
 """Audio layer: host-side loading/resampling and the torch log-mel frontend."""
 
-from .io import load_audio, pcm_to_float32, resample
+from .io import EXTRA_DECODERS, load_audio, pcm_to_float32, resample
+from .mp3 import decode_mp3
+
+# the corpus audio is .mp3 (SURVEY.md §2.2); decode via libmpg123 when the
+# library is present (errors lazily with a pointer to WCB_MPG123_PATH if not)
+EXTRA_DECODERS.setdefault(".mp3", decode_mp3)
 from .mel import (
     HOP_LENGTH,
     N_FFT,
@@ -15,6 +20,8 @@ from .mel import (
 )
 
 __all__ = [
+    "EXTRA_DECODERS",
+    "decode_mp3",
     "load_audio",
     "pcm_to_float32",
     "resample",

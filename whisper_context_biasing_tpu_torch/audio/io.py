@@ -3,17 +3,23 @@
 The same contract as the JAX package's ``audio/io.py``: decode -> mono
 downmix (channel mean) -> resample to 16 kHz -> float32 in [-1, 1]. WAV is
 parsed with the standard library and resampled by polyphase filtering
-(scipy). Compressed formats (the JAX package's ``EXTRA_DECODERS`` and mp3)
-and the native (C++) WAV path are not ported yet.
+(scipy). Compressed formats go through ``EXTRA_DECODERS``: ``audio/mp3.py``
+registers the corpus's ``.mp3`` (libmpg123 binding) at package import. The
+native (C++) WAV path is not ported yet.
 """
 
 from __future__ import annotations
 
 import os
 import wave
+from typing import Callable
 
 import numpy as np
 from scipy.signal import resample_poly
+
+# Optional decoders for non-WAV containers, keyed by lowercase extension.
+# Signature: path -> (float32 samples (channels, n) or (n,), sample_rate).
+EXTRA_DECODERS: dict[str, Callable[[str], tuple[np.ndarray, int]]] = {}
 
 
 def pcm_to_float32(audio: np.ndarray) -> np.ndarray:
@@ -54,13 +60,19 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
 
 
 def load_audio(path: str, sample_rate: int = 16000) -> np.ndarray:
-    """Load a WAV file -> mono float32 at ``sample_rate`` (stereo is
-    downmixed by channel mean)."""
+    """Load a WAV file, or a format with a decoder in ``EXTRA_DECODERS``
+    (``.mp3``), -> mono float32 at ``sample_rate`` (stereo is downmixed by
+    channel mean)."""
     ext = os.path.splitext(path)[1].lower()
-    if ext not in (".wav", ".wave"):
-        raise NotImplementedError(
-            f"decoding '{ext}' files is not ported yet (ROADMAP Queue A.1, mp3.py)")
-    data, sr = _load_wav(path)
+    if ext in EXTRA_DECODERS:
+        data, sr = EXTRA_DECODERS[ext](path)
+    elif ext in (".wav", ".wave"):
+        data, sr = _load_wav(path)
+    else:
+        raise ValueError(
+            f"no decoder for '{ext}' files ({path}); register one in "
+            "whisper_context_biasing_tpu_torch.audio.io.EXTRA_DECODERS"
+        )
     data = np.asarray(data, dtype=np.float32)
     if data.ndim > 1:
         data = data.mean(axis=0)

@@ -1,5 +1,6 @@
 """Data layer: the prompted jsonl dataset, the batch collator's bias-span
-padding contract, and the threaded loader with device prefetch."""
+padding contract, the threaded loader with device prefetch, and the offline
+corpus preparation (``data/prepare.py``)."""
 
 from .collator import BIAS_SPAN_PAD_ID, SpeechSeq2SeqCollator
 from .dataset import PromptWhisperDataset, read_jsonl

@@ -26,8 +26,8 @@ Deliberate fixes over the reference (SURVEY.md §7 quirk list):
   * dead ``audio_type`` arg is accepted but unused, documented here
 
 A copy of the JAX package's ``data/dataset.py`` on the port's host-side
-audio loading (``audio.load_audio``, WAV only: an ``.mp3`` file raises
-``NotImplementedError``) and its numpy log-mel; the items are numpy arrays,
+audio loading (``audio.load_audio``: WAV, and the corpus's ``.mp3`` through
+libmpg123) and its numpy log-mel; the items are numpy arrays,
 the same as the JAX package's.
 """
 

@@ -1,8 +1,18 @@
-"""Model layer: configs, the Whisper modules and their functions, and the
-weight carry-over from the JAX package."""
+"""Model layer: configs, the Whisper modules and their functions, the
+weight carry-over from the JAX package, and HF checkpoints in and out."""
 
 from .config import FAST_OVERRIDES, WhisperConfig, get_config, tiny_test_config
 from .convert import build_model, init_state_dict, params_from_jax, state_dict_to_jax
+from .load_hf import (
+    config_from_state_dict,
+    load_checkpoint_or_safetensors,
+    load_pretrained,
+    load_safetensors,
+    load_torch_model,
+    params_from_state_dict,
+    save_safetensors,
+    state_dict_from_params,
+)
 from .whisper import (
     Whisper,
     attention,
@@ -25,6 +35,14 @@ __all__ = [
     "init_state_dict",
     "params_from_jax",
     "state_dict_to_jax",
+    "config_from_state_dict",
+    "load_checkpoint_or_safetensors",
+    "load_pretrained",
+    "load_safetensors",
+    "load_torch_model",
+    "params_from_state_dict",
+    "save_safetensors",
+    "state_dict_from_params",
     "Whisper",
     "attention",
     "decode_tokens",

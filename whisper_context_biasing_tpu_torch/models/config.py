@@ -66,13 +66,34 @@ class WhisperConfig:
             raise ValueError(f"unknown remat policy {self.remat!r}")
 
     @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    # reference-parity aliases (HF WhisperConfig names used by the reference)
+    @property
+    def vocab_size(self) -> int:
+        return self.n_vocab
+
+    @property
+    def max_target_positions(self) -> int:
+        return self.n_text_ctx
+
+    @property
+    def decoder_start_token_id(self) -> int:
+        return 50258 if self.multilingual else 50257
 
     @property
     def pad_token_id(self) -> int:
         """<|endoftext|>: the label pad, and the lowest special-token id."""
         return 50257 if self.multilingual else 50256
+
+    @property
+    def eos_token_id(self) -> int:
+        return self.pad_token_id
 
 
 # the serving fast path (the JAX package's Pipeline(fast=True)): the

@@ -6,7 +6,9 @@ gradients keyed by parameter name) back. The JAX tree stacks each block paramete
 (L, ...), stores linear weights (in, out) and conv weights (W, I, O)
 (the JAX package's ``models/whisper.py``); the port keeps one module per
 block, ``nn.Linear`` weights (out, in) and ``nn.Conv1d`` weights (O, I, W).
-The token embedding is also the (tied) vocab projection.
+The token embedding is also the (tied) vocab projection, unless the tree
+holds an untied ``proj_out`` (V, D): then the model gets one too, under the
+same name.
 
 ``init_state_dict`` draws the same distributions as the JAX package's
 ``init_params`` from a ``torch.Generator``: the numbers differ from JAX's for
@@ -31,10 +33,6 @@ _MLP = {"fc1": ("w1", "b1"), "fc2": ("w2", "b2")}
 
 def params_from_jax(np_tree: dict, cfg: WhisperConfig) -> dict[str, torch.Tensor]:
     """JAX params tree (numpy leaves) -> the port's state dict (f32, CPU)."""
-    if "proj_out" in np_tree:
-        raise NotImplementedError("an untied proj_out is not ported yet "
-                                  "(ROADMAP Queue A.2, load_hf)")
-
     def t(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
@@ -72,6 +70,8 @@ def params_from_jax(np_tree: dict, cfg: WhisperConfig) -> dict[str, torch.Tensor
         ln(sd, f"{p}.mlp_ln", dec["mlp_ln"], i)
         lin(sd, f"{p}.mlp", dec["mlp"], i, _MLP)
     ln(sd, "decoder.ln", dec["ln"])
+    if "proj_out" in np_tree:
+        sd["proj_out"] = t(np_tree["proj_out"])
     return sd
 
 
@@ -113,7 +113,10 @@ def state_dict_to_jax(sd: dict, cfg: WhisperConfig) -> dict:
     for name in ("self_attn", "cross_attn"):
         dec[f"{name}_ln"] = ln(db, nd, f"{name}_ln")
         dec[name] = lin(db, nd, name, _ATTN)
-    return {"encoder": enc, "decoder": dec}
+    tree = {"encoder": enc, "decoder": dec}
+    if "proj_out" in sd:
+        tree["proj_out"] = a("proj_out")
+    return tree
 
 
 def init_state_dict(cfg: WhisperConfig, seed: int = 0) -> dict[str, torch.Tensor]:
@@ -146,10 +149,14 @@ def build_model(cfg: WhisperConfig, state_dict: dict | None = None, seed: int = 
     or the seeded init. Serving (``train=False``): block weights and
     embeddings stored in ``cfg``'s compute dtype, no gradients. Training:
     every parameter an f32 master that requires grad; the model casts it to
-    the compute dtype at each use."""
+    the compute dtype at each use. A state dict with a ``proj_out`` gives
+    the model an untied head."""
     device = resolve_device(device)
+    if state_dict is None:
+        state_dict = init_state_dict(cfg, seed)
     with torch.device("meta"):
-        model = Whisper(cfg, param_dtype=torch.float32 if train else None)
+        model = Whisper(cfg, param_dtype=torch.float32 if train else None,
+                        untied_head="proj_out" in state_dict)
     model = model.to_empty(device=device)
-    model.load_state_dict(state_dict if state_dict is not None else init_state_dict(cfg, seed))
+    model.load_state_dict(state_dict)
     return model.train().requires_grad_(True) if train else model.eval().requires_grad_(False)

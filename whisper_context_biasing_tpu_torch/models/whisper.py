@@ -224,13 +224,16 @@ class TextDecoder(nn.Module):
         self._vocab_acc = None
         self._vocab_key = None
 
-    def vocab_weight_acc(self, dtype: torch.dtype) -> torch.Tensor:
-        """The tied vocab projection (the token embedding, rounded to
-        ``dtype``) widened once to ``_acc`` (f32, or float64 for a float64
-        ``dtype``), so the logits come out of a product of the same values,
-        in the same type, as the JAX package's. Detached: for inference only
-        (``project_vocab`` keeps training in the graph)."""
-        w = self.token_emb
+    def vocab_weight_acc(self, dtype: torch.dtype, head: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+        """The vocab projection (``head``, an untied ``proj_out``, or else
+        the tied token embedding), rounded to ``dtype`` and widened once to
+        ``_acc`` (f32, or float64 for a float64 ``dtype``), so the logits come
+        out of a product of the same values, in the same type, as the JAX
+        package's. The cache is keyed on the weight it was made from.
+        Detached: for inference only (``project_vocab`` keeps training in
+        the graph)."""
+        w = self.token_emb if head is None else head
         key = (w.data_ptr(), w._version, w.device, w.dtype, dtype)
         if self._vocab_key != key:
             wd = w.detach().to(dtype)
@@ -241,14 +244,20 @@ class TextDecoder(nn.Module):
 
 class Whisper(nn.Module):
     """``param_dtype`` is the storage dtype of the block weights and the text
-    embeddings: the compute dtype (serving, the default) or f32 (training)."""
+    embeddings: the compute dtype (serving, the default) or f32 (training).
+    ``untied_head``: the model has its own vocab projection ``proj_out``
+    (V, D), stored like the token embedding, in place of the tied one (the
+    JAX params tree's optional ``proj_out``)."""
 
-    def __init__(self, cfg: WhisperConfig, param_dtype: torch.dtype | None = None):
+    def __init__(self, cfg: WhisperConfig, param_dtype: torch.dtype | None = None,
+                 untied_head: bool = False):
         super().__init__()
         dt = param_dtype or cfg.compute_dtype
         self.cfg = cfg
         self.encoder = AudioEncoder(cfg, dt)
         self.decoder = TextDecoder(cfg, dt)
+        self.proj_out = (nn.Parameter(torch.empty(cfg.n_vocab, cfg.d_model, dtype=dt))
+                         if untied_head else None)
 
 
 def _run_block(fn, cfg: WhisperConfig, *args):
@@ -433,16 +442,18 @@ def decode_tokens(
 
 
 def project_vocab(model: Whisper, x: torch.Tensor) -> torch.Tensor:
-    """Tied vocab projection of decoder states (B, S, D) -> ``_acc`` logits
+    """Vocab projection of decoder states (B, S, D) -> ``_acc`` logits
     (B, S, V), f32 (float64 for a float64 model): compute-dtype operands,
-    the product and its output in ``_acc``. While autograd records a trainable embedding, the
-    cast stays in the graph, so the token embedding gets the projection's
-    share of its gradient."""
-    w = model.decoder.token_emb
+    the product and its output in ``_acc``. The projection is ``proj_out``
+    when the model has an untied head, else the token embedding (tied).
+    While autograd records a trainable weight, the cast stays in the graph,
+    so the weight gets the projection's share of its gradient."""
+    head = model.proj_out
+    w = model.decoder.token_emb if head is None else head
     ft = _acc(x)
     if torch.is_grad_enabled() and w.requires_grad:
         return F.linear(x.to(ft), w.to(x.dtype).to(ft))
-    return F.linear(x.to(ft), model.decoder.vocab_weight_acc(x.dtype))
+    return F.linear(x.to(ft), model.decoder.vocab_weight_acc(x.dtype, head))
 
 
 def forward(model: Whisper, input_features: torch.Tensor,

@@ -27,7 +27,13 @@ from .audio import load_audio, pad_or_trim, pcm_to_float32, select_mel_frontend
 from .data.collator import SpeechSeq2SeqCollator
 from .decode import decode_batch
 from .decode.greedy import Clock
-from .models import FAST_OVERRIDES, build_model, get_config, params_from_jax
+from .models import (
+    FAST_OVERRIDES,
+    build_model,
+    get_config,
+    load_checkpoint_or_safetensors,
+    params_from_jax,
+)
 from .tokenizer import load_tokenizer
 
 
@@ -44,13 +50,14 @@ def _not_ported(what: str, queue: str):
 class Pipeline:
     """Model + tokenizer on one device.
 
-    ``model``: family name (``tiny.en`` .. ``large-v3``). ``params``: the
-    JAX package's params tree as numpy arrays (``params_from_jax``); seeded
-    random weights (``seed``) without. ``fast`` (default: on a card) turns on
-    the serving fast path: the flash-attention and int8 cross-attention
-    kernels, int8 cross-K/V and tanh gelu. The log-mel frontend takes the mel
-    kernel on a card either way. ``config`` replaces the named config
-    outright."""
+    ``model``: family name (``tiny.en`` .. ``large-v3``). ``checkpoint``: an
+    HF ``model.safetensors`` (file or directory) or a native checkpoint-N
+    dir; ``params``: the JAX package's params tree as numpy arrays
+    (``params_from_jax``); seeded random weights (``seed``) without either.
+    ``fast`` (default: on a card) turns on the serving fast path: the
+    flash-attention and int8 cross-attention kernels, int8 cross-K/V and tanh
+    gelu. The log-mel frontend takes the mel kernel on a card either way.
+    ``config`` replaces the named config outright."""
 
     def __init__(
         self,
@@ -72,8 +79,6 @@ class Pipeline:
         draft_model: str | None = None,
         medusa=None,
     ):
-        if checkpoint is not None:
-            _not_ported("loading a checkpoint", "Queue A.2 (models/load_hf.py)")
         if draft_model is not None or medusa is not None:
             _not_ported("speculative and Medusa decoding", "Queue A.7")
         self.device = resolve_device(device)
@@ -86,7 +91,11 @@ class Pipeline:
             for k, v in FAST_OVERRIDES.items():
                 overrides.setdefault(k, v)
         self.cfg = config if config is not None else get_config(model, dtype=dtype, **overrides)
-        state = params_from_jax(params, self.cfg) if params is not None else None
+        state = None
+        if params is not None:
+            state = params_from_jax(params, self.cfg)
+        elif checkpoint:
+            state, self.cfg = load_checkpoint_or_safetensors(checkpoint, self.cfg)
         self.model = build_model(self.cfg, state, seed=seed, device=self.device)
         self.default_bias_words = bias_words
         self.default_bias_boost = bias_boost

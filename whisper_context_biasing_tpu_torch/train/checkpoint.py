@@ -84,11 +84,11 @@ def is_native_checkpoint(path: str) -> bool:
             or os.path.isdir(os.path.join(path, "params_ocp")))
 
 
-def _param_names(cfg: WhisperConfig) -> list[str]:
+def _param_names(cfg: WhisperConfig, untied_head: bool = False) -> list[str]:
     """Parameter names of a ``Whisper(cfg)`` in ``named_parameters`` order
     (the order ``OptState``'s moments follow)."""
     with torch.device("meta"):
-        return [n for n, _ in Whisper(cfg).named_parameters()]
+        return [n for n, _ in Whisper(cfg, untied_head=untied_head).named_parameters()]
 
 
 def host_arrays(model: Whisper, opt_state: OptState | None = None):
@@ -253,7 +253,7 @@ def load_checkpoint(path: str, cfg: WhisperConfig, load_opt_state: bool = False)
         if len(leaves) != 2 * n + 2:
             raise ValueError(f"{opt_file}: {len(leaves)} leaves, expected {2 * n + 2} "
                              "(Adam count, mu, nu, schedule count)")
-        names = _param_names(cfg)
+        names = _param_names(cfg, "proj_out" in state_dict)
         mu, nu = (params_from_jax(_unflatten(dict(zip(keys, leaves[1 + i * n:1 + (i + 1) * n]))),
                                   cfg) for i in (0, 1))
         opt_state = OptState(int(leaves[0]), [mu[k] for k in names], [nu[k] for k in names])

@@ -25,7 +25,10 @@ train=True)``) in place through the port's ``TrainState``; with
 steps and the eval's encoder run the fused LayerNorm+matmul kernel. Options
 whose modules are not ported yet raise ``NotImplementedError`` naming their
 ROADMAP item: beams and Medusa eval (A.6, A.7), LoRA and SpecAugment (A.8),
-meshes, shard functions, the Hub and the Orbax backend (A.9).
+meshes, shard functions and the Orbax backend (A.9). With ``hub_model_id``
+each save pushes the output dir to the Hub and a resume without a local
+checkpoint tries a Hub snapshot, as in JAX; offline both degrade to a
+warning (``utils/hub.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ..metrics.evaluate import score_predictions
 from ..models.config import WhisperConfig
 from ..models.convert import build_model
 from ..models.whisper import Whisper
+from ..utils import hub
 from ..utils.logging import RunLogger
 from .checkpoint import (
     find_best_checkpoint,
@@ -91,7 +95,10 @@ class TrainingConfig:
     lora_alpha: float = 16.0
     use_wandb: bool = False
     wandb_project: str | None = None
-    hub_model_id: str | None = None  # not ported (ROADMAP A.9)
+    # reference hub sync (utils/hub.py); offline each call degrades to a
+    # warning. push_to_hub="every_save" (scripts/train.py:83-85): fires only
+    # when hub_model_id is set
+    hub_model_id: str | None = None
     hub_token: str | None = None
     hub_push_on_save: bool = True
 
@@ -103,9 +110,6 @@ def _check_ported(tcfg: TrainingConfig) -> None:
     if tcfg.spec_augment:
         raise NotImplementedError("SpecAugment is not ported yet (ROADMAP Queue A.8, "
                                   "train/augment.py)")
-    if tcfg.hub_model_id:
-        raise NotImplementedError("Hub sync is not ported yet (ROADMAP Queue A.9, "
-                                  "utils/hub.py)")
     if tcfg.checkpoint_backend == "orbax":
         raise NotImplementedError("the Orbax checkpoint backend is not ported yet "
                                   "(ROADMAP Queue A.9)")
@@ -259,6 +263,12 @@ def train_and_evaluate(
     resumed_opt_state = None
     if resume:
         ckpt = latest_checkpoint(tcfg.output_dir)
+        if ckpt is None and tcfg.hub_model_id:
+            # no local checkpoint: fall back to a Hub snapshot (reference
+            # scripts/train.py:169-189), gated like every other hub call
+            print(f"no local checkpoint; trying hub snapshot {tcfg.hub_model_id}")
+            if hub.sync_from_hub(tcfg.hub_model_id, tcfg.output_dir, tcfg.hub_token):
+                ckpt = latest_checkpoint(tcfg.output_dir)
         if ckpt:
             # restore optimizer moments + schedule count too: re-initializing
             # them would silently re-warm the LR and zero the Adam moments
@@ -373,10 +383,17 @@ def train_and_evaluate(
                 if save_thread is not None:
                     save_thread.join()
                 host_params, host_opt = host_arrays(model, state.opt_state)
-                save_thread = threading.Thread(
-                    target=write_checkpoint,
-                    args=(tcfg.output_dir, step, host_params, host_opt, meta,
-                          tcfg.save_total_limit))
+
+                def _save_and_push(step=step, params=host_params, opt=host_opt, meta=meta):
+                    write_checkpoint(tcfg.output_dir, step, params, opt, meta,
+                                     tcfg.save_total_limit)
+                    # reference PushToHubOnSaveCallback parity: every save
+                    # pushes the output dir (checkpoint-N/ layout kept)
+                    if tcfg.hub_push_on_save and tcfg.hub_model_id:
+                        hub.push_to_hub_if_exists(tcfg.output_dir, tcfg.hub_model_id,
+                                                  tcfg.hub_token)
+
+                save_thread = threading.Thread(target=_save_and_push)
                 save_thread.start()
 
     if save_thread is not None:

@@ -1,6 +1,33 @@
 """Utilities: structured run logging (a copy of the JAX package's
-``utils/logging.py``)."""
+``utils/logging.py``), the gated Hub sync (``utils/hub.py``) and the
+missing-assets warning of the entry points."""
 
+import sys
+
+from .hub import push_to_hub_if_exists, sync_from_hub, upload_results_to_hub
 from .logging import RunLogger
 
-__all__ = ["RunLogger"]
+
+def warn_missing_assets(vocab_path, weights_path, entry: str = "") -> bool:
+    """One-line warning when an entry point runs without real assets
+    (docs/REAL_ASSETS.md lists exactly which files unlock full parity).
+    Returns True when a warning was printed."""
+    missing = []
+    if not vocab_path:
+        missing.append("byte-fallback vocab (no --vocab/--merges)")
+    if not weights_path:
+        missing.append("random weights (no checkpoint/safetensors)")
+    if missing:
+        tag = f"[{entry}] " if entry else ""
+        print(f"{tag}WARNING: {' + '.join(missing)} — outputs are NOT real "
+              "transcripts; see docs/REAL_ASSETS.md", file=sys.stderr)
+    return bool(missing)
+
+
+__all__ = [
+    "RunLogger",
+    "warn_missing_assets",
+    "sync_from_hub",
+    "upload_results_to_hub",
+    "push_to_hub_if_exists",
+]
