@@ -57,7 +57,22 @@ on failure:
    implies; ``cli.export_hf`` of the checkpoint, then ``cli.evaluation
    --final_model`` on the export and ``--best_checkpoint`` on the run giving
    the same ``refs_and_pred.txt``; whether libmpg123 is here (and, with
-   libmp3lame, one ``.mp3`` decoded); each CLI's wall time.
+   libmp3lame, one ``.mp3`` decoded); each CLI's wall time;
+11. long-form and beam serving at base.en width: (a) ``Pipeline.transcribe``
+   of a 75 s and a 48 s clip with timestamps, the default temperature ladder
+   with best_of 2, window info and the VAD gate (bf16, every kernel): each
+   window's rung, avg logprob, no-speech probability and compression ratio,
+   the wall and the device's busy time (a profiled repeat), exactly the
+   launches the run implies (K1 one a window iteration, K2 six a decode
+   call, K3 six a decode step) and ``srt()`` that parses back; (b) the same
+   clips at temperature 0 in f32, the kernels against their plain versions:
+   tokens, segments and seeks identical (a divergence passes only at a
+   top-2 logit gap < 1e-4); (c) 5 beams on phase 3's requests in bf16 (ms a
+   step, the cache reorder's share, K3 six a step), then f32 kernels against
+   plain versions with identical beams; (d) seeded sampling with a CUDA
+   generator repeating; (e) ``Pipeline("base")`` detecting a language per
+   request; (f) ``cli.transcribe --long --timestamps --format srt`` from
+   phase 10's ``model.safetensors``, one SRT per file that parses back.
 
 Phase 2 also holds the mel kernel against its plain version at 80 and 128
 mels, a 3 s window and batch 1, and against the float64 numpy frontend on a
@@ -73,7 +88,7 @@ bound. The int8 cross-attention is timed as a decode step runs
 it, in bursts that rotate over the 6 layers (75 MB of K/V, more than the
 50 MB L2 holds), so its time is fed from device memory. The line before the
 last is the kernel table as JSON, with each kernel's launches summed over
-the main-path phases (3, 5, 7, 9 and 10); the last line is
+the main-path phases (3, 5, 7, 9, 10 and 11); the last line is
 ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only [TREE]`` stops after phase 2 (all five kernels checked and
@@ -1183,7 +1198,7 @@ def mp3_check() -> None:
     require(abs(audio.size - 16000) < 4000 and abs(peak - 440) < 10, "the .mp3 decoded wrong")
 
 
-def entry_points(torch, ops, card, serve_counts, serve_tokens):
+def entry_points(torch, ops, card, serve_counts, serve_tokens, tmp):
     """The reference's entry points at base.en width, in-process:
     (a) phase 3's seeded weights written as ``model.safetensors`` and read
     back bit-identical, then ``Pipeline(checkpoint=...)`` on phase 3's
@@ -1194,9 +1209,9 @@ def entry_points(torch, ops, card, serve_counts, serve_tokens):
     the configuration implies; (c) ``cli.export_hf`` of ``checkpoint-2``,
     then ``cli.evaluation --final_model`` on the export and
     ``--best_checkpoint`` on the run: the same ``refs_and_pred.txt``.
-    Returns the launches of (a) and (b) summed."""
+    Works in the directory ``tmp``; returns the launches of (a) and (b)
+    summed, and the path of the ``model.safetensors`` it wrote."""
     import pathlib
-    import tempfile
 
     from whisper_context_biasing_tpu_torch import Pipeline
     from whisper_context_biasing_tpu_torch.cli import evaluation, export_hf
@@ -1215,122 +1230,471 @@ def entry_points(torch, ops, card, serve_counts, serve_tokens):
     start = time.perf_counter()
     walls = {}
     total = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        root = pathlib.Path(tmp)
-        # (a) the checkpoint round trip and serving from it
-        base = get_config("base.en")
-        sd = init_state_dict(base, 0)  # what Pipeline("base.en", seed=0) builds
-        path = root / "init" / "model.safetensors"
-        t0 = time.perf_counter()
-        save_safetensors(sd, base, str(path))
-        t1 = time.perf_counter()
-        back, cfg = load_safetensors(str(path))
-        t2 = time.perf_counter()
-        print(f"  model.safetensors {path.stat().st_size / 1e6:.1f} MB: written in "
-              f"{t1 - t0:.2f} s, read back in {t2 - t1:.2f} s (host)")
-        require(back.keys() == sd.keys() and all(torch.equal(back[k], sd[k]) for k in sd),
-                "the safetensors round trip is not bit-identical")
-        dims = ("n_mels", "n_audio_ctx", "d_model", "n_heads", "n_audio_layers",
-                "n_text_layers", "n_vocab", "n_text_ctx", "multilingual")
-        require(all(getattr(cfg, f) == getattr(base, f) for f in dims),
-                f"config_from_state_dict gave {cfg}")
-        clips = requests(np.random.default_rng(4))
-        kwargs = dict(context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0,
-                      max_tokens=MAX_TOKENS)
-        t0 = time.perf_counter()
-        pipe = Pipeline("base.en", checkpoint=str(path), device="cuda", seed=0)
-        pipe.transcribe(clips, **kwargs)  # warm-up, as phase 3
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        res = pipe.transcribe(clips, **kwargs)
-        torch.cuda.synchronize()
-        counts = dict(ops.launches)
-        walls["Pipeline(checkpoint=...) build + 2 batches"] = time.perf_counter() - t0
-        same = [r.tokens for r in res] == serve_tokens
-        print(f"  Pipeline(checkpoint=model.safetensors): tokens identical to phase 3: {same}; "
-              f"launches {counts} (phase 3: {serve_counts})")
-        require(same, "Pipeline(checkpoint=) tokens differ from the seeded Pipeline's")
-        require(counts == serve_counts, "Pipeline(checkpoint=) launches differ from phase 3's")
-        for k, v in counts.items():
-            total[k] = total.get(k, 0) + v
-        del pipe
+    root = pathlib.Path(tmp)
+    # (a) the checkpoint round trip and serving from it
+    base = get_config("base.en")
+    sd = init_state_dict(base, 0)  # what Pipeline("base.en", seed=0) builds
+    path = root / "init" / "model.safetensors"
+    t0 = time.perf_counter()
+    save_safetensors(sd, base, str(path))
+    t1 = time.perf_counter()
+    back, cfg = load_safetensors(str(path))
+    t2 = time.perf_counter()
+    print(f"  model.safetensors {path.stat().st_size / 1e6:.1f} MB: written in "
+          f"{t1 - t0:.2f} s, read back in {t2 - t1:.2f} s (host)")
+    require(back.keys() == sd.keys() and all(torch.equal(back[k], sd[k]) for k in sd),
+            "the safetensors round trip is not bit-identical")
+    dims = ("n_mels", "n_audio_ctx", "d_model", "n_heads", "n_audio_layers",
+            "n_text_layers", "n_vocab", "n_text_ctx", "multilingual")
+    require(all(getattr(cfg, f) == getattr(base, f) for f in dims),
+            f"config_from_state_dict gave {cfg}")
+    clips = requests(np.random.default_rng(4))
+    kwargs = dict(context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0,
+                  max_tokens=MAX_TOKENS)
+    t0 = time.perf_counter()
+    pipe = Pipeline("base.en", checkpoint=str(path), device="cuda", seed=0)
+    pipe.transcribe(clips, **kwargs)  # warm-up, as phase 3
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = pipe.transcribe(clips, **kwargs)
+    torch.cuda.synchronize()
+    counts = dict(ops.launches)
+    walls["Pipeline(checkpoint=...) build + 2 batches"] = time.perf_counter() - t0
+    same = [r.tokens for r in res] == serve_tokens
+    print(f"  Pipeline(checkpoint=model.safetensors): tokens identical to phase 3: {same}; "
+          f"launches {counts} (phase 3: {serve_counts})")
+    require(same, "Pipeline(checkpoint=) tokens differ from the seeded Pipeline's")
+    require(counts == serve_counts, "Pipeline(checkpoint=) launches differ from phase 3's")
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    del pipe
 
-        # (b) the train CLI
-        corpus, out = root / "corpus", root / "run"
-        write_corpus(corpus, np.random.default_rng(9), ENTRY_ROWS)
-        data = ["--data_root", str(corpus), "--data_dir", "audio",
-                "--jsonl_data", str(corpus / "jsonl")]
-        tok = load_tokenizer()
-        longest = max(len(ds.build_label_sequence(i)) for ds in (
-            PromptWhisperDataset(str(corpus / "audio"), str(corpus / "jsonl"), phase,
-                                 tokenizer=tok, prompt=True, bias_list=True, seed=42)
-            for phase in ENTRY_ROWS) for i in range(len(ds)))
-        cfg = get_config("base.en", flash_attention=True, fused_ln_qkv=True, fused_ln_mlp=True)
-        # the collator pads labels to a multiple of 32
-        require(-(-longest // 32) * 32 < cfg.flash_decoder_min_seq,
-                f"labels of {longest} tokens take the decoder's flash path; the expected "
-                "launches assume they do not")
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        model, hist = train_cli.main([
-            *data, "--output", str(out), "--init_checkpoint", str(path), "--flash_attention",
-            "--fused_ln", "--prompt", "--bias_list", "--batch", str(BATCH), "--grad_accum",
-            str(ACCUM), "--epoch", "2", "--eval_steps", "2", "--save_steps", "2",
-            "--logging_steps", "1", "--eval_batch", str(BATCH), "--device", "cuda"])
-        torch.cuda.synchronize()
-        walls["cli.train"] = time.perf_counter() - t0
-        counts = dict(ops.launches)
-        # the step-2 dev eval and the test eval
-        evals = -(-ENTRY_ROWS["dev"] // BATCH) + -(-ENTRY_ROWS["test"] // BATCH)
-        want = expected_train_launches(cfg, 2, s=0, mel=False)
-        want["flash_attention"] += evals * cfg.n_audio_layers
-        want["fused_ln_matmul"] += evals * 2 * cfg.n_audio_layers
-        results = {name: json.loads((out / name).read_text())
-                   for name in ("test_results.json", "bias_wer_results.json")}
-        refs, preds = parse_refs_and_pred_file(str(out / "refs_and_pred.txt"))
-        ckpt, _, meta = load_checkpoint(str(out / "checkpoint-2"), cfg)
-        reloaded = all(torch.equal(ckpt[n], p.detach().cpu()) for n, p in model.named_parameters())
-        print(f"  cli.train --flash_attention --fused_ln (labels up to {longest} tokens): log "
-              f"history {[{k: v for k, v in e.items() if k != 'elapsed_s'} for e in hist]}")
-        print(f"    {results}; refs_and_pred.txt {len(refs)} rows; checkpoint-2 step "
-              f"{meta['step']}, equal to the returned model: {reloaded}")
-        print(f"    launches {counts} (2 steps and {evals} eval batches imply {want})")
-        require(set(results["test_results.json"]) == {"wer"}, "test_results.json has no wer")
-        require(len(refs) == len(preds) == ENTRY_ROWS["test"],
-                f"refs_and_pred.txt has {len(refs)} rows")
-        require(meta["step"] == 2 and reloaded, "checkpoint-2 does not hold the trained model")
-        require(any("loss" in e and np.isfinite(e["loss"]) for e in hist), "no finite loss")
-        require(counts == want, f"cli.train launches {counts} != {want}")
-        for k, v in counts.items():
-            total[k] = total.get(k, 0) + v
-        del model
+    # (b) the train CLI
+    corpus, out = root / "corpus", root / "run"
+    write_corpus(corpus, np.random.default_rng(9), ENTRY_ROWS)
+    data = ["--data_root", str(corpus), "--data_dir", "audio",
+            "--jsonl_data", str(corpus / "jsonl")]
+    tok = load_tokenizer()
+    longest = max(len(ds.build_label_sequence(i)) for ds in (
+        PromptWhisperDataset(str(corpus / "audio"), str(corpus / "jsonl"), phase,
+                             tokenizer=tok, prompt=True, bias_list=True, seed=42)
+        for phase in ENTRY_ROWS) for i in range(len(ds)))
+    cfg = get_config("base.en", flash_attention=True, fused_ln_qkv=True, fused_ln_mlp=True)
+    # the collator pads labels to a multiple of 32
+    require(-(-longest // 32) * 32 < cfg.flash_decoder_min_seq,
+            f"labels of {longest} tokens take the decoder's flash path; the expected "
+            "launches assume they do not")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, hist = train_cli.main([
+        *data, "--output", str(out), "--init_checkpoint", str(path), "--flash_attention",
+        "--fused_ln", "--prompt", "--bias_list", "--batch", str(BATCH), "--grad_accum",
+        str(ACCUM), "--epoch", "2", "--eval_steps", "2", "--save_steps", "2",
+        "--logging_steps", "1", "--eval_batch", str(BATCH), "--device", "cuda"])
+    torch.cuda.synchronize()
+    walls["cli.train"] = time.perf_counter() - t0
+    counts = dict(ops.launches)
+    # the step-2 dev eval and the test eval
+    evals = -(-ENTRY_ROWS["dev"] // BATCH) + -(-ENTRY_ROWS["test"] // BATCH)
+    want = expected_train_launches(cfg, 2, s=0, mel=False)
+    want["flash_attention"] += evals * cfg.n_audio_layers
+    want["fused_ln_matmul"] += evals * 2 * cfg.n_audio_layers
+    results = {name: json.loads((out / name).read_text())
+               for name in ("test_results.json", "bias_wer_results.json")}
+    refs, preds = parse_refs_and_pred_file(str(out / "refs_and_pred.txt"))
+    ckpt, _, meta = load_checkpoint(str(out / "checkpoint-2"), cfg)
+    reloaded = all(torch.equal(ckpt[n], p.detach().cpu()) for n, p in model.named_parameters())
+    print(f"  cli.train --flash_attention --fused_ln (labels up to {longest} tokens): log "
+          f"history {[{k: v for k, v in e.items() if k != 'elapsed_s'} for e in hist]}")
+    print(f"    {results}; refs_and_pred.txt {len(refs)} rows; checkpoint-2 step "
+          f"{meta['step']}, equal to the returned model: {reloaded}")
+    print(f"    launches {counts} (2 steps and {evals} eval batches imply {want})")
+    require(set(results["test_results.json"]) == {"wer"}, "test_results.json has no wer")
+    require(len(refs) == len(preds) == ENTRY_ROWS["test"],
+            f"refs_and_pred.txt has {len(refs)} rows")
+    require(meta["step"] == 2 and reloaded, "checkpoint-2 does not hold the trained model")
+    require(any("loss" in e and np.isfinite(e["loss"]) for e in hist), "no finite loss")
+    require(counts == want, f"cli.train launches {counts} != {want}")
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    del model
 
-        # (c) export, then the evaluation CLI through the two loaders
+    # (c) export, then the evaluation CLI through the two loaders
+    t0 = time.perf_counter()
+    export_hf.main(["--model", "base.en", "--checkpoint", str(out / "checkpoint-2"),
+                    "--out", str(root / "export")])
+    walls["cli.export_hf"] = time.perf_counter() - t0
+    runs = {"--final_model": ["--final_model", "--model_path",
+                              str(root / "export" / "model.safetensors"),
+                              "--output", str(root / "eval_final")],
+            "--best_checkpoint": ["--best_checkpoint", "--output", str(out),
+                                  "--refs_pred_file", str(root / "best_refs_and_pred.txt")]}
+    for mode, argv in runs.items():
         t0 = time.perf_counter()
-        export_hf.main(["--model", "base.en", "--checkpoint", str(out / "checkpoint-2"),
-                        "--out", str(root / "export")])
-        walls["cli.export_hf"] = time.perf_counter() - t0
-        runs = {"--final_model": ["--final_model", "--model_path",
-                                  str(root / "export" / "model.safetensors"),
-                                  "--output", str(root / "eval_final")],
-                "--best_checkpoint": ["--best_checkpoint", "--output", str(out),
-                                      "--refs_pred_file", str(root / "best_refs_and_pred.txt")]}
-        for mode, argv in runs.items():
-            t0 = time.perf_counter()
-            evaluation.main([*data, "--batch", str(BATCH), "--device", "cuda", *argv])
-            torch.cuda.synchronize()
-            walls[f"cli.evaluation {mode}"] = time.perf_counter() - t0
-        files = [(root / "eval_final" / "refs_and_pred.txt").read_text(),
-                 (root / "best_refs_and_pred.txt").read_text()]
-        print(f"  cli.evaluation --final_model (the export) and --best_checkpoint (the run): "
-              f"refs_and_pred.txt identical: {files[0] == files[1]}")
-        require(files[0] == files[1], "the two loaders' refs_and_pred.txt differ")
-        mp3_check()
+        evaluation.main([*data, "--batch", str(BATCH), "--device", "cuda", *argv])
+        torch.cuda.synchronize()
+        walls[f"cli.evaluation {mode}"] = time.perf_counter() - t0
+    files = [(root / "eval_final" / "refs_and_pred.txt").read_text(),
+             (root / "best_refs_and_pred.txt").read_text()]
+    print(f"  cli.evaluation --final_model (the export) and --best_checkpoint (the run): "
+          f"refs_and_pred.txt identical: {files[0] == files[1]}")
+    require(files[0] == files[1], "the two loaders' refs_and_pred.txt differ")
+    mp3_check()
     for name, w in walls.items():
         print(f"  {name}: {w:.2f} s wall  [{card}]")
     print(f"  phase 10 took {time.perf_counter() - start:.1f} s  [{card}]")
-    return total
+    return total, path
+
+
+# ---------------------------------------------------------------------------
+# phase 11: long-form and beam serving
+# ---------------------------------------------------------------------------
+
+DEVICE = "cuda"
+LONG_CLIPS_S = (75.0, 48.0)
+BEAMS = 5
+
+
+def parse_srt(text: str) -> list[tuple[float, float, str]]:
+    """Cues of an SRT document; raises on a malformed one: 1-based
+    consecutive indices, ``HH:MM:SS,mmm --> HH:MM:SS,mmm``, start <= end."""
+    def secs(stamp):
+        m = re.fullmatch(r"(\d\d):(\d\d):(\d\d),(\d\d\d)", stamp)
+        require(m is not None, f"bad SRT time {stamp!r}")
+        h, mi, s, ms = (int(g) for g in m.groups())
+        return h * 3600 + mi * 60 + s + ms / 1000
+
+    cues = []
+    for i, block in enumerate(b for b in text.strip().split("\n\n") if b.strip()):
+        lines = block.split("\n")
+        require(len(lines) >= 2 and lines[0] == str(i + 1), f"bad SRT cue {block!r}")
+        start, arrow, end = lines[1].partition(" --> ")
+        require(arrow == " --> ", f"bad SRT timing line {lines[1]!r}")
+        a, e = secs(start), secs(end)
+        require(a <= e, f"SRT cue ends before it starts: {lines[1]!r}")
+        cues.append((a, e, "\n".join(lines[2:])))
+    return cues
+
+
+class DecodeRecorder:
+    """Wraps the long-form module's ``greedy_decode`` (and ``beam_decode``)
+    to record each call's decode steps (and, on request, its tokens and
+    top-2 logit gaps), the counts the launch gates need."""
+
+    def __init__(self, margins: bool = False):
+        from whisper_context_biasing_tpu_torch.decode import beam, long_form
+
+        self.mods = (long_form, beam)
+        self.margins = margins
+        self.calls: list[dict] = []
+
+    def __enter__(self):
+        long_form, beam = self.mods
+        self.greedy, self.beam = long_form.greedy_decode, beam.beam_decode
+
+        def greedy(*a, **kw):
+            t = {}
+            res = self.greedy(*a, timings=t, return_margins=self.margins, **kw)
+            self.calls.append(dict(steps=t["steps"], tokens=res.tokens.cpu().numpy(),
+                                   margins=None if res.margins is None
+                                   else res.margins.cpu().numpy()))
+            return res
+
+        def beam_decode(*a, **kw):
+            t = {}
+            res = self.beam(*a, timings=t, **kw)
+            self.calls.append(dict(steps=t["steps"], tokens=res.best.cpu().numpy(),
+                                   margins=None))
+            return res
+
+        long_form.greedy_decode, beam.beam_decode = greedy, beam_decode
+        return self
+
+    def __exit__(self, *exc):
+        long_form, beam = self.mods
+        long_form.greedy_decode, beam.beam_decode = self.greedy, self.beam
+
+
+def device_busy_ms(torch, fn) -> tuple[float, int]:
+    """``fn`` once under torch.profiler with CUDA activity only: the sum of
+    the device's kernel and copy times, and their count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in rows) / 1e3, sum(e.count for e in rows)
+
+
+def long_form_batch(torch, Pipeline, ops, card):
+    """(a) Two speech-like clips of 75 s and 48 s, one context, 3 bias words:
+    timestamps, the default ladder with best_of 2, window info, the VAD gate,
+    64 tokens a window. Gates: exactly the launches the run implies (K1 one a
+    window iteration, K2 six a decode call, K3 six a decode step) and SRT
+    that parses back."""
+    rng = np.random.default_rng(11)
+    clips = [synthetic_audio(rng, s) for s in LONG_CLIPS_S]
+    pipe = Pipeline("base.en", device=DEVICE, seed=0)
+    mel_calls = []
+    real_mel = pipe.mel
+
+    def counted_mel(stacked):
+        mel_calls.append(stacked.shape[0])
+        return real_mel(stacked)
+
+    pipe.mel = counted_mel
+    kwargs = dict(context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0, timestamps=True,
+                  best_of=2, window_info=True, vad=True, max_tokens=MAX_TOKENS)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with DecodeRecorder() as rec:
+        res = pipe.transcribe(clips, **kwargs)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launches)
+    steps = sum(c["steps"] for c in rec.calls)
+    want = {"mel": len(mel_calls), "flash_attention": N_LAYERS * len(rec.calls),
+            "quant_cross_attention": N_LAYERS * steps}
+    iterations = len(mel_calls)
+    # the device's busy share, on the same batch with the t=0 rung alone:
+    # profiling the full ladder's ~840,000 device operations takes minutes
+    t0_kwargs = dict(kwargs, temperatures=(0.0,))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pipe.transcribe(clips, **t0_kwargs)
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter() - t1
+    busy, n_ops = device_busy_ms(torch, lambda: pipe.transcribe(clips, **t0_kwargs))
+    audio_s = sum(c.size for c in clips) / 16000.0
+    print(f"(a) long-form batch (base.en bf16, clips of {LONG_CLIPS_S} s, timestamps, the "
+          f"ladder 0.0-1.0 with best_of 2, VAD, {MAX_TOKENS} tokens a window) on {card}:")
+    for i, r in enumerate(res):
+        for w in r.windows:
+            print(f"  clip {i} window at {w['start_s']:.2f} s: rung {w['temperature']}, avg "
+                  f"logprob {w['avg_logprob']:.3f}, no-speech {w['no_speech_prob']:.2e}, "
+                  f"compression {w['compression_ratio']}, accepted {w['accepted']}")
+    print(f"  {iterations} window iterations, {len(rec.calls)} decode calls, {steps} decode "
+          f"steps: wall {wall * 1e3:.1f} ms = {audio_s / wall:.1f} audio-s/s, wall / decode "
+          f"steps {wall * 1e3 / steps:.2f} ms  [{card}]")
+    print(f"  the same batch with the t=0 rung alone: wall {wall0 * 1e3:.1f} ms; device busy "
+          f"{busy:.1f} ms of a profiled repeat ({n_ops} device ops) = "
+          f"{100 * busy / (wall0 * 1e3):.1f}% of that wall (idle "
+          f"{100 - 100 * busy / (wall0 * 1e3):.1f}%)  [{card}]")
+    print(f"  launches {counts} (the run implies {want})")
+    cues = [parse_srt(r.srt()) for r in res]
+    print(f"  srt() cues per clip: {[len(c) for c in cues]}; tokens per clip: "
+          f"{[len(r.tokens) for r in res]}")
+    require(counts == want, f"long-form launches {counts} != {want}")
+    require(all(r.windows for r in res), "a clip has no window info")
+    require(all(len(c) == len(r.segments) for c, r in zip(cues, res)),
+            "srt() lost cues")
+    return counts, clips
+
+
+def long_form_f32_gate(torch, Pipeline, ops, clips):
+    """(b) The same clips at temperature 0 in f32, the kernels against their
+    plain versions (by config, and the plain mel frontend): every decode
+    call's tokens identical, or the first divergence at a top-2 logit gap
+    < 1e-4 (as phase 4); then tokens, segments and seeks identical."""
+    from whisper_context_biasing_tpu_torch.audio import log_mel_spectrogram
+
+    runs = []
+    for kernels in (True, False):
+        over = {} if kernels else dict(flash_attention=False, fused_quant_cross=False)
+        pipe = Pipeline("base.en", device=DEVICE, seed=0, dtype="float32", config_overrides=over)
+        if not kernels:  # the plain frontend, named outright
+            pipe.mel = lambda stacked, pipe=pipe: log_mel_spectrogram(
+                torch.as_tensor(stacked, device=DEVICE), n_mels=pipe.cfg.n_mels)
+        ops.reset_launch_counts()
+        with DecodeRecorder(margins=True) as rec:
+            res = pipe.transcribe(clips, context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0,
+                                  timestamps=True, temperatures=(0.0,), window_info=True,
+                                  max_tokens=MAX_TOKENS)
+        counts = dict(ops.launches)
+        if kernels:
+            for name in ("mel", "flash_attention", "quant_cross_attention"):
+                require(counts.get(name, 0) > 0, f"(b) f32 kernel run never launched {name}")
+        else:
+            require(not counts, f"(b) f32 plain run launched kernels: {counts}")
+        runs.append((res, rec.calls, counts))
+        del pipe
+    (kres, kcalls, kc), (pres, pcalls, _) = runs
+    print(f"(b) f32 long-form, kernels (launches {kc}) vs plain versions: "
+          f"{len(kcalls)} and {len(pcalls)} decode calls")
+    for ci, (kc_, pc_) in enumerate(zip(kcalls, pcalls)):
+        diff = np.argwhere(kc_["tokens"] != pc_["tokens"])
+        if diff.size:
+            row, step = (int(x) for x in diff[0])
+            gap = pc_["margins"][row, step]
+            print(f"  decode call {ci} row {row}: tokens diverge at step {step}, plain top-2 "
+                  f"logit gap {gap:.3e} (pass only if < 1e-4)")
+            require(gap < 1e-4, f"(b) f32 long-form kernels vs plain diverge at call {ci}")
+            return
+    same = ([r.tokens for r in kres] == [r.tokens for r in pres]
+            and [r.segments for r in kres] == [r.segments for r in pres]
+            and [[w["start_s"] for w in r.windows] for r in kres]
+            == [[w["start_s"] for w in r.windows] for r in pres])
+    print(f"  tokens, segments and seeks identical: {same} "
+          f"({sum(len(r.windows) for r in kres)} windows)")
+    require(same and len(kcalls) == len(pcalls), "(b) f32 long-form results differ")
+
+
+def beam_serving(torch, Pipeline, ops, card):
+    """(c) num_beams=5 on phase 3's 8 requests in bf16 (ms a step, the cache
+    reorder's share, K3 six a step), then in f32 with the kernels against
+    their plain versions: identical tokens."""
+    from whisper_context_biasing_tpu_torch.audio import log_mel_spectrogram, pad_or_trim
+    from whisper_context_biasing_tpu_torch.decode import beam_decode, pack_prefixes
+
+    clips = requests(np.random.default_rng(4))
+    kwargs = dict(context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0, max_tokens=MAX_TOKENS,
+                  num_beams=BEAMS)
+    pipe = Pipeline("base.en", device=DEVICE, seed=0)
+    pipe.transcribe(clips, **kwargs)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.transcribe(clips, **kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launches)
+    tm = pipe.last_timings
+    want = {"mel": 1, "flash_attention": N_LAYERS, "quant_cross_attention": N_LAYERS * tm["steps"]}
+    per_step = tm["decode_ms"] / max(tm["steps"], 1)
+    pipe.transcribe(clips, **dict(kwargs, num_beams=1))  # greedy, beside it
+    greedy = pipe.last_timings
+    print(f"(c) beam search (base.en bf16, {BATCH} requests x {BEAMS} beams, frozen pool, "
+          f"{MAX_TOKENS} tokens) on {card}:")
+    print(f"  encoder {tm['encode_ms']:.3f} ms, prefill {tm['prefill_ms']:.3f} ms, decode "
+          f"{per_step:.3f} ms/step over {tm['steps']} steps (greedy on the same requests right "
+          f"after: {greedy['decode_ms'] / max(greedy['steps'], 1):.3f} ms/step), cache reorder "
+          f"{tm['reorder_ms'] / max(tm['steps'], 1):.3f} ms/step = "
+          f"{100 * tm['reorder_ms'] / tm['decode_ms']:.1f}% of decode, wall {wall * 1e3:.1f} ms  "
+          f"[{card}]")
+    print(f"  launches {counts} (the run implies {want}); tokens per request "
+          f"{[len(r.tokens) for r in res]}")
+    require(counts == want, f"beam launches {counts} != {want}")
+    del pipe
+
+    runs = []
+    for kernels in (True, False):
+        over = {} if kernels else dict(flash_attention=False, fused_quant_cross=False)
+        pipe = Pipeline("base.en", device=DEVICE, seed=0, dtype="float32", config_overrides=over)
+        tok = pipe.tokenizer
+        ctx = tok.encode(CONTEXT.lower(), add_special_tokens=False)
+        ids, mask = pack_prefixes([[tok.sop] + ctx + [tok.sot]] * BATCH, tok.eot)
+        audio = np.stack([pad_or_trim(c, pipe.window_samples) for c in clips])
+        ops.reset_launch_counts()
+        mel = (pipe.mel(audio) if kernels else
+               log_mel_spectrogram(torch.from_numpy(audio).to(DEVICE), n_mels=pipe.cfg.n_mels))
+        out = beam_decode(pipe.model, mel, ids, mask, num_beams=BEAMS, max_new=MAX_TOKENS,
+                          eot_id=tok.eot, bias_spans=pipe._spans(BIAS_WORDS, BATCH),
+                          bias_boost=2.0, span_pad_id=tok.eot, device=DEVICE)
+        c = dict(ops.launches)
+        require(bool(c) == kernels, f"(c) f32 {'kernel' if kernels else 'plain'} run launches {c}")
+        runs.append(out.tokens.cpu().numpy())
+        del pipe
+    same = np.array_equal(runs[0], runs[1])
+    print(f"  f32 beam, kernels vs plain versions: all {BATCH} x {BEAMS} beams identical: {same}")
+    require(same, "(c) f32 beam tokens differ between the kernels and the plain versions")
+    return counts
+
+
+def sampling_and_language(torch, Pipeline, card):
+    """(d) temperature 1.0 with a generator on the card: one seed, the same
+    tokens twice (another seed, other tokens); (e) ``Pipeline("base")`` with
+    language="auto" on phase 3's requests: each start carries a language
+    token."""
+    from whisper_context_biasing_tpu_torch.audio import pad_or_trim
+    from whisper_context_biasing_tpu_torch.decode import greedy_decode, pack_prefixes
+    from whisper_context_biasing_tpu_torch.tokenizer import LANGUAGES
+
+    clips = requests(np.random.default_rng(4))
+    pipe = Pipeline("base.en", device=DEVICE, seed=0)
+    tok = pipe.tokenizer
+    mel = pipe.mel(np.stack([pad_or_trim(c, pipe.window_samples) for c in clips]))
+    ids, mask = pack_prefixes([[tok.sot]] * BATCH, tok.eot)
+
+    def sample(seed):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        return greedy_decode(pipe.model, mel, ids, mask, max_new=16, eot_id=tok.eot,
+                             temperature=1.0, generator=gen, device=DEVICE).tokens.cpu()
+
+    a, b, c = sample(1234), sample(1234), sample(1235)
+    print(f"(d) sampling at temperature 1.0, CUDA generator: seed 1234 twice identical: "
+          f"{torch.equal(a, b)}; seed 1235 differs: {not torch.equal(a, c)}")
+    require(torch.equal(a, b) and not torch.equal(a, c), "(d) seeded sampling does not repeat")
+    del pipe
+
+    pipe = Pipeline("base", device=DEVICE, seed=0)
+    detected = pipe.detect_language(clips)
+    starts, langs = pipe._starts(BATCH, lambda: pipe.mel(np.stack(
+        [pad_or_trim(c, pipe.window_samples) for c in clips])), "auto", "transcribe")
+    res = pipe.transcribe(clips, language="auto", max_tokens=8)
+    lang_ids = {pipe.tokenizer.convert_tokens_to_ids(f"<|{lang}|>") for lang in LANGUAGES}
+    print(f"(e) language id (base, multilingual, vocab {pipe.cfg.n_vocab}): detected "
+          f"{detected[:3]}...; starts {starts[:2]}...; result languages {[r.language for r in res]}"
+          f"  [{card}]")
+    require(all(len(s) == 3 and s[1] in lang_ids for s in starts), "(e) starts lack <|xx|>")
+    require([r.language for r in res] == [lang for lang, _ in detected] == langs,
+            "(e) transcribe's languages differ from detect_language's")
+
+
+def transcribe_cli(torch, ops, card, init_path, tmp):
+    """(f) ``cli.transcribe --init_checkpoint <phase 10's model.safetensors>
+    --long --timestamps --format srt --output_dir``: one SRT per file that
+    parses back."""
+    import pathlib
+    import wave
+
+    from whisper_context_biasing_tpu_torch.cli import transcribe
+
+    root = pathlib.Path(tmp) / "transcribe"
+    root.mkdir()
+    rng = np.random.default_rng(12)
+    paths = []
+    for name, seconds in (("visit1", 40.0), ("visit2", 12.0)):
+        path = root / f"{name}.wav"
+        with wave.open(str(path), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((np.clip(synthetic_audio(rng, seconds), -1, 1) * 32767)
+                          .astype(np.int16).tobytes())
+        paths.append(str(path))
+    out = root / "srt"
+    t0 = time.perf_counter()
+    transcribe.main(["--audio", *paths, "--init_checkpoint", str(init_path), "--long",
+                     "--timestamps", "--format", "srt", "--output_dir", str(out),
+                     "--max_tokens", "32", "--temperatures", "0.0", "0.4",
+                     "--bias_words", *BIAS_WORDS, "--bias_boost", "2.0",
+                     "--device", DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cues = {p.name: parse_srt(p.read_text()) for p in sorted(out.glob("*.srt"))}
+    print(f"(f) cli.transcribe --long --timestamps --format srt: {sorted(cues)} with "
+          f"{[len(c) for c in cues.values()]} cues, {wall:.2f} s wall  [{card}]")
+    require(sorted(cues) == ["visit1.srt", "visit2.srt"], f"(f) SRT files {sorted(cues)}")
+    require(all(cues.values()), "(f) an SRT file has no cue")
+
+
+def long_form_and_beam(torch, Pipeline, ops, card, init_path, tmp):
+    """Phase 11; returns the launches of its main-path runs, (a) and (c)'s
+    bf16 batch, summed."""
+    start = time.perf_counter()
+    long_counts, clips = long_form_batch(torch, Pipeline, ops, card)
+    long_form_f32_gate(torch, Pipeline, ops, clips)
+    beam_counts = beam_serving(torch, Pipeline, ops, card)
+    sampling_and_language(torch, Pipeline, card)
+    transcribe_cli(torch, ops, card, init_path, tmp)
+    print(f"  phase 11 took {time.perf_counter() - start:.1f} s  [{card}]")
+    return {k: long_counts.get(k, 0) + beam_counts.get(k, 0)
+            for k in set(long_counts) | set(beam_counts)}
 
 
 def main() -> int:
@@ -1402,14 +1766,20 @@ def main() -> int:
     train_f32_agreement(torch, ops, fused=True)
     entry_counts = entry_point(torch, ops, card)
     print(f"phases 7-9 took {time.perf_counter() - phase:.1f} s")
-    print("phase 10, the reference's entry points (safetensors, Pipeline(checkpoint=), "
-          "cli.train, cli.export_hf, cli.evaluation):")
-    cli_counts = entry_points(torch, ops, card, serve_counts, serve_tokens)
-    # launches: the runs of the main-path phases (3, 5, 7, 9 and 10)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        print("phase 10, the reference's entry points (safetensors, Pipeline(checkpoint=), "
+              "cli.train, cli.export_hf, cli.evaluation):")
+        cli_counts, init_path = entry_points(torch, ops, card, serve_counts, serve_tokens, tmp)
+        print("phase 11, long-form and beam serving (Pipeline long-form, beam, sampling, "
+              "language id, cli.transcribe):")
+        long_counts = long_form_and_beam(torch, Pipeline, ops, card, init_path, tmp)
+    # launches: the runs of the main-path phases (3, 5, 7, 9, 10 and 11)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in (serve_counts, train_counts,
                                                           fused_counts, entry_counts,
-                                                          cli_counts))
+                                                          cli_counts, long_counts))
         require(k["launches"] > 0, f"the main path never launched {k['name']}")
     print(f"chip_smoke total {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

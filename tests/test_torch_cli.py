@@ -324,7 +324,7 @@ UNPORTED = {
     "train_orbax": (train, ["--checkpoint_backend", "orbax"], "A.9"),
     "train_remat_dots": (train, ["--remat", "dots"], "A.5"),
     "train_remat_wide": (train, ["--remat", "wide"], "A.5"),
-    "eval_num_beams": (evaluation, ["--num_beams", "4"], "A.6"),
+    "eval_num_beams": (evaluation, ["--num_beams", "4", "--medusa", "medusa.npz"], "A.7"),
     "eval_medusa": (evaluation, ["--medusa", "medusa.npz"], "A.7"),
     "eval_model_parallelism": (evaluation, ["--model_parallelism", "4"], "A.9"),
 }

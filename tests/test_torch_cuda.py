@@ -3,8 +3,9 @@ shapes the main path does not reach (ragged tiles, kv_len < Tk, Tq != Tk,
 causal, strided views, every layer offset, 128 mels, the int8
 cross-attention at every batch, head count and split of T_pad, the fused
 LayerNorm+matmul at every model width's d, row count and column count), plus
-a small end-to-end decode
-and small training steps (unfused and fused) with the kernels on and off.
+a small end-to-end decode, beam
+search on the int8 cross-attention kernel against the plain path, seeded
+sampling with a CUDA generator, and small training steps (unfused and fused) with the kernels on and off.
 
 These need an NVIDIA GPU and nvcc: they carry the ``cuda`` marker and skip
 elsewhere. On a machine with the card (no JAX needed):
@@ -18,7 +19,7 @@ import torch
 
 from whisper_context_biasing_tpu_torch import ops
 from whisper_context_biasing_tpu_torch.audio.mel import log_mel_spectrogram_np, log_mel_tail
-from whisper_context_biasing_tpu_torch.decode import greedy_decode, pack_prefixes
+from whisper_context_biasing_tpu_torch.decode import beam_decode, greedy_decode, pack_prefixes
 from whisper_context_biasing_tpu_torch.models import attention, build_model, tiny_test_config
 from whisper_context_biasing_tpu_torch.ops.quant_cross_attention import pick_splits
 from whisper_context_biasing_tpu_torch.train import (
@@ -240,6 +241,45 @@ def test_greedy_decode_kernels_match_plain(dev):
     assert torch.equal(out[0][0], out[1][0])
     assert out[0][1]["flash_attention"] == 2 and out[0][1]["quant_cross_attention"] > 0
     assert not out[1][1]
+
+
+@pytest.mark.parametrize("mode", ["off", "true"])
+def test_beam_decode_kernels_match_plain(dev, mode):
+    """Beam search (3 beams, timestamp rules) with the int8 cross-K/V
+    repeated across beams through the K3 kernel, against the plain path, in
+    f32: identical tokens, and K3 launched once per layer per step."""
+    kernels = dict(flash_attention=True, quantize_cross_kv=True, fused_quant_cross=True)
+    plain = dict(kernels, flash_attention=False, fused_quant_cross=False)
+    mel = np.random.default_rng(4).standard_normal((2, 80, 128)).astype(np.float32)
+    ids, mask = pack_prefixes([[50360, 40, 41, 50257], [50257]], 50256)
+    out = []
+    for over in (kernels, plain):
+        model = build_model(tiny_test_config(n_heads=1, **over), seed=0, device=dev)
+        ops.reset_launch_counts()
+        timings = {}
+        res = beam_decode(model, mel, ids, mask, num_beams=3, max_new=8, early_stopping=mode,
+                          timestamp_begin=50363, device=dev, timings=timings)
+        out.append((res.tokens.cpu(), res.best.cpu(), dict(ops.launches), timings))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+    counts, timings = out[0][2], out[0][3]
+    assert counts["quant_cross_attention"] == 2 * timings["steps"]  # 2 decoder layers
+    assert counts["flash_attention"] == 2 and not out[1][2]
+    assert timings["reorder_ms"] >= 0.0
+
+
+def test_cuda_generator_sampling_is_seeded(dev):
+    """Temperature 1.0 with a generator on the card: one seed, one draw."""
+    model = build_model(tiny_test_config(n_heads=1), seed=0, device=dev)
+    mel = np.random.default_rng(5).standard_normal((2, 80, 128)).astype(np.float32)
+    ids, mask = pack_prefixes([[50257], [50257]], 50256)
+
+    def run(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return greedy_decode(model, mel, ids, mask, max_new=8, temperature=1.0, generator=gen,
+                             device=dev).tokens.cpu()
+
+    assert torch.equal(run(3), run(3))
+    assert not torch.equal(run(3), run(4))
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])

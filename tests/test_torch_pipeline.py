@@ -63,10 +63,13 @@ def test_pipeline_trims_a_long_clip_short_form_as_jax():
 
 
 def test_pipeline_long_clip_auto_is_not_ported():
+    """Sequential long-form is ported (tests/test_torch_long_form.py); the
+    chunked mode and long-form word timestamps are not."""
     _, port = _tiny_pipelines()
     clip = np.zeros(port.window_samples + 16000, np.float32)
-    with pytest.raises(NotImplementedError, match="Queue A.6"):
-        port.transcribe(clip, long_form="auto", max_tokens=4)
+    for kw in (dict(long_form="chunked"), dict(long_form="auto", word_timestamps=True)):
+        with pytest.raises(NotImplementedError, match="Queue A.6"):
+            port.transcribe(clip, max_tokens=4, **kw)
 
 
 def test_load_audio_matches_jax(tmp_path):

@@ -1,7 +1,7 @@
 """Ground rules of the port: it imports neither JAX nor the JAX package, its
 entry points default to the card and refuse to run without one, options not
-ported yet raise, and its kernel wrappers take the plain version only for
-CPU tensors."""
+ported yet raise (and misused ones raise as in JAX), and its kernel wrappers
+take the plain version only for CPU tensors."""
 
 import pathlib
 import subprocess
@@ -82,29 +82,44 @@ def pipe():
     return Pipeline("tiny.en", config=tiny_test_config(), device="cpu")
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(num_beams=2), dict(timestamps=True), dict(word_timestamps=True),
-    dict(window_buckets=(8,)), dict(language="en"), dict(task="translate"),
-    dict(long_form=True), dict(long_form="chunked"),
-])
-def test_unported_transcribe_options_raise(pipe, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+# beams, timestamps, language/task forcing and long-form are ported: what
+# still raises is word timestamps (short- and long-form, with beams too),
+# window_buckets, the chunked mode, an unknown VAD option, and language/task
+# forcing on an English-only model (ValueError, as in JAX)
+@pytest.mark.parametrize("kwargs,exc,match", [
+    (dict(num_beams=2, word_timestamps=True), NotImplementedError, "ROADMAP Queue A.6"),
+    (dict(timestamps=True, long_form=True, word_timestamps=True), NotImplementedError,
+     "ROADMAP Queue A.6"),
+    (dict(word_timestamps=True), NotImplementedError, "ROADMAP Queue A.6"),
+    (dict(window_buckets=(8,)), NotImplementedError, "ROADMAP Queue A.6"),
+    (dict(language="en"), ValueError, "multilingual"),
+    (dict(task="translate"), ValueError, "multilingual"),
+    (dict(long_form=True, vad={"bogus": 1.0}), ValueError, "unknown vad option"),
+    (dict(long_form="chunked"), NotImplementedError, "ROADMAP Queue A.6"),
+], ids=[f"kwargs{i}" for i in range(8)])
+def test_unported_transcribe_options_raise(pipe, kwargs, exc, match):
+    with pytest.raises(exc, match=match):
         pipe.transcribe(np.zeros(1600, np.float32), **kwargs)
 
 
 def test_unported_paths_raise(pipe):
+    from whisper_context_biasing_tpu_torch.decode import transcribe_long_batch
+
     with pytest.raises(NotImplementedError, match="long-form"):
-        pipe.transcribe(np.zeros(pipe.window_samples + 1, np.float32))
+        pipe.transcribe(np.zeros(pipe.window_samples + 1, np.float32), word_timestamps=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Pipeline("tiny.en", config=tiny_test_config(), device="cpu", draft_model="tiny.en")
     # checkpoints are ported: a missing file raises as a missing file
     with pytest.raises(FileNotFoundError):
         Pipeline("tiny.en", config=tiny_test_config(), device="cpu",
                  checkpoint="model.safetensors")
-    mel = np.zeros((1, 80, 128), np.float32)
-    for kw in (dict(temperature=0.5), dict(no_speech_id=50361), dict(timestamp_begin=50363)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            greedy_decode(pipe.model, mel, [[50257]], [[True]], device="cpu", **kw)
+    # sampling, no_speech_prob and timestamp rules are ported; long-form word
+    # timestamps, draft and Medusa models are not
+    clip = [np.zeros(1600, np.float32)]
+    for kw, item in ((dict(word_timestamps=True, return_segments=True), "A.6"),
+                     (dict(draft=(None, None, 4)), "A.7"), (dict(medusa={}), "A.7")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue {item}"):
+            transcribe_long_batch(pipe.model, pipe.tokenizer, clip, device="cpu", **kw)
     # the full-sequence decoder mode is ported: it runs, without a cache
     enc = encode_audio(pipe.model, torch.zeros((1, 80, 128)))
     logits, cache = decode_tokens(pipe.model, torch.zeros((1, 2), dtype=torch.long),
@@ -195,7 +210,7 @@ def _save_orbax(tmp_path):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda p: _evaluate(p, num_beams=2), "A.6"),
+    (lambda p: _evaluate(p, num_beams=2, mesh=object()), "A.9"),
     (lambda p: _evaluate(p, medusa={}), "A.7"),
     (lambda p: _evaluate(p, mesh=object()), "A.9"),
     (lambda p: _train(p, lora_rank=4), "A.8"),

@@ -2,8 +2,9 @@
 ``whisper_context_biasing_tpu`` for NVIDIA Hopper (H100).
 
 Whisper ASR with contextual biasing: decoder prompt conditioning and the
-in-loop bias-trie logits processor, on the short-form greedy serving path,
-and the bias-weighted cross-entropy (WeightCE) fine-tuning step.
+in-loop bias-trie logits processor, on the short-form (greedy or beam) and
+sequential long-form serving paths, and the bias-weighted cross-entropy
+(WeightCE) fine-tuning step.
 The JAX package beside it is the reference each ported function is held
 against; this package imports nothing from it.
 
@@ -11,8 +12,9 @@ Layout mirrors the JAX package:
   models/   config, the Whisper modules, weight carry-over (``params_from_jax``)
   ops/      hand-written CUDA kernels (mel, flash forward and backward, int8
             cross-attention) beside their plain torch versions
-  audio/    loading and the log-mel frontend
-  decode/   greedy decode and the bias-trie processor
+  audio/    loading, the log-mel frontend and the energy VAD gate
+  decode/   greedy and beam decode, the bias-trie processor, language id,
+            sequential long-form transcription
   train/    WeightCE loss, clipped AdamW, ``make_train_step``
   pipeline  ``Pipeline``: load once, transcribe
 """

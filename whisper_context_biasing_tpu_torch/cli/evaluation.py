@@ -63,8 +63,7 @@ def parse_args(argv=None):
     p.add_argument("--merges", type=str, default=None)
     p.add_argument("--prompt_generation", action="store_true")
     p.add_argument("--bias_boost", type=float, default=0.0)
-    p.add_argument("--num_beams", type=int, default=1,
-                   help="> 1: beam search (not ported yet)")
+    p.add_argument("--num_beams", type=int, default=1, help="> 1: beam search")
     p.add_argument("--medusa", type=str, default=None,
                    help="medusa.npz: self-speculative decode (not ported yet)")
     p.add_argument("--medusa_chains", type=int, default=None)
@@ -79,8 +78,6 @@ def parse_args(argv=None):
 
 def check_ported(args) -> None:
     """Raise for a flag whose module is not ported yet, before any data is read."""
-    if args.num_beams > 1:
-        not_ported("--num_beams > 1 (beam search)", "A.6")
     if args.medusa:
         not_ported("--medusa (self-speculative decoding)", "A.7")
     check_model_parallelism(args.model_parallelism)
@@ -103,6 +100,7 @@ def run_eval(args, state_dict, model_cfg, tokenizer, data_test, collator, bias_s
         model, tokenizer, data_test, collator, args.batch, 224,
         refs_pred_file=refs_pred_file,
         prompt_generation=args.prompt_generation, bias_boost=args.bias_boost,
+        num_beams=args.num_beams,
     )
     if not args.only_eval_bias_wer:
         print(f"{model_name} Test set evaluation results:", result)

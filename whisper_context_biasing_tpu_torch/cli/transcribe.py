@@ -1,0 +1,307 @@
+"""Batch transcription on the card: the port's counterpart of the JAX
+package's ``scripts/transcribe.py``, with its flags plus ``--device``.
+
+    python -m whisper_context_biasing_tpu_torch.cli.transcribe --model base.en \\
+        --audio a.wav b.wav [--bias_words aspirin --bias_boost 2.0] \\
+        [--context "clinical description"] [--num_beams 5] \\
+        [--long --timestamps --format srt --output_dir out/] \\
+        [--language auto] [--task translate] [--init_checkpoint model.safetensors]
+
+Short-form (one window a file: greedy or beam) or, with ``--long``,
+sequential long-form with the temperature ladder, the no-speech rule, the
+VAD gate or clip ranges, and timestamp segments (``--format srt|vtt`` needs
+``--long --timestamps``). On a card the serving fast path is on (the mel,
+flash and int8 cross-attention kernels, int8 cross-K/V, tanh gelu) unless
+``--exact``. ``--chunked``, ``--word_timestamps`` (and short-form
+``--format srt|vtt``, which needs word alignment), ``--alignment_heads``,
+``--draft_model`` and ``--medusa`` raise ``NotImplementedError`` naming
+their ROADMAP item before any audio is read.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..audio import load_audio, pad_or_trim, pcm_to_float32, select_mel_frontend
+from ..data.collator import SpeechSeq2SeqCollator
+from ..decode import (
+    beam_decode_batch,
+    decode_batch,
+    detect_language,
+    resolve_start_tokens,
+    transcribe_long_batch,
+    unpack_long_form,
+)
+from ..models import FAST_OVERRIDES, build_model, get_config, load_checkpoint_or_safetensors
+from ..tokenizer import load_tokenizer
+from ..utils import warn_missing_assets
+from ..utils.subtitles import close_open_segments, format_srt, format_vtt
+from . import not_ported
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Batch transcription")
+    p.add_argument("--audio", nargs="+", required=True, help="audio files")
+    p.add_argument("--model", default="base.en")
+    p.add_argument("--init_checkpoint", default=None)
+    p.add_argument("--vocab", default=None)
+    p.add_argument("--merges", default=None)
+    p.add_argument("--context", default=None,
+                   help="conditioning text prepended after <|startofprev|>")
+    p.add_argument("--bias_words", nargs="*", default=None)
+    p.add_argument("--bias_boost", type=float, default=0.0)
+    p.add_argument("--num_beams", type=int, default=1)
+    p.add_argument("--draft_model", default=None, help="speculative decoding (not ported yet)")
+    p.add_argument("--draft_checkpoint", default=None)
+    p.add_argument("--spec_k", type=int, default=4)
+    p.add_argument("--medusa", default=None, help="Medusa heads (not ported yet)")
+    p.add_argument("--medusa_chains", type=int, default=None)
+    p.add_argument("--beam_early_stopping", choices=["off", "true", "false", "never"],
+                   default="off",
+                   help="off = frozen-beam pool; true/false/never = HF generate semantics")
+    p.add_argument("--max_tokens", type=int, default=224)
+    p.add_argument("--long", action="store_true",
+                   help="long-form mode: sequential windows with history conditioning")
+    p.add_argument("--chunked", action="store_true",
+                   help="with --long: parallel overlapping windows (not ported yet)")
+    p.add_argument("--vad", action="store_true",
+                   help="energy VAD: long-form windows with no detected speech are skipped")
+    p.add_argument("--clip_timestamps", default=None,
+                   help='decode ONLY these second-ranges, e.g. "0-30,65-90" (long-form; wins '
+                        "over --vad)")
+    p.add_argument("--timestamps", action="store_true",
+                   help="long-form: timestamp-conditioned seeking and <|t|> segment output")
+    p.add_argument("--temperatures", type=float, nargs="*",
+                   default=[0.0, 0.2, 0.4, 0.6, 0.8, 1.0],
+                   help="long-form fallback ladder")
+    p.add_argument("--prompt_reset_on_temperature", type=float, default=0.5,
+                   help="a window from a rung hotter than this clears the history prompt "
+                        "(nan disables)")
+    p.add_argument("--best_of", type=int, default=1,
+                   help="sampled fallback rungs draw N candidates; the best average "
+                        "logprob wins")
+    p.add_argument("--compression_ratio_threshold", type=float, default=2.4)
+    p.add_argument("--logprob_threshold", type=float, default=-1.0,
+                   help="avg token logprob below this triggers fallback; nan disables")
+    p.add_argument("--no_speech_threshold", type=float, default=0.6,
+                   help="long-form: windows with P(<|nospeech|>) above this (and avg logprob "
+                        "below --logprob_threshold) emit nothing; nan disables")
+    p.add_argument("--language", default=None,
+                   help="multilingual models: a language code, or 'auto' to detect per file")
+    p.add_argument("--task", choices=["transcribe", "translate"], default="transcribe")
+    p.add_argument("--window_info", action="store_true",
+                   help="long-form: per-window QC dicts in the JSON output")
+    p.add_argument("--word_timestamps", action="store_true",
+                   help="per-word times (not ported yet)")
+    p.add_argument("--alignment_heads", default=None,
+                   help="layer:head pairs for word alignment (not ported yet)")
+    p.add_argument("--format", choices=["text", "json", "srt", "vtt"], default=None,
+                   help="output format; srt/vtt need --long --timestamps")
+    p.add_argument("--output_dir", default=None,
+                   help="write one <basename>.<format> file per input")
+    p.add_argument("--json", action="store_true", help="alias for --format json")
+    p.add_argument("--exact", action="store_true",
+                   help="no serving approximations (kernels, int8 cross-K/V, tanh gelu)")
+    # the port's own
+    p.add_argument("--device", default="cuda", help="torch device (cpu for tests)")
+    return p.parse_args(argv)
+
+
+def output_format(args) -> str:
+    return args.format or ("json" if args.json else "text")
+
+
+def check_ported(args) -> None:
+    """Raise for a flag whose module is not ported yet, before any audio is read."""
+    if args.chunked:
+        not_ported("--chunked (parallel-window long-form)", "A.6, decode/chunked.py")
+    if args.word_timestamps or args.alignment_heads:
+        not_ported("--word_timestamps / --alignment_heads (word alignment)",
+                   "A.6, word timestamps")
+    if output_format(args) in ("srt", "vtt") and not (args.long and args.timestamps):
+        # the JAX CLI aligns words to time short-form cues
+        not_ported(f"--format {output_format(args)} without --long --timestamps (word "
+                   "alignment)", "A.6, word timestamps")
+    if args.draft_model:
+        not_ported("--draft_model (speculative decoding)", "A.7")
+    if args.medusa:
+        not_ported("--medusa (self-speculative decoding)", "A.7")
+
+
+def nan_off(x):
+    """A threshold of nan means "disabled"."""
+    return None if x is None or x != x else x
+
+
+def parse_clip_timestamps(spec):
+    """'0-30,65-90' -> [(0.0, 30.0), (65.0, 90.0)] (None/empty -> None)."""
+    if not spec:
+        return None
+    try:
+        out = []
+        for rng in spec.split(","):
+            s, e = rng.split("-")
+            out.append((float(s), float(e)))
+        return out
+    except ValueError:
+        raise SystemExit(f"--clip_timestamps must be comma-separated start-end second ranges "
+                         f"like '0-30,65-90', got {spec!r}")
+
+
+def build_starts(args, tokenizer, model, n, mel_thunk):
+    """Per-file decode start sequences from --language/--task
+    (``resolve_start_tokens``); ``mel_thunk`` computes the detection mel only
+    when detection runs. Returns (starts | None, langs)."""
+    if not tokenizer.multilingual:
+        if args.language or args.task == "translate":
+            print("warning: --language/--task need a multilingual model; ignored",
+                  file=sys.stderr)
+        return None, [None] * n
+
+    def detect():
+        detected = detect_language(model, tokenizer, mel_thunk())
+        print("detected: " + ", ".join(f"{lang} ({p:.2f})" for lang, p in detected),
+              file=sys.stderr)
+        return detected
+
+    try:
+        return resolve_start_tokens(tokenizer, n, language=args.language, task=args.task,
+                                    detect=detect)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
+def emit(args, fmt, path, text, segments, language=None, windows=None) -> str:
+    """One input file's output in the chosen format."""
+    if fmt == "json":
+        rec = {"file": path, "text": text}
+        if language:
+            rec["language"] = language
+        if windows is not None:
+            rec["windows"] = windows
+        if segments is not None:
+            rec["segments"] = [{"start": round(a, 3), "end": round(e, 3), "text": t.strip()}
+                               for a, e, t in segments]
+        return json.dumps(rec)
+    if fmt in ("srt", "vtt"):
+        return (format_srt if fmt == "srt" else format_vtt)(segments)
+    if segments is not None and args.timestamps:
+        return f"{path}: " + " ".join(f"[{a:.2f}-{e:.2f}]{t}" for a, e, t in segments)
+    return f"{path}: {text}"
+
+
+def write_outputs(args, fmt, rendered) -> None:
+    if args.output_dir:
+        os.makedirs(args.output_dir, exist_ok=True)
+        ext = {"text": "txt", "json": "json", "srt": "srt", "vtt": "vtt"}[fmt]
+        for path, out in zip(args.audio, rendered):
+            base = os.path.splitext(os.path.basename(path))[0]
+            dest = os.path.join(args.output_dir, f"{base}.{ext}")
+            with open(dest, "w") as f:
+                f.write(out if out.endswith("\n") else out + "\n")
+            print(f"wrote {dest}", file=sys.stderr)
+    else:
+        joiner = "\n" if fmt in ("srt", "vtt") else ""
+        for i, out in enumerate(rendered):
+            if fmt in ("srt", "vtt") and len(rendered) > 1:
+                print(f"# {args.audio[i]}")
+            print(out, end=joiner + "\n" if not out.endswith("\n") else joiner)
+
+
+@torch.no_grad()
+def main(argv=None):
+    args = parse_args(argv)
+    check_ported(args)
+    fmt = output_format(args)
+    device = resolve_device(args.device)
+    tokenizer = load_tokenizer(args.vocab, args.merges,
+                               multilingual=not args.model.endswith(".en"))
+    fast = device.type == "cuda" and not args.exact
+    cfg = get_config(args.model, dtype="bfloat16", **(FAST_OVERRIDES if fast else {}))
+    warn_missing_assets(args.vocab, args.init_checkpoint, "transcribe")
+    state = None
+    if args.init_checkpoint:
+        state, cfg = load_checkpoint_or_safetensors(args.init_checkpoint, cfg)
+    model = build_model(cfg, state, seed=0, device=device)
+    frontend = select_mel_frontend()
+
+    def make_mel(chunk):
+        return frontend(torch.as_tensor(np.asarray(chunk), dtype=torch.float32, device=device),
+                        n_mels=cfg.n_mels)
+
+    contexts = spans = None
+    n = len(args.audio)
+    if args.context:
+        contexts = [tokenizer.encode(args.context.lower(), add_special_tokens=False)] * n
+    if args.bias_words:
+        coll = SpeechSeq2SeqCollator(pad_token_id=tokenizer.pad_token_id,
+                                     decoder_start_token_id=tokenizer.sot,
+                                     bias_span_pad_id=tokenizer.eot)
+        words = [tokenizer.encode(w.lower(), add_special_tokens=False) for w in args.bias_words]
+        spans = coll.pad_bias_spans([words] * n)
+
+    t0 = time.time()
+    if (args.vad or args.clip_timestamps) and not args.long:
+        print("warning: --vad/--clip_timestamps gate long-form windows; ignored on the "
+              "single-window path (use --long)", file=sys.stderr)
+    if args.window_info and not args.long:
+        print("warning: --window_info reports long-form window QC; ignored on the "
+              "single-window path (use --long)", file=sys.stderr)
+    raw = [load_audio(p) for p in args.audio]
+    if args.long:
+        # language detection reads the first window of each file
+        starts, langs = build_starts(args, tokenizer, model, n, lambda: make_mel(np.stack(
+            [pad_or_trim(pcm_to_float32(a[:480000])) for a in raw])))
+        out = transcribe_long_batch(
+            model, tokenizer, raw, mel_fn=make_mel, max_new=args.max_tokens,
+            contexts=contexts, bias_spans=spans, bias_boost=args.bias_boost,
+            use_timestamps=args.timestamps, temperatures=tuple(args.temperatures),
+            best_of=args.best_of, compression_ratio_threshold=args.compression_ratio_threshold,
+            logprob_threshold=nan_off(args.logprob_threshold),
+            no_speech_threshold=nan_off(args.no_speech_threshold), start_tokens=starts,
+            return_segments=True, num_beams=args.num_beams,
+            beam_early_stopping=args.beam_early_stopping,
+            vad=parse_clip_timestamps(args.clip_timestamps) or args.vad,
+            return_window_info=args.window_info,
+            prompt_reset_on_temperature=nan_off(args.prompt_reset_on_temperature),
+            device=device)
+        hyps, segments, _, winfo = unpack_long_form(out, return_segments=True,
+                                                    return_window_info=args.window_info)
+        audio_seconds = sum(len(a) for a in raw) / 16000
+        segs = [close_open_segments(segments[i], clip_end=len(raw[i]) / 16000)
+                for i in range(n)]
+    else:
+        true_lengths = [min(len(a), 480000) for a in raw]
+        mel = make_mel(np.stack([pad_or_trim(a) for a in raw]))
+        starts, langs = build_starts(args, tokenizer, model, n, lambda: mel)
+        kwargs = dict(contexts=contexts, max_new=args.max_tokens, bias_spans=spans,
+                      bias_boost=args.bias_boost, starts=starts, device=device)
+        if args.num_beams > 1:
+            hyps = beam_decode_batch(model, tokenizer, mel, num_beams=args.num_beams,
+                                     early_stopping=args.beam_early_stopping, **kwargs)
+        else:
+            hyps = decode_batch(model, tokenizer, mel, **kwargs)
+        audio_seconds = sum(true_lengths) / 16000
+        segs, winfo = [None] * n, None
+    wall = time.time() - t0
+    rendered = []
+    for i, (path, h) in enumerate(zip(args.audio, hyps)):
+        text = tokenizer.decode(h, skip_special_tokens=True).strip()
+        rendered.append(emit(args, fmt, path, text, segs[i], language=langs[i],
+                             windows=winfo[i] if winfo else None))
+    write_outputs(args, fmt, rendered)
+    print(f"[{n} files, {audio_seconds:.1f}s audio in {wall:.2f}s "
+          f"= {audio_seconds / max(wall, 1e-9):.1f}x realtime]", file=sys.stderr)
+    return hyps
+
+
+if __name__ == "__main__":
+    main()

@@ -63,6 +63,33 @@ def bias_bonus(state: BiasTrieState, bias_spans: torch.Tensor, vocab_size: int,
     return bonus.scatter_reduce_(1, safe_tok, vals, reduce="amax")
 
 
+def bias_score_adjust(state: BiasTrieState, bias_spans: torch.Tensor, vocab_size: int,
+                      boost: float) -> torch.Tensor:
+    """Score-exact shallow fusion for beam search (B, V) f32: a beam's
+    accumulated bias bonus is ``boost * len(span)`` for every completed span
+    and exactly 0 for partial matches that later fail.
+
+    adjust[v] = boost * sum_n new_matched_n(v) - boost * sum_n matched_n,
+    where new_matched_n(v) is what ``advance_bias_state`` gives on emitting
+    v: matched_n + 1 if v extends span n, 1 if v (re)starts it, else 0.
+    (Greedy decoding keeps the prospective ``bias_bonus``: emitted tokens
+    cannot be retracted.)"""
+    b, n, k = bias_spans.shape
+    next_tok = _at(bias_spans, torch.clamp(state.matched, max=k - 1))
+    first = bias_spans[..., 0]
+    active = (state.matched < state.span_len) & (state.span_len > 0)
+    pending = state.matched.sum(dim=-1).to(torch.float32) * boost  # (B,)
+    relief_vals = torch.where(active, (state.matched + 1).to(torch.float32) * boost, 0.0)
+    relief = torch.zeros((b, vocab_size), dtype=torch.float32, device=bias_spans.device)
+    relief.scatter_add_(1, torch.where(active, next_tok, 0).long(), relief_vals)
+    # restart credit: v == first[n] that does not extend span n re-enters it
+    # at matched=1; gated off when first IS the extension token
+    restart = (state.span_len > 0) & ~(active & (next_tok == first))
+    relief.scatter_add_(1, torch.where(restart, first, 0).long(),
+                        torch.where(restart, float(boost), 0.0).to(torch.float32))
+    return relief - pending[:, None]
+
+
 def seed_bias_state_from_prefix(
     state: BiasTrieState,
     bias_spans: torch.Tensor,   # (B, N, K)

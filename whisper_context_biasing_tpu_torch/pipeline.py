@@ -1,22 +1,26 @@
-"""High-level serving API: load once, transcribe short-form clips.
+"""High-level serving API: load once, transcribe anything.
 
-The counterpart of the JAX package's ``pipeline.py`` for its short-form
-greedy route: clips of at most one window, optional context conditioning
-(``<|startofprev|>`` prompt) and bias words (the in-loop trie bonus)::
+The counterpart of the JAX package's ``pipeline.py``: batched short-form
+decode (greedy or beam), sequential long-form seeking with timestamps, the
+temperature ladder, the no-speech rule and the VAD gate, context
+conditioning (``<|startofprev|>`` prompt), bias words (the in-loop trie
+bonus), and language id / translation for the multilingual models::
 
     from whisper_context_biasing_tpu_torch import Pipeline
 
     pipe = Pipeline("base.en")                 # on the card; device="cpu" to opt out
     res = pipe.transcribe(["a.wav", "b.wav"], context="patient on aspirin",
                           bias_words=["aspirin"], bias_boost=2.0)
-    res[0].text
+    res[0].text, res[0].segments, res[0].srt()
 
-Options of the JAX Pipeline that are not ported yet raise
+Options of the JAX Pipeline that are not ported yet (chunked long-form, word
+timestamps, ``window_buckets``, speculative and Medusa decoding) raise
 ``NotImplementedError`` naming the ROADMAP queue item that brings them.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -25,7 +29,14 @@ import torch
 from ._device import resolve_device
 from .audio import load_audio, pad_or_trim, pcm_to_float32, select_mel_frontend
 from .data.collator import SpeechSeq2SeqCollator
-from .decode import decode_batch
+from .decode import (
+    beam_decode_batch,
+    decode_batch,
+    detect_language,
+    resolve_start_tokens,
+    transcribe_long_batch,
+    unpack_long_form,
+)
 from .decode.greedy import Clock
 from .models import (
     FAST_OVERRIDES,
@@ -34,13 +45,34 @@ from .models import (
     load_checkpoint_or_safetensors,
     params_from_jax,
 )
+from .models.whisper import encode_audio
 from .tokenizer import load_tokenizer
+from .utils.subtitles import close_open_segments, format_srt, format_vtt
 
 
 @dataclass
 class TranscriptionResult:
     text: str
     tokens: list = field(default_factory=list)
+    language: str | None = None
+    # (start_s, end_s, text) cues: long-form timestamps
+    segments: list | None = None
+    # word-level timings (word timestamps are not ported yet: always None)
+    words: list | None = None
+    # per-window QC dicts (transcribe(window_info=True), long-form):
+    # start_s, temperature, avg_logprob, no_speech_prob, compression_ratio,
+    # accepted
+    windows: list | None = None
+
+    def srt(self) -> str:
+        if self.segments is None:
+            raise ValueError("no timed segments (use timestamps=True)")
+        return format_srt(self.segments)
+
+    def vtt(self) -> str:
+        if self.segments is None:
+            raise ValueError("no timed segments (use timestamps=True)")
+        return format_vtt(self.segments)
 
 
 def _not_ported(what: str, queue: str):
@@ -104,8 +136,9 @@ class Pipeline:
             decoder_start_token_id=self.tokenizer.sot,
             bias_span_pad_id=self.tokenizer.eot,
         )
-        # per-call times of the last transcribe(): mel_ms, encode_ms,
-        # prefill_ms, decode_ms (CUDA events on a card) and decode steps
+        # per-call times of the last short-form transcribe(): mel_ms,
+        # encode_ms, prefill_ms, decode_ms (CUDA events on a card) and decode
+        # steps (beam search adds reorder_ms on a card); empty after long-form
         self.last_timings: dict = {}
 
     @property
@@ -133,6 +166,27 @@ class Pipeline:
         return select_mel_frontend()(audio, n_mels=self.cfg.n_mels)
 
     @torch.no_grad()
+    def _encode(self, mel: torch.Tensor) -> torch.Tensor:
+        return encode_audio(self.model, mel)
+
+    def _starts(self, n: int, mel_thunk, language, task, enc_out=None):
+        """Start sequences for ``n`` clips; ``mel_thunk`` gives the detection
+        mel, computed only when language detection runs."""
+        return resolve_start_tokens(
+            self.tokenizer, n, language=language, task=task,
+            detect=lambda: self.detect_language(mel_thunk(), is_mel=True, enc_out=enc_out))
+
+    def detect_language(self, audio, *, is_mel: bool = False, enc_out=None):
+        """Per-clip ``(language_code, probability)``; multilingual models."""
+        if is_mel:
+            mel = audio
+        else:
+            clips = audio if isinstance(audio, (list, tuple)) else [audio]
+            mel = self.mel(np.stack([pad_or_trim(self._load(a), self.window_samples)
+                                     for a in clips]))
+        return detect_language(self.model, self.tokenizer, mel, enc_out=enc_out)
+
+    @torch.no_grad()
     def transcribe(
         self,
         audio,
@@ -140,53 +194,105 @@ class Pipeline:
         context: str | None = None,
         bias_words: list[str] | None = None,
         bias_boost: float | None = None,
-        max_tokens: int = 224,
         language: str | None = None,
         task: str = "transcribe",
         num_beams: int = 1,
+        beam_early_stopping: str = "off",
+        max_tokens: int = 224,
         long_form: bool | str = "auto",
+        vad: bool | dict | list = False,  # energy VAD gate / clip ranges (long-form)
+        window_info: bool = False,  # long-form: per-window QC dicts on result.windows
         timestamps: bool = False,
         word_timestamps: bool = False,
+        temperatures: tuple = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0),
         window_buckets=None,
+        best_of: int = 1,           # sampled fallback rungs keep the best of n
+        prompt_reset_on_temperature: float | None = 0.5,
+        no_speech_threshold: float | None = 0.6,
+        alignment_heads: list[tuple[int, int]] | None = None,
     ) -> list[TranscriptionResult] | TranscriptionResult:
-        """Transcribe file paths and/or 16 kHz float arrays in one batch, each
-        padded or trimmed to one window: a longer clip needs
-        ``long_form=False`` (trimmed), since long-form is not ported yet."""
-        if num_beams > 1:
-            _not_ported("beam search", "Queue A.6 (decode/beam.py)")
-        if timestamps or word_timestamps:
-            _not_ported("timestamps", "Queue A.6 (word timestamps, long-form)")
-        if window_buckets:
-            _not_ported("window_buckets", "Queue A.6 (serving surfaces)")
-        if language is not None or task != "transcribe":
-            _not_ported("language forcing, detection and translation",
-                        "Queue A.6 (decode/language.py)")
+        """Transcribe file paths and/or 16 kHz float arrays in one batch.
+
+        ``long_form="auto"`` routes the batch through the sequential-window
+        seek loop when any clip exceeds one window (``True`` forces it,
+        ``False`` trims each clip to the window); ``timestamps`` adds
+        absolute-time segments there (``result.srt()``, ``.vtt()``), and
+        ``temperatures``, ``best_of``, ``prompt_reset_on_temperature``,
+        ``no_speech_threshold``, ``vad`` and ``window_info`` drive its ladder
+        and gates. ``num_beams > 1`` decodes with beam search (short-form, and
+        the long-form t=0 rung). ``language`` (a code or ``"auto"``) and
+        ``task="translate"`` need a multilingual model. Not ported yet, and
+        raising: ``long_form="chunked"``, ``word_timestamps`` and
+        ``window_buckets``."""
+        if long_form == "chunked":
+            _not_ported("chunked long-form decoding", "Queue A.6 (decode/chunked.py)")
         single = not isinstance(audio, (list, tuple))
         clips = [self._load(a) for a in ([audio] if single else audio)]
         n = len(clips)
-        win = self.window_samples
-        # as in JAX, only "auto" routes a clip over one window to long-form;
-        # long_form=False trims it to the window (pad_or_trim below)
-        if long_form is True or long_form == "chunked" or (
-                long_form == "auto" and any(len(c) > win for c in clips)):
-            _not_ported("long-form transcription (a clip over one window)",
-                        "Queue A.6 (decode/long_form.py, decode/chunked.py)")
         boost = self.default_bias_boost if bias_boost is None else bias_boost
         spans = self._spans(bias_words, n)
         ctx = None
         if context:
             ctx = [self.tokenizer.encode(context.lower(), add_special_tokens=False)] * n
+        win = self.window_samples
+        use_long = long_form is True or (long_form == "auto" and any(len(c) > win for c in clips))
+        if word_timestamps:
+            _not_ported(f"word timestamps ({'long-form' if use_long else 'short-form'})",
+                        "Queue A.6 (models/alignment.py, decode/word_timestamps.py)")
+        if window_buckets:
+            if not use_long:
+                _not_ported("window_buckets", "Queue A.6 (serving surfaces)")
+            # as in JAX: the long-form route windows at the full context
+            warnings.warn("window_buckets applies to the short-form route only; this call "
+                          "took the long-form path (a clip exceeds one window, or long_form "
+                          "was forced) — buckets ignored.")
+        if window_info and not use_long:
+            warnings.warn("window_info=True reports long-form window QC; this call took the "
+                          "short-form route (all clips <= one window) — result.windows stays "
+                          "None. Pass long_form=True to force the windowed path.")
+
+        if use_long:
+            starts, langs = self._starts(
+                n, lambda: self.mel(np.stack([pad_or_trim(c, win) for c in clips])),
+                language, task)
+            out = transcribe_long_batch(
+                self.model, self.tokenizer, clips, mel_fn=self.mel, max_new=max_tokens,
+                contexts=ctx, bias_spans=spans, bias_boost=boost, use_timestamps=timestamps,
+                temperatures=tuple(temperatures), best_of=best_of,
+                prompt_reset_on_temperature=prompt_reset_on_temperature,
+                no_speech_threshold=no_speech_threshold, start_tokens=starts,
+                return_segments=True, prefix_pad_to_multiple=32, window_samples=win,
+                vad=vad, num_beams=num_beams, beam_early_stopping=beam_early_stopping,
+                return_window_info=window_info, device=self.device)
+            self.last_timings = {}
+            hyps, segs, _, winfo = unpack_long_form(
+                out, return_segments=True, return_window_info=window_info)
+            results = [TranscriptionResult(
+                text=self.tokenizer.decode(h, skip_special_tokens=True).strip(),
+                tokens=list(h), language=langs[i],
+                segments=close_open_segments(segs[i], clip_end=len(clips[i]) / 16000),
+                windows=winfo[i] if winfo is not None else None)
+                for i, h in enumerate(hyps)]
+            return results[0] if single else results
 
         clock = Clock(self.device)
         clock.mark("start")
         mel = self.mel(np.stack([pad_or_trim(c, win) for c in clips]))
         clock.mark("mel")
+        need_lang = self.tokenizer.multilingual and (
+            language == "auto" or (task == "translate" and not language))
+        enc = self._encode(mel) if need_lang else None
+        starts, langs = self._starts(n, lambda: mel, language, task, enc_out=enc)
         timings: dict = {}
-        hyps = decode_batch(self.model, self.tokenizer, mel, contexts=ctx,
-                            max_new=max_tokens, bias_spans=spans, bias_boost=boost,
-                            pad_to_multiple=32, device=self.device, timings=timings)
+        kwargs = dict(contexts=ctx, max_new=max_tokens, bias_spans=spans, bias_boost=boost,
+                      starts=starts, device=self.device, timings=timings)
+        if num_beams > 1:
+            hyps = beam_decode_batch(self.model, self.tokenizer, mel, num_beams=num_beams,
+                                     early_stopping=beam_early_stopping, **kwargs)
+        else:
+            hyps = decode_batch(self.model, self.tokenizer, mel, pad_to_multiple=32, **kwargs)
         self.last_timings = dict(mel_ms=clock.ms("start", "mel"), **timings)
         results = [TranscriptionResult(
             text=self.tokenizer.decode(h, skip_special_tokens=True).strip(),
-            tokens=list(h)) for h in hyps]
+            tokens=list(h), language=langs[i]) for i, h in enumerate(hyps)]
         return results[0] if single else results

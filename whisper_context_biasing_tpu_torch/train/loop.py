@@ -7,8 +7,8 @@ replacement for HF ``Seq2SeqTrainer`` as the reference drives it
 
   * effective batch = per-step batch × grad accumulation (8×4)
   * AdamW + cosine w/ warmup, weight decay, grad clipping
-  * eval every ``eval_steps`` optimizer steps: batched greedy decode over the
-    KV cache, scored by the compute_wer flow, refs_and_pred.txt written
+  * eval every ``eval_steps`` optimizer steps: batched greedy (or beam)
+    decode over the KV cache, scored by the compute_wer flow, refs_and_pred.txt written
   * checkpoint every ``save_steps`` (the JAX package's npz layout) with the
     accumulated log_history, written on a background thread; retention
     keep-N + best (load_best_model_at_end on lowest eval_wer)
@@ -24,7 +24,7 @@ train=True)``) in place through the port's ``TrainState``; with
 ``cfg.fused_ln_qkv`` / ``fused_ln_mlp`` (the ``--fused_ln`` switch) its
 steps and the eval's encoder run the fused LayerNorm+matmul kernel. Options
 whose modules are not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item: beams and Medusa eval (A.6, A.7), LoRA and SpecAugment (A.8),
+ROADMAP item: Medusa eval (A.7), LoRA and SpecAugment (A.8),
 meshes, shard functions and the Orbax backend (A.9). With ``hub_model_id``
 each save pushes the output dir to the Hub and a resume without a local
 checkpoint tries a Hub snapshot, as in JAX; offline both degrade to a
@@ -44,6 +44,7 @@ import numpy as np
 from .._device import resolve_device
 from ..data.collator import SpeechSeq2SeqCollator
 from ..data.prefetch import BatchLoader, prefetch_to_device
+from ..decode.beam import beam_decode
 from ..decode.bias_processor import sanitize_bias_spans
 from ..decode.greedy import greedy_decode, pack_prefixes
 from ..metrics.evaluate import score_predictions
@@ -133,17 +134,14 @@ def evaluate_wer(
     mesh=None,
     medusa: dict | None = None,
 ) -> dict:
-    """Batched greedy decode over a dataset + compute_wer scoring, on the
-    model's device. Returns {"wer": percent}.
+    """Batched greedy (or beam, ``num_beams > 1``) decode over a dataset +
+    compute_wer scoring, on the model's device. Returns {"wer": percent}.
 
     Item prep runs on BatchLoader threads, the final partial batch is padded
     up to ``batch_size`` by repeating its first row (stripped after decode),
     prefix lengths are bucketed to multiples of 32 and bias-span dims to
     multiples of 4, as in the JAX package (there for its compiled shapes;
     here they keep the batches, and so the results, the same)."""
-    if num_beams > 1:
-        raise NotImplementedError("beam search is not ported yet (ROADMAP Queue A.6, "
-                                  "decode/beam.py)")
     if medusa is not None:
         raise NotImplementedError("Medusa decoding is not ported yet (ROADMAP Queue A.7)")
     if mesh is not None:
@@ -175,7 +173,7 @@ def evaluate_wer(
     loader = BatchLoader(dataset, collate, batch_size, num_workers=num_workers)
     for batch in loader:
         _eval_decode_batch(batch, all_preds, all_labels, model, tokenizer, collator,
-                           batch_size, max_new, bias_boost)
+                           batch_size, max_new, bias_boost, num_beams)
     return score_predictions(all_preds, all_labels, tokenizer, refs_pred_file)
 
 
@@ -188,7 +186,7 @@ def _pad_rows(a: np.ndarray, b_full: int) -> np.ndarray:
 
 
 def _eval_decode_batch(batch, all_preds, all_labels, model: Whisper, tokenizer, collator,
-                       batch_size, max_new, bias_boost):
+                       batch_size, max_new, bias_boost, num_beams):
     prefixes = batch.pop("_prefixes")
     b = len(prefixes)
     ids, mask = pack_prefixes(prefixes, tokenizer.eot, pad_to_multiple=32)
@@ -204,13 +202,15 @@ def _eval_decode_batch(batch, all_preds, all_labels, model: Whisper, tokenizer, 
         spans = sanitize_bias_spans(batch["bias_spans"])
         if spans is not None:
             spans = _pad_rows(np.asarray(spans), batch_size)
-    res = greedy_decode(
-        model, feats, ids, mask, max_new=max_new, eot_id=tokenizer.eot,
-        bias_spans=spans, bias_boost=bias_boost, span_pad_id=collator.bias_span_pad_id,
-        device=next(model.parameters()).device,
-    )
-    toks = res.tokens.cpu().numpy()
-    lens = res.lengths.cpu().numpy()
+    kw = dict(max_new=max_new, eot_id=tokenizer.eot, bias_spans=spans, bias_boost=bias_boost,
+              span_pad_id=collator.bias_span_pad_id, device=next(model.parameters()).device)
+    if num_beams > 1:
+        toks = beam_decode(model, feats, ids, mask, num_beams=num_beams, **kw).best.cpu().numpy()
+        lens = np.cumprod(toks != tokenizer.eot, axis=1).sum(axis=1)
+    else:
+        res = greedy_decode(model, feats, ids, mask, **kw)
+        toks = res.tokens.cpu().numpy()
+        lens = res.lengths.cpu().numpy()
     for i in range(b):
         all_preds.append(toks[i, : lens[i]].tolist())
         all_labels.append(batch["labels"][i].tolist())

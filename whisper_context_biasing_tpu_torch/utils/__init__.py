@@ -1,6 +1,7 @@
 """Utilities: structured run logging (a copy of the JAX package's
-``utils/logging.py``), the gated Hub sync (``utils/hub.py``) and the
-missing-assets warning of the entry points."""
+``utils/logging.py``), the gated Hub sync (``utils/hub.py``), the SRT/WebVTT
+writers (``utils/subtitles.py``) and the missing-assets warning of the entry
+points."""
 
 import sys
 
