@@ -72,7 +72,25 @@ on failure:
    plain versions with identical beams; (d) seeded sampling with a CUDA
    generator repeating; (e) ``Pipeline("base")`` detecting a language per
    request; (f) ``cli.transcribe --long --timestamps --format srt`` from
-   phase 10's ``model.safetensors``, one SRT per file that parses back.
+   phase 10's ``model.safetensors``, one SRT per file that parses back;
+12. the rest of serving at base.en width: (a) ``Pipeline.transcribe(
+   long_form="chunked", chunked_batch=32)`` of a 300 s recording and phase
+   11's clips with timestamps and the default ladder (bf16, every kernel):
+   windows, window batches, decode calls and steps, the wall, and exactly
+   the launches the run implies (K1 one a window batch, K2 six an encoder
+   pass, K3 six a decode step); (b) the same route at t=0 in f32 with word
+   timestamps, the kernels against their plain versions: tokens, segments
+   and words identical (a divergence passes only at a top-2 logit gap
+   < 1e-4); (c) short-form word timestamps on phase 3's requests (the
+   alignment pass's ms; words monotone inside each clip) and long-form word
+   timestamps on the 75 s clip; (d) ``window_buckets=(8, 15)`` on phase 3's
+   requests: launches and encoder ms per bucket beside the unbucketed call,
+   then f32 kernels against plain versions with identical tokens; (e) a
+   ``StreamingTranscriber`` fed the 75 s clip in 1 s chunks giving
+   ``transcribe_long_batch``'s tokens; (f) ``cli.serve`` on 127.0.0.1:0 from
+   phase 10's ``model.safetensors``: 8 concurrent posts in one micro-batch,
+   a 75 s post, a word-timestamp post, a stream session, ``/health``, each
+   latency and the server's RTF meter.
 
 Phase 2 also holds the mel kernel against its plain version at 80 and 128
 mels, a 3 s window and batch 1, and against the float64 numpy frontend on a
@@ -86,9 +104,13 @@ each mel, flash, int8 cross-attention and fused kernel (registers, spills,
 shared memory, resident blocks per SM) and the rate each reaches beside its
 bound. The int8 cross-attention is timed as a decode step runs
 it, in bursts that rotate over the 6 layers (75 MB of K/V, more than the
-50 MB L2 holds), so its time is fed from device memory. The line before the
-last is the kernel table as JSON, with each kernel's launches summed over
-the main-path phases (3, 5, 7, 9, 10 and 11); the last line is
+50 MB L2 holds), so its time is fed from device memory. It also holds K1,
+K2 and K3 at the shapes phase 12 gives them: K1 on 8 s and 15 s windows,
+K2 at T = 400 and 750 (the buckets' encoder), K3 at T_pad = 512 and 768 for
+batches of 8 and 32 and at T_pad = 1536 for the chunked batch of 32. The
+line before the last is the kernel table as JSON, with each kernel's
+launches summed over the main-path phases (3, 5, 7, 9, 10, 11 and 12); the
+last line is
 ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only [TREE]`` stops after phase 2 (all five kernels checked and
@@ -1377,45 +1399,6 @@ def parse_srt(text: str) -> list[tuple[float, float, str]]:
     return cues
 
 
-class DecodeRecorder:
-    """Wraps the long-form module's ``greedy_decode`` (and ``beam_decode``)
-    to record each call's decode steps (and, on request, its tokens and
-    top-2 logit gaps), the counts the launch gates need."""
-
-    def __init__(self, margins: bool = False):
-        from whisper_context_biasing_tpu_torch.decode import beam, long_form
-
-        self.mods = (long_form, beam)
-        self.margins = margins
-        self.calls: list[dict] = []
-
-    def __enter__(self):
-        long_form, beam = self.mods
-        self.greedy, self.beam = long_form.greedy_decode, beam.beam_decode
-
-        def greedy(*a, **kw):
-            t = {}
-            res = self.greedy(*a, timings=t, return_margins=self.margins, **kw)
-            self.calls.append(dict(steps=t["steps"], tokens=res.tokens.cpu().numpy(),
-                                   margins=None if res.margins is None
-                                   else res.margins.cpu().numpy()))
-            return res
-
-        def beam_decode(*a, **kw):
-            t = {}
-            res = self.beam(*a, timings=t, **kw)
-            self.calls.append(dict(steps=t["steps"], tokens=res.best.cpu().numpy(),
-                                   margins=None))
-            return res
-
-        long_form.greedy_decode, beam.beam_decode = greedy, beam_decode
-        return self
-
-    def __exit__(self, *exc):
-        long_form, beam = self.mods
-        long_form.greedy_decode, beam.beam_decode = self.greedy, self.beam
-
-
 def device_busy_ms(torch, fn) -> tuple[float, int]:
     """``fn`` once under torch.profiler with CUDA activity only: the sum of
     the device's kernel and copy times, and their count."""
@@ -1452,12 +1435,12 @@ def long_form_batch(torch, Pipeline, ops, card):
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with DecodeRecorder() as rec:
+    with PathRecorder() as rec:
         res = pipe.transcribe(clips, **kwargs)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(ops.launches)
-    steps = sum(c["steps"] for c in rec.calls)
+    steps = rec.steps
     want = {"mel": len(mel_calls), "flash_attention": N_LAYERS * len(rec.calls),
             "quant_cross_attention": N_LAYERS * steps}
     iterations = len(mel_calls)
@@ -1511,7 +1494,7 @@ def long_form_f32_gate(torch, Pipeline, ops, clips):
             pipe.mel = lambda stacked, pipe=pipe: log_mel_spectrogram(
                 torch.as_tensor(stacked, device=DEVICE), n_mels=pipe.cfg.n_mels)
         ops.reset_launch_counts()
-        with DecodeRecorder(margins=True) as rec:
+        with PathRecorder(margins=True) as rec:
             res = pipe.transcribe(clips, context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0,
                                   timestamps=True, temperatures=(0.0,), window_info=True,
                                   max_tokens=MAX_TOKENS)
@@ -1526,22 +1509,15 @@ def long_form_f32_gate(torch, Pipeline, ops, clips):
     (kres, kcalls, kc), (pres, pcalls, _) = runs
     print(f"(b) f32 long-form, kernels (launches {kc}) vs plain versions: "
           f"{len(kcalls)} and {len(pcalls)} decode calls")
-    for ci, (kc_, pc_) in enumerate(zip(kcalls, pcalls)):
-        diff = np.argwhere(kc_["tokens"] != pc_["tokens"])
-        if diff.size:
-            row, step = (int(x) for x in diff[0])
-            gap = pc_["margins"][row, step]
-            print(f"  decode call {ci} row {row}: tokens diverge at step {step}, plain top-2 "
-                  f"logit gap {gap:.3e} (pass only if < 1e-4)")
-            require(gap < 1e-4, f"(b) f32 long-form kernels vs plain diverge at call {ci}")
-            return
+    if not same_calls(kcalls, pcalls, "(b)"):
+        return
     same = ([r.tokens for r in kres] == [r.tokens for r in pres]
             and [r.segments for r in kres] == [r.segments for r in pres]
             and [[w["start_s"] for w in r.windows] for r in kres]
             == [[w["start_s"] for w in r.windows] for r in pres])
     print(f"  tokens, segments and seeks identical: {same} "
           f"({sum(len(r.windows) for r in kres)} windows)")
-    require(same and len(kcalls) == len(pcalls), "(b) f32 long-form results differ")
+    require(same, "(b) f32 long-form results differ")
 
 
 def beam_serving(torch, Pipeline, ops, card):
@@ -1697,6 +1673,600 @@ def long_form_and_beam(torch, Pipeline, ops, card, init_path, tmp):
             for k in set(long_counts) | set(beam_counts)}
 
 
+# ---------------------------------------------------------------------------
+# phase 2, the shapes of phase 12: the bucket windows and the chunked batch
+# ---------------------------------------------------------------------------
+
+BUCKETS = (8, 15)
+BUCKET_T = {8: 400, 15: 750}      # encoder states of a bucket's window
+CHUNKED_BATCH = 32
+
+
+def check_bucket_shapes(torch, ops) -> list[dict]:
+    """K1, K2 and K3 at the shapes phase 12 gives them and no earlier path
+    did: K1 on 8 s and 15 s windows (128,000 and 240,000 samples); K2 on the
+    encoder's T = 400 and 750 (neither a multiple of the bf16 tile: the
+    ragged last Q and KV tiles); K3 at T_pad = 512 and 768 (400 and 750 real
+    keys, quantize_cross_kv(pad_to=128)) for the bucket batches of 8 and the
+    chunked batch of 32, and at T_pad = 1536 for the chunked batch of 32.
+    Each against its plain version with phase 2's tolerances, timed as
+    phase 2 times it, beside its bound."""
+    import torch.nn.functional as F
+
+    from whisper_context_biasing_tpu_torch.audio.mel import log_mel_tail
+    from whisper_context_biasing_tpu_torch.ops.quant_cross_attention import pick_splits
+
+    rows = []
+    rng = np.random.default_rng(21)
+    for seconds in BUCKETS:
+        n = seconds * 16000
+        clips = [synthetic_audio(rng, seconds - 1.5 * (i % 3)) for i in range(BATCH)]
+        x = torch.from_numpy(np.stack([np.pad(a, (0, n - a.size)) for a in clips])).cuda()
+        err = max_err(log_mel_tail(ops.mel_energies(x, N_MELS)),
+                      log_mel_tail(ops.mel_energies_plain(x, N_MELS)))
+        require(err <= 1e-4, f"mel kernel at {n} samples disagrees: {err}")
+        frames = BATCH * (n // 160)
+        n_bytes = 4 * (BATCH * n + frames * N_MELS)
+        b_ms, b_by = bound(n_bytes, frames * (2.5 * 400 * np.log2(400) + 3 * 201 + 2 * 391),
+                           PEAK_F32_FLOP_S)
+        ms = median_ms(torch, lambda: ops.mel_energies(x, N_MELS))
+        plain_ms = median_ms(torch, lambda: ops.mel_energies_plain(x, N_MELS))
+        print(f"K1 mel {BATCH} x {n} ({seconds} s bucket): log-mel max |err| = {err:.3e} (atol "
+              f"1e-4); {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by})")
+        rows.append(dict(kernel="mel", shape=f"{BATCH}x{n}", max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms))
+    dh, bh = D_MODEL // N_HEADS, BATCH * N_HEADS
+    for t in BUCKET_T.values():
+        qkv32 = [merged_heads(torch, rng, t) for _ in range(3)]
+        o, lse = ops.flash_attention_fwd(*qkv32)
+        po, plse = ops.flash_attention_fwd_plain(*qkv32)
+        err32, lerr32 = max_err(o, po), max_err(lse, plse)
+        require(err32 <= 2e-5 and lerr32 <= 1e-4, f"flash f32 at T={t} disagrees: {err32}")
+        qkv = [q.to(torch.bfloat16) for q in qkv32]
+        o, lse = ops.flash_attention_fwd(*qkv)
+        po, plse = ops.flash_attention_fwd_plain(*qkv)
+        err, lerr = max_err(o, po), max_err(lse, plse)
+        require(err <= 5e-3 and lerr <= 1e-4, f"flash bf16 at T={t} disagrees: {err}, {lerr}")
+        n_ops = 4 * bh * t * t * dh
+        b_ms, b_by = bound(2 * bh * dh * 4 * t + 4 * bh * t, n_ops, PEAK_BF16_FLOP_S)
+        ms = median_ms(torch, lambda: ops.flash_attention_fwd(*qkv))
+        plain_ms = median_ms(torch, lambda: ops.flash_attention_fwd_plain(*qkv))
+        heads = [q.transpose(1, 2) for q in qkv]
+        lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(*heads))
+        print(f"K2 flash encoder ({BATCH}, {t}x{t}, 8x64): f32 max |o err| {err32:.3e} (2e-5), "
+              f"|lse err| {lerr32:.3e} (1e-4); bf16 max |o err| {err:.3e} (5e-3), |lse err| "
+              f"{lerr:.3e} (1e-4); bf16 {ms:.4f} ms = {n_ops / ms / 1e9:.1f} TFLOP/s (plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, SDPA {lib_ms:.4f} ms)")
+        rows.append(dict(kernel="flash_attention", shape=f"{BATCH}x{t}x{t}", max_abs_err=err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, library_ms=lib_ms))
+    for b, t_pad, t in ((BATCH, 512, 400), (BATCH, 768, 750), (CHUNKED_BATCH, 512, 400),
+                        (CHUNKED_BATCH, 768, 750), (CHUNKED_BATCH, T_PAD, T_AUDIO)):
+        shape = (N_LAYERS, b, t_pad, D_MODEL)
+        k_q = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).cuda()
+        v_q = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).cuda()
+        scales = rng.uniform(0.005, 0.05, (2, N_LAYERS, b, 1, t_pad)).astype(np.float32)
+        scales[..., t:] = 0.0
+        k_s, v_s = (torch.from_numpy(s).cuda() for s in scales)
+        q32 = torch.from_numpy(rng.standard_normal((b, 1, D_MODEL), np.float32)).cuda()
+        errs, limits = {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q = q32.to(dtype)
+            pairs = [(ops.quant_cross_attention_step_indexed(q, k_q, k_s, v_q, v_s, li, N_HEADS),
+                      ops.quant_cross_attention_step_indexed_plain(q, k_q, k_s, v_q, v_s, li,
+                                                                   N_HEADS))
+                     for li in range(N_LAYERS)]
+            errs[dtype] = max(max_err(k, p) for k, p in pairs)
+            # relative to the output's scale, as the K2 causal and K5 checks
+            # are: a batch of 32 holds 4x the outputs of phase 2's 8, so its
+            # largest error is larger. f32: sums in another order; bf16: the
+            # output rounds once more on each route, one ulp of an output in
+            # [2, 4) is 2^-6 = 0.0156, over phase 2's absolute 1e-2
+            scale = max(1.0, max(p.float().abs().max().item() for _, p in pairs))
+            limits[dtype] = (1e-5 if dtype == torch.float32 else 1e-2) * scale
+            require(errs[dtype] <= limits[dtype], f"int8 cross-attention {dtype} at B={b}, "
+                    f"T_pad={t_pad} disagrees: {errs[dtype]} > {limits[dtype]}")
+        n_bytes = 2 * b * t * D_MODEL + 2 * 4 * b * t_pad + 2 * 2 * b * D_MODEL
+        b_ms, b_by = bound(n_bytes, 4 * b * t * D_MODEL, PEAK_BF16_FLOP_S)
+        layers = itertools.cycle(range(N_LAYERS))
+        ms = median_ms(torch, lambda: ops.quant_cross_attention_step_indexed(
+            q, k_q, k_s, v_q, v_s, next(layers), N_HEADS))
+        plain_ms = median_ms(torch, lambda: ops.quant_cross_attention_step_indexed_plain(
+            q, k_q, k_s, v_q, v_s, 3, N_HEADS))
+        print(f"K3 int8 cross-attention (B {b}, T_pad {t_pad}, {t} keys, "
+              f"{pick_splits(t_pad, b * N_HEADS)} splits): f32 max |err| {errs[torch.float32]:.3e} (atol "
+              f"{limits[torch.float32]:.2e}: 1e-5 x max(1, max |out|)), bf16 "
+              f"{errs[torch.bfloat16]:.3e} (atol {limits[torch.bfloat16]:.2e}: 1% of it); bf16 rotating over the layers {ms:.4f} ms "
+              f"(plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by})")
+        rows.append(dict(kernel="quant_cross_attention", shape=f"{b}x{t_pad}({t})",
+                         max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the rest of serving
+# ---------------------------------------------------------------------------
+
+RECORDING_S = 300.0
+
+
+class CallRecorder:
+    """Calls of a function of the port, and the host seconds spent in them,
+    wherever a module of the package holds it (``encode_audio`` is imported
+    by name into several): ``with CallRecorder("decode.word_timestamps",
+    "dtw_path") as rec: ...; rec.calls, rec.seconds``."""
+
+    def __init__(self, module: str, name: str):
+        import importlib
+
+        self.fn = getattr(importlib.import_module(f"whisper_context_biasing_tpu_torch.{module}"),
+                          name)
+        self.name, self.calls, self.seconds = name, 0, 0.0
+
+    def __enter__(self):
+        def counted(*a, **kw):
+            self.calls += 1
+            t = time.perf_counter()
+            try:
+                return self.fn(*a, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t
+
+        self.patched = [m for n, m in list(sys.modules.items())
+                        if n.startswith("whisper_context_biasing_tpu_torch")
+                        and getattr(m, self.name, None) is self.fn]
+        for m in self.patched:
+            setattr(m, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.patched:
+            setattr(m, self.name, self.fn)
+
+
+class PathRecorder:
+    """Decode calls (with their steps, tokens and top-2 gaps) and encoder
+    passes of everything inside, wherever the package calls
+    ``greedy_decode`` or ``encode_audio`` from."""
+
+    def __init__(self, margins: bool = False):
+        self.margins = margins
+
+    def __enter__(self):
+        from whisper_context_biasing_tpu_torch.decode import greedy
+
+        self.enc = CallRecorder("models.whisper", "encode_audio").__enter__()
+        self.fn = greedy.greedy_decode
+        self.calls: list[dict] = []
+
+        def recorded(*a, timings=None, **kw):
+            t = {} if timings is None else timings  # the caller's dict, when it passes one
+            res = self.fn(*a, timings=t, return_margins=self.margins, **kw)
+            self.calls.append(dict(steps=t["steps"], tokens=res.tokens.cpu().numpy(),
+                                   margins=None if res.margins is None
+                                   else res.margins.cpu().numpy()))
+            return res
+
+        self.patched = [m for n, m in list(sys.modules.items())
+                        if n.startswith("whisper_context_biasing_tpu_torch")
+                        and getattr(m, "greedy_decode", None) is self.fn]
+        for m in self.patched:
+            m.greedy_decode = recorded
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.patched:
+            m.greedy_decode = self.fn
+        self.enc.__exit__(*exc)
+
+    @property
+    def steps(self) -> int:
+        return sum(c["steps"] for c in self.calls)
+
+    def implied(self, mel_calls: int) -> dict:
+        """The launches the run implies: K1 one a mel call, K2 six an
+        encoder pass, K3 six a decode step."""
+        return {"mel": mel_calls, "flash_attention": N_LAYERS * self.enc.calls,
+                "quant_cross_attention": N_LAYERS * self.steps}
+
+
+def counted_mel(pipe) -> list:
+    """Count ``pipe.mel`` calls (the window batches): returns the list the
+    calls' batch sizes go into."""
+    calls = []
+    real = pipe.mel
+
+    def mel(stacked):
+        calls.append(stacked.shape[0])
+        return real(stacked)
+
+    pipe.mel = mel
+    return calls
+
+
+def same_calls(kcalls, pcalls, label) -> bool:
+    """Kernel vs plain decode calls: identical tokens in as many calls, or
+    the first divergence at a top-2 logit gap < 1e-4 (then False, and the
+    rest, which that divergence may steer, is not compared)."""
+    for ci, (kc, pc) in enumerate(zip(kcalls, pcalls)):
+        diff = np.argwhere(kc["tokens"] != pc["tokens"])
+        if diff.size:
+            row, step = (int(x) for x in diff[0])
+            gap = pc["margins"][row, step]
+            print(f"  {label}: decode call {ci} row {row} diverges at step {step}, plain top-2 "
+                  f"logit gap {gap:.3e} (passes only if < 1e-4)")
+            require(gap < 1e-4, f"{label}: kernels vs plain diverge at call {ci}")
+            return False
+    require(len(kcalls) == len(pcalls), f"{label}: {len(kcalls)} vs {len(pcalls)} decode calls")
+    return True
+
+
+def words_ok(words, seconds: float, monotone: bool = True) -> bool:
+    starts = [w.start for w in words]
+    inside = all(0.0 <= w.start <= w.end <= seconds + 1e-6 for w in words)
+    return inside and (not monotone or starts == sorted(starts))
+
+
+def chunked_clips():
+    """The 300 s recording (seed 13) and phase 11's 75 s and 48 s clips."""
+    rng = np.random.default_rng(11)
+    return [synthetic_audio(np.random.default_rng(13), RECORDING_S)] + [
+        synthetic_audio(rng, s) for s in LONG_CLIPS_S]
+
+
+def chunked_batch(torch, Pipeline, ops, card):
+    """(a) ``long_form="chunked"``, timestamps, the default ladder, a
+    context and 3 bias words, 64 tokens a window, ``chunked_batch=32`` on the
+    300 s recording and phase 11's clips, bf16 with every kernel."""
+    from whisper_context_biasing_tpu_torch.decode import chunk_layout
+
+    clips = chunked_clips()
+    pipe = Pipeline("base.en", device=DEVICE, seed=0)
+    mel_calls = counted_mel(pipe)
+    windows = sum(len(chunk_layout(c.size, pipe.window_samples)) for c in clips)
+    kwargs = dict(long_form="chunked", chunked_batch=CHUNKED_BATCH, timestamps=True,
+                  window_info=True, context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0,
+                  max_tokens=MAX_TOKENS)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with PathRecorder() as rec:
+        res = pipe.transcribe(clips, **kwargs)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launches)
+    want = rec.implied(len(mel_calls))
+    audio_s = sum(c.size for c in clips) / 16000.0
+    rungs = [w["temperature"] for r in res for w in r.windows]
+    print(f"(a) chunked long-form (base.en bf16, clips of {RECORDING_S:.0f}, {LONG_CLIPS_S} s, "
+          f"timestamps, the ladder 0.0-1.0, chunked_batch {CHUNKED_BATCH}, {MAX_TOKENS} tokens a "
+          f"window) on {card}:")
+    print(f"  {windows} windows ({[len(r.windows) for r in res]} a clip) in {len(mel_calls)} "
+          f"window batches of {mel_calls} rows; {len(rec.calls)} decode calls, {rec.steps} "
+          f"decode steps, {rec.enc.calls} encoder passes; rungs reached {sorted(set(rungs))}")
+    print(f"  wall {wall * 1e3:.1f} ms = {audio_s / wall:.1f} audio-s/s, wall / decode steps "
+          f"{wall * 1e3 / max(rec.steps, 1):.2f} ms  [{card}]")
+    print(f"  launches {counts} (the run implies {want})")
+    print(f"  segments per clip {[len(r.segments) for r in res]}; tokens per clip "
+          f"{[len(r.tokens) for r in res]}")
+    require(counts == want and rec.enc.calls == len(rec.calls),
+            f"chunked launches {counts} != {want}")
+    require(sum(len(r.windows) for r in res) == windows, "(a) a window has no window info")
+    for r, c in zip(res, clips):
+        require(all(0.0 <= a <= e <= c.size / 16000.0 + 30.0 for a, e, _ in r.segments),
+                "(a) a segment outside its clip")
+    return counts, clips
+
+
+def chunked_f32_gate(torch, Pipeline, ops, clips):
+    """(b) (a)'s route at temperature 0 in f32 with word timestamps, the
+    kernels against their plain versions (by config, and the plain mel
+    frontend): tokens, segments and words identical (a divergence passes
+    only at a top-2 logit gap < 1e-4)."""
+    from whisper_context_biasing_tpu_torch.audio import log_mel_spectrogram
+
+    runs = []
+    for kernels in (True, False):
+        over = {} if kernels else dict(flash_attention=False, fused_quant_cross=False)
+        pipe = Pipeline("base.en", device=DEVICE, seed=0, dtype="float32", config_overrides=over)
+        if not kernels:
+            pipe.mel = lambda stacked, pipe=pipe: log_mel_spectrogram(
+                torch.as_tensor(stacked, device=DEVICE), n_mels=pipe.cfg.n_mels)
+        ops.reset_launch_counts()
+        with PathRecorder(margins=True) as rec:
+            res = pipe.transcribe(clips, long_form="chunked", chunked_batch=CHUNKED_BATCH,
+                                  timestamps=True, word_timestamps=True, temperatures=(0.0,),
+                                  context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0,
+                                  max_tokens=MAX_TOKENS)
+        counts = dict(ops.launches)
+        require(bool(counts) == kernels, f"(b) f32 {'kernel' if kernels else 'plain'} run "
+                f"launches {counts}")
+        runs.append((res, rec.calls, counts))
+        del pipe
+    (kres, kcalls, kc), (pres, pcalls, _) = runs
+    print(f"(b) f32 chunked with word timestamps, kernels (launches {kc}) vs plain versions: "
+          f"{len(kcalls)} decode calls each")
+    if not same_calls(kcalls, pcalls, "(b)"):
+        return
+    words = [[(w.word, w.start, w.end) for w in r.words] for r in kres]
+    same = ([r.tokens for r in kres] == [r.tokens for r in pres]
+            and [r.segments for r in kres] == [r.segments for r in pres]
+            and words == [[(w.word, w.start, w.end) for w in r.words] for r in pres])
+    print(f"  tokens, segments and words identical: {same} ({sum(map(len, words))} words; "
+          f"monotone and inside each clip: "
+          f"{all(words_ok(r.words, c.size / 16000.0) for r, c in zip(kres, clips))})")
+    require(same, "(b) f32 chunked results differ between the kernels and the plain versions")
+    require(all(words_ok(r.words, c.size / 16000.0) for r, c in zip(kres, clips)),
+            "(b) chunked word times are not monotone inside their clip")
+
+
+def word_timestamps_runs(torch, Pipeline, ops, card):
+    """(c) short-form ``word_timestamps=True`` on phase 3's 8 requests (K2
+    twice: the alignment's encoder pass and the decode's) and long-form word
+    timestamps on the 75 s clip at t=0, bf16: word times inside each clip,
+    monotone in short-form; the alignment pass's ms."""
+    clips = requests(np.random.default_rng(4))
+    pipe = Pipeline("base.en", device=DEVICE, seed=0)
+    kwargs = dict(context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0, max_tokens=MAX_TOKENS,
+                  word_timestamps=True)
+    pipe.transcribe(clips, **kwargs)  # warm-up
+    mel_calls = counted_mel(pipe)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with PathRecorder() as rec, CallRecorder("decode.word_timestamps", "dtw_path") as dtw, \
+            CallRecorder("decode.word_timestamps", "split_words") as split:
+        res = pipe.transcribe(clips, **kwargs)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, tm = dict(ops.launches), pipe.last_timings
+    want = rec.implied(len(mel_calls))
+    ok = all(words_ok(r.words, c.size / 16000.0) for r, c in zip(res, clips))
+    print(f"(c) short-form word timestamps ({BATCH} requests, bf16): encoder {tm['encode_ms']:.3f} "
+          f"ms, decode {tm['decode_ms'] / max(tm['steps'], 1):.3f} ms/step, alignment pass "
+          f"{tm['align_ms']:.3f} ms (CUDA events: the teacher-forced pass, then on the host "
+          f"the DTW {dtw.seconds * 1e3:.3f} ms and the word split {split.seconds * 1e3:.3f} ms), "
+          f"wall {wall * 1e3:.1f} ms  [{card}]")
+    print(f"  words per request {[len(r.words) for r in res]}; monotone and inside each clip: "
+          f"{ok}; launches {counts} (the run implies {want}, {rec.enc.calls} encoder passes)")
+    require(counts == want and rec.enc.calls == 2, f"(c) short-form launches {counts} != {want}")
+    require(ok and all(r.words and r.segments for r in res), "(c) short-form words out of order")
+    total = dict(counts)
+    clip = chunked_clips()[1]
+    mel_calls.clear()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with PathRecorder() as rec:
+        r = pipe.transcribe(clip, word_timestamps=True, timestamps=True, temperatures=(0.0,),
+                            window_info=True, max_tokens=MAX_TOKENS)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launches)
+    want = rec.implied(len(mel_calls))
+    inside = words_ok(r.words, clip.size / 16000.0, monotone=False)
+    print(f"  long-form word timestamps (the 75 s clip, t=0): {len(r.windows)} windows, "
+          f"{len(rec.calls)} decode calls, {rec.enc.calls} encoder passes, {len(r.words)} words, "
+          f"wall {wall * 1e3:.1f} ms; inside the clip: {inside}, monotone: "
+          f"{words_ok(r.words, clip.size / 16000.0)}; launches {counts} (implies {want})  [{card}]")
+    require(counts == want, f"(c) long-form launches {counts} != {want}")
+    require(inside and r.words, "(c) long-form word times outside the clip")
+    return {k: total.get(k, 0) + counts.get(k, 0) for k in set(total) | set(counts)}
+
+
+def bucketed(torch, Pipeline, ops, card):
+    """(d) ``window_buckets=(8, 15)`` on phase 3's requests, bf16: launches
+    and encoder ms per bucket beside the unbucketed call's; then f32 with the
+    kernels against their plain versions: identical tokens."""
+    from whisper_context_biasing_tpu_torch.audio import log_mel_spectrogram
+
+    clips = requests(np.random.default_rng(4))
+    pipe = Pipeline("base.en", device=DEVICE, seed=0)
+    kwargs = dict(context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0, max_tokens=MAX_TOKENS)
+    pipe.transcribe(clips, **kwargs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.transcribe(clips, **kwargs)
+    torch.cuda.synchronize()
+    whole_wall = time.perf_counter() - t0
+    whole = pipe.last_timings
+    pipe.transcribe(clips, window_buckets=BUCKETS, **kwargs)  # warm-up
+    per_bucket = []
+    real_short = pipe._short_form
+
+    def watched(clips_, idxs, win, **kw):
+        before = dict(ops.launches)
+        out = real_short(clips_, idxs, win, **kw)
+        per_bucket.append((win, {k: v - before.get(k, 0) for k, v in ops.launches.items()}))
+        return out
+
+    pipe._short_form = watched
+    mel_calls = counted_mel(pipe)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with PathRecorder() as rec:
+        res = pipe.transcribe(clips, window_buckets=BUCKETS, **kwargs)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launches)
+    want = rec.implied(len(mel_calls))
+    buckets = pipe.last_timings["buckets"]
+    print(f"(d) window_buckets={BUCKETS} on phase 3's {BATCH} requests (bf16): wall "
+          f"{wall * 1e3:.1f} ms; unbucketed right before: wall {whole_wall * 1e3:.1f} ms, encoder "
+          f"{whole['encode_ms']:.3f} ms, decode {whole['decode_ms'] / max(whole['steps'], 1):.3f} "
+          f"ms/step  [{card}]")
+    for (win, launches), (w2, tm) in zip(per_bucket, sorted(buckets.items())):
+        print(f"  bucket {win / 16000:.0f} s: {tm['clips']} clips in {tm['rows']} rows, encoder "
+              f"{tm['encode_ms']:.3f} ms, mel {tm['mel_ms']:.3f} ms, decode "
+              f"{tm['decode_ms'] / max(tm['steps'], 1):.3f} ms/step over {tm['steps']} steps; "
+              f"launches {launches}")
+    print(f"  launches {counts} (the run implies {want}); tokens per request "
+          f"{[len(r.tokens) for r in res]}")
+    require(counts == want and len(mel_calls) == len(buckets) == rec.enc.calls,
+            f"(d) bucketed launches {counts} != {want}")
+    require(sorted(buckets) == [128000, 240000, 480000], f"(d) buckets {sorted(buckets)}")
+    del pipe
+    runs = []
+    for kernels in (True, False):
+        over = {} if kernels else dict(flash_attention=False, fused_quant_cross=False)
+        pipe = Pipeline("base.en", device=DEVICE, seed=0, dtype="float32", config_overrides=over)
+        if not kernels:
+            pipe.mel = lambda stacked, pipe=pipe: log_mel_spectrogram(
+                torch.as_tensor(stacked, device=DEVICE), n_mels=pipe.cfg.n_mels)
+        ops.reset_launch_counts()
+        with PathRecorder(margins=True) as rec:
+            out = pipe.transcribe(clips, window_buckets=BUCKETS, **kwargs)
+        c = dict(ops.launches)
+        require(bool(c) == kernels, f"(d) f32 {'kernel' if kernels else 'plain'} run launches {c}")
+        runs.append(([r.tokens for r in out], rec.calls))
+        del pipe
+    if same_calls(runs[0][1], runs[1][1], "(d) f32 bucketed"):
+        require(runs[0][0] == runs[1][0], "(d) f32 bucketed tokens differ")
+        print(f"  f32 bucketed, kernels vs plain versions: tokens identical over "
+              f"{len(runs[0][1])} bucket batches")
+    return counts
+
+
+def streaming(torch, Pipeline, ops, card):
+    """(e) ``StreamingTranscriber`` (``Pipeline.stream``) on the 75 s clip fed
+    in 1 s chunks, timestamps, t=0, bf16: the tokens of
+    ``transcribe_long_batch`` on the same clip."""
+    from whisper_context_biasing_tpu_torch.decode import transcribe_long_batch
+
+    clip = chunked_clips()[1]
+    pipe = Pipeline("base.en", device=DEVICE, seed=0)
+    tok = pipe.tokenizer
+    want = transcribe_long_batch(pipe.model, tok, [clip], mel_fn=pipe.mel, max_new=MAX_TOKENS,
+                                 use_timestamps=True, temperatures=(0.0,),
+                                 prefix_pad_to_multiple=32, return_segments=True,
+                                 window_samples=pipe.window_samples, device=DEVICE)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = pipe.stream(max_new=MAX_TOKENS, use_timestamps=True, temperatures=(0.0,))
+    lat = []
+    for i in range(0, clip.size, 16000):
+        t1 = time.perf_counter()
+        st.feed(clip[i: i + 16000])
+        lat.append(time.perf_counter() - t1)
+    st.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launches)
+    same = st.tokens == want[0][0] and st.segments == want[1][0]
+    print(f"(e) streaming the 75 s clip in 1 s chunks (bf16, t=0): {len(st.window_info)} windows, "
+          f"tokens and segments identical to transcribe_long_batch: {same}; wall {wall:.2f} s, "
+          f"feed calls {len(lat)} (slowest {max(lat) * 1e3:.1f} ms, median "
+          f"{statistics.median(lat) * 1e3:.2f} ms); launches {counts}  [{card}]")
+    require(same and st.tokens, "(e) the stream's tokens differ from transcribe_long_batch's")
+    return counts
+
+
+def serve_cli(torch, ops, card, init_path):
+    """(f) ``cli.serve`` on 127.0.0.1:0 from phase 10's model.safetensors
+    (batch 8, a 250 ms micro-batch window, timestamps, t=0): 8 concurrent
+    WAV posts in one micro-batch, a 75 s post, a word-timestamp post (each
+    lone post waits out the window), a stream session, /health."""
+    import http.client
+    import io
+    import threading
+    import wave
+
+    from whisper_context_biasing_tpu_torch.cli import serve
+
+    def wav(audio):
+        buf = io.BytesIO()
+        with wave.open(buf, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes())
+        return buf.getvalue()
+
+    args = serve.parse_args(["--init_checkpoint", str(init_path), "--host", "127.0.0.1",
+                             "--port", "0", "--batch", str(BATCH), "--max_wait_ms", "250",
+                             "--max_tokens", str(MAX_TOKENS), "--timestamps", "--temperatures",
+                             "0.0", "--bias_words", *BIAS_WORDS, "--bias_boost", "2.0",
+                             "--device", DEVICE])
+    t0 = time.perf_counter()
+    engine, server = serve.make_server(args)
+    start_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    addr = server.server_address
+
+    def call(method, path, body=b"", headers=None):
+        c = http.client.HTTPConnection(*addr, timeout=600)
+        t = time.perf_counter()
+        c.request(method, path, body=body, headers=headers or {})
+        r = c.getresponse()
+        out = json.loads(r.read())
+        c.close()
+        return r.status, out, (time.perf_counter() - t) * 1e3
+
+    try:
+        clips = requests(np.random.default_rng(4))
+        long_clip = chunked_clips()[1]
+        ops.reset_launch_counts()
+        replies = [None] * BATCH
+
+        def post(i):
+            replies[i] = call("POST", "/transcribe", wav(clips[i]), {"X-Context": CONTEXT})
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(BATCH)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        batch = engine.batches[-1]
+        long_reply = call("POST", "/transcribe", wav(long_clip), {"X-Window-Info": "1"})
+        word_reply = call("POST", "/transcribe", wav(clips[2]), {"X-Word-Timestamps": "1"})
+        status, out, _ = call("POST", "/stream", headers={"X-Context": CONTEXT})
+        sid = out["session"]
+        pcm = (np.clip(long_clip, -1, 1) * 32767).astype("<i2")
+        feeds = [call("POST", f"/stream/{sid}", pcm[i: i + 16000].tobytes())
+                 for i in range(0, pcm.size, 16000)]
+        end = call("POST", f"/stream/{sid}/end")
+        health = call("GET", "/health")
+        torch.cuda.synchronize()
+        counts = dict(ops.launches)
+    finally:
+        server.shutdown()
+        engine.close()
+        thread.join()
+    statuses = ([r[0] for r in replies] + [long_reply[0], word_reply[0], status, end[0],
+                                           health[0]] + [f[0] for f in feeds])
+    print(f"(f) cli.serve (started in {start_s:.1f} s with its warm-up) on "
+          f"{addr[0]}:{addr[1]}: 8 concurrent posts in one micro-batch of {batch}, latencies "
+          f"{[round(r[2]) for r in replies]} ms; the 75 s post {long_reply[2]:.0f} ms "
+          f"({len(long_reply[1].get('windows', []))} windows); the word-timestamp post "
+          f"{word_reply[2]:.0f} ms ({len(word_reply[1].get('words', []))} words); the stream "
+          f"session {len(feeds)} feeds (slowest {max(f[2] for f in feeds):.0f} ms), end "
+          f"{end[2]:.0f} ms, {len(end[1]['text'])} characters; /health {health[1]}; the server's "
+          f"RTF meter {engine.rtf.rtf:.1f} (audio s / wall s over its batches)  [{card}]")
+    print(f"  launches {counts}")
+    require(all(s == 200 for s in statuses), f"(f) the server answered {statuses}")
+    require(batch == BATCH, f"(f) the 8 concurrent posts ran in a batch of {batch}")
+    require(word_reply[1].get("words") and long_reply[1].get("windows"),
+            "(f) the word or window fields are missing")
+    return counts
+
+
+def rest_of_serving(torch, Pipeline, ops, card, init_path):
+    """Phase 12; returns the launches of its bf16 runs, summed."""
+    start = time.perf_counter()
+    runs = []
+    counts, clips = chunked_batch(torch, Pipeline, ops, card)
+    runs.append(counts)
+    chunked_f32_gate(torch, Pipeline, ops, clips)
+    runs.append(word_timestamps_runs(torch, Pipeline, ops, card))
+    runs.append(bucketed(torch, Pipeline, ops, card))
+    runs.append(streaming(torch, Pipeline, ops, card))
+    runs.append(serve_cli(torch, ops, card, init_path))
+    print(f"  phase 12 took {time.perf_counter() - start:.1f} s  [{card}]")
+    return {k: sum(c.get(k, 0) for c in runs) for k in set().union(*runs)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="TABLE_PATH",
@@ -1749,6 +2319,7 @@ def main() -> int:
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']}, library {k['library_ms']}) [{card}]")
+    check_bucket_shapes(torch, ops)
     if tree:
         print(f"chip_smoke --kernels-only {os.path.abspath(tree)} took "
               f"{time.perf_counter() - start:.1f} s  [{card}]")
@@ -1775,11 +2346,14 @@ def main() -> int:
         print("phase 11, long-form and beam serving (Pipeline long-form, beam, sampling, "
               "language id, cli.transcribe):")
         long_counts = long_form_and_beam(torch, Pipeline, ops, card, init_path, tmp)
-    # launches: the runs of the main-path phases (3, 5, 7, 9, 10 and 11)
+        print("phase 12, the rest of serving (chunked long-form, word timestamps, window "
+              "buckets, streaming, cli.serve):")
+        rest_counts = rest_of_serving(torch, Pipeline, ops, card, init_path)
+    # launches: the runs of the main-path phases (3, 5, 7, 9, 10, 11 and 12)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in (serve_counts, train_counts,
                                                           fused_counts, entry_counts,
-                                                          cli_counts, long_counts))
+                                                          cli_counts, long_counts, rest_counts))
         require(k["launches"] > 0, f"the main path never launched {k['name']}")
     print(f"chip_smoke total {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -63,13 +63,66 @@ def test_pipeline_trims_a_long_clip_short_form_as_jax():
 
 
 def test_pipeline_long_clip_auto_is_not_ported():
-    """Sequential long-form is ported (tests/test_torch_long_form.py); the
-    chunked mode and long-form word timestamps are not."""
+    """Sequential and chunked long-form and long-form word timestamps are
+    ported (tests/test_torch_long_form.py, test_torch_chunked.py,
+    test_torch_word_timestamps.py); what still raises on a long clip is a
+    draft or Medusa model (Queue A.7)."""
     _, port = _tiny_pipelines()
     clip = np.zeros(port.window_samples + 16000, np.float32)
     for kw in (dict(long_form="chunked"), dict(long_form="auto", word_timestamps=True)):
-        with pytest.raises(NotImplementedError, match="Queue A.6"):
-            port.transcribe(clip, max_tokens=4, **kw)
+        res = port.transcribe(clip, max_tokens=4, temperatures=(0.0,), **kw)
+        assert res.segments is not None
+    for kw in (dict(draft_model="tiny.en"), dict(medusa={})):
+        with pytest.raises(NotImplementedError, match="Queue A.7"):
+            Pipeline("tiny.en", config=tiny_test_config(**FAST_OVERRIDES), device="cpu", **kw)
+
+
+# ---------------------------------------------------------------------------
+# window_buckets
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def bucket_pipelines():
+    """The JAX and the port's Pipeline with the real 30 s window."""
+    jcfg = jax_tiny(n_audio_ctx=1500, quantize_cross_kv=True, gelu_approx=True)
+    params = jax.tree.map(np.asarray, jax_init(jcfg, 0))
+    ref = JaxPipeline("tiny.en", config=jcfg, params=params, model_parallelism=0)
+    port = Pipeline("tiny.en", config=tiny_test_config(n_audio_ctx=1500, **FAST_OVERRIDES),
+                    params=params, device="cpu")
+    return ref, port
+
+
+@pytest.mark.parametrize("words", [False, True], ids=["tokens", "words"])
+def test_window_buckets_match_jax(bucket_pipelines, words):
+    """window_buckets=(8, 15) on clips of 5, 12, 6 and 20 s: each bucket's
+    tokens (and word timings) identical to the JAX Pipeline's bucketed
+    call; buckets of 2, 1 and 1 clips decode as batches of 8 whose padding
+    rows are dropped."""
+    ref, port = bucket_pipelines
+    rng = np.random.default_rng(7)
+    clips = [(0.1 * rng.standard_normal(int(s * 16000))).astype(np.float32)
+             for s in (5.0, 12.0, 6.0, 20.0)]
+    kw = dict(window_buckets=(8, 15), max_tokens=5, context="patient on aspirin",
+              bias_words=["aspirin"], bias_boost=2.0, word_timestamps=words)
+    want, got = ref.transcribe(clips, **kw), port.transcribe(clips, **kw)
+    assert len(got) == 4 and [r.tokens for r in got] == [r.tokens for r in want]
+    if words:
+        assert [[(w.word, w.start, w.end, w.probability) for w in r.words] for r in got] \
+            == [[(w.word, w.start, w.end, w.probability) for w in r.words] for r in want]
+        assert [r.segments for r in got] == [r.segments for r in want]
+    buckets = port.last_timings["buckets"]
+    assert {s: (b["clips"], b["rows"]) for s, b in buckets.items()} \
+        == {128000: (2, 8), 240000: (1, 8), 480000: (1, 8)}
+
+
+def test_window_buckets_long_form_warns_and_bad_sizes_raise(bucket_pipelines):
+    ref, port = bucket_pipelines
+    long_clip = np.zeros(port.window_samples + 16000, np.float32)
+    for pipe in (port, ref):
+        with pytest.warns(UserWarning, match="window_buckets applies to the short-form"):
+            pipe.transcribe(long_clip, window_buckets=(8,), max_tokens=2, temperatures=(0.0,))
+        with pytest.raises(ValueError, match="positive seconds"):
+            pipe.transcribe(np.zeros(1600, np.float32), window_buckets=(0,), max_tokens=2)
 
 
 def test_load_audio_matches_jax(tmp_path):

@@ -82,20 +82,21 @@ def pipe():
     return Pipeline("tiny.en", config=tiny_test_config(), device="cpu")
 
 
-# beams, timestamps, language/task forcing and long-form are ported: what
-# still raises is word timestamps (short- and long-form, with beams too),
-# window_buckets, the chunked mode, an unknown VAD option, and language/task
-# forcing on an English-only model (ValueError, as in JAX)
+# beams, timestamps, language/task forcing, long-form (sequential and
+# chunked), word timestamps and window_buckets are ported: what still raises
+# is a bad option (a non-positive bucket, an unknown VAD option, on either
+# long-form route) and language/task forcing on an English-only model
+# (ValueError, as in JAX), with or without word timestamps
 @pytest.mark.parametrize("kwargs,exc,match", [
-    (dict(num_beams=2, word_timestamps=True), NotImplementedError, "ROADMAP Queue A.6"),
-    (dict(timestamps=True, long_form=True, word_timestamps=True), NotImplementedError,
-     "ROADMAP Queue A.6"),
-    (dict(word_timestamps=True), NotImplementedError, "ROADMAP Queue A.6"),
-    (dict(window_buckets=(8,)), NotImplementedError, "ROADMAP Queue A.6"),
+    (dict(num_beams=2, word_timestamps=True, language="en"), ValueError, "multilingual"),
+    (dict(timestamps=True, long_form="chunked", vad={"bogus": 1.0}), ValueError,
+     "unknown vad option"),
+    (dict(word_timestamps=True, task="translate"), ValueError, "multilingual"),
+    (dict(window_buckets=(0,)), ValueError, "positive seconds"),
     (dict(language="en"), ValueError, "multilingual"),
     (dict(task="translate"), ValueError, "multilingual"),
     (dict(long_form=True, vad={"bogus": 1.0}), ValueError, "unknown vad option"),
-    (dict(long_form="chunked"), NotImplementedError, "ROADMAP Queue A.6"),
+    (dict(long_form="chunked", language="fr"), ValueError, "multilingual"),
 ], ids=[f"kwargs{i}" for i in range(8)])
 def test_unported_transcribe_options_raise(pipe, kwargs, exc, match):
     with pytest.raises(exc, match=match):
@@ -105,18 +106,20 @@ def test_unported_transcribe_options_raise(pipe, kwargs, exc, match):
 def test_unported_paths_raise(pipe):
     from whisper_context_biasing_tpu_torch.decode import transcribe_long_batch
 
-    with pytest.raises(NotImplementedError, match="long-form"):
-        pipe.transcribe(np.zeros(pipe.window_samples + 1, np.float32), word_timestamps=True)
+    # long-form word timestamps are ported: they run
+    res = pipe.transcribe(np.zeros(pipe.window_samples + 1, np.float32), word_timestamps=True,
+                          max_tokens=2, temperatures=(0.0,))
+    assert res.words is not None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Pipeline("tiny.en", config=tiny_test_config(), device="cpu", draft_model="tiny.en")
     # checkpoints are ported: a missing file raises as a missing file
     with pytest.raises(FileNotFoundError):
         Pipeline("tiny.en", config=tiny_test_config(), device="cpu",
                  checkpoint="model.safetensors")
-    # sampling, no_speech_prob and timestamp rules are ported; long-form word
-    # timestamps, draft and Medusa models are not
+    # sampling, no_speech_prob, timestamp rules and long-form word timestamps
+    # are ported; draft and Medusa models and a mesh are not
     clip = [np.zeros(1600, np.float32)]
-    for kw, item in ((dict(word_timestamps=True, return_segments=True), "A.6"),
+    for kw, item in ((dict(mesh=object()), "A.9"),
                      (dict(draft=(None, None, 4)), "A.7"), (dict(medusa={}), "A.7")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP Queue {item}"):
             transcribe_long_batch(pipe.model, pipe.tokenizer, clip, device="cpu", **kw)

@@ -3,9 +3,10 @@
 The same contract as the JAX package's ``audio/io.py``: decode -> mono
 downmix (channel mean) -> resample to 16 kHz -> float32 in [-1, 1]. WAV is
 parsed with the standard library and resampled by polyphase filtering
-(scipy). Compressed formats go through ``EXTRA_DECODERS``: ``audio/mp3.py``
-registers the corpus's ``.mp3`` (libmpg123 binding) at package import. The
-native (C++) WAV path is not ported yet.
+(scipy), or by the native C++ runtime (``audio/native.py``) with
+``prefer_native``. Compressed formats go through ``EXTRA_DECODERS``:
+``audio/mp3.py`` registers the corpus's ``.mp3`` (libmpg123 binding) at
+package import.
 """
 
 from __future__ import annotations
@@ -59,11 +60,31 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     return resample_poly(audio, target_sr // g, orig_sr // g, axis=-1).astype(np.float32)
 
 
-def load_audio(path: str, sample_rate: int = 16000) -> np.ndarray:
+def load_audio(path: str, sample_rate: int = 16000, prefer_native: bool = False,
+               keep_int16: bool = False) -> np.ndarray:
     """Load a WAV file, or a format with a decoder in ``EXTRA_DECODERS``
     (``.mp3``), -> mono float32 at ``sample_rate`` (stereo is downmixed by
-    channel mean)."""
+    channel mean). ``prefer_native``: WAV goes through the C++ runtime
+    (``audio/native.py``) when it is available. ``keep_int16``: a mono
+    16-bit WAV already at ``sample_rate`` comes back as its raw int16
+    samples (the chunked decoder normalizes on the device, so half the bytes
+    cross to it); any other file keeps the float32 contract."""
     ext = os.path.splitext(path)[1].lower()
+    if keep_int16 and ext in (".wav", ".wave"):
+        with wave.open(path, "rb") as w:
+            if (w.getsampwidth() == 2 and w.getnchannels() == 1
+                    and w.getframerate() == sample_rate):
+                return np.frombuffer(w.readframes(w.getnframes()), dtype="<i2")
+    if prefer_native and ext in (".wav", ".wave"):
+        from . import native
+
+        if native.available():
+            try:
+                return native.decode_audio(path, sample_rate)
+            except RuntimeError as e:
+                # e.g. WAVE_FORMAT_EXTENSIBLE or audio over the buffer: the
+                # standard-library path below takes both
+                print(f"[native] decode failed ({e}); using Python decoder")
     if ext in EXTRA_DECODERS:
         data, sr = EXTRA_DECODERS[ext](path)
     elif ext in (".wav", ".wave"):

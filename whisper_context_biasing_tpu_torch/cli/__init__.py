@@ -1,16 +1,17 @@
 """Command-line entry points with the JAX package's flag surface
 (``scripts/train.py``, ``scripts/evaluation.py``, ``scripts/export_hf.py``,
-``scripts/prepare_data.py``, ``scripts/transcribe.py``)::
+``scripts/prepare_data.py``, ``scripts/transcribe.py``, ``scripts/serve.py``)::
 
     python -m whisper_context_biasing_tpu_torch.cli.train --model base.en ...
     python -m whisper_context_biasing_tpu_torch.cli.evaluation --best_checkpoint ...
     python -m whisper_context_biasing_tpu_torch.cli.export_hf --checkpoint ... --out ...
     python -m whisper_context_biasing_tpu_torch.cli.prepare_data --source ... --out_dir ...
     python -m whisper_context_biasing_tpu_torch.cli.transcribe --audio a.wav --long ...
+    python -m whisper_context_biasing_tpu_torch.cli.serve --model base.en --port 8080
 
 Each module has ``parse_args(argv=None)`` and ``main(argv=None)`` and runs
 nothing at import. Deviations from the JAX scripts: ``--device`` (train,
-evaluation and transcribe; default ``cuda``, ``cpu`` for tests), one device whatever
+evaluation, transcribe and serve; default ``cuda``, ``cpu`` for tests), one device whatever
 ``--model_parallelism`` (0 or 1; a larger value raises until ROADMAP A.9),
 and the port's seeded init without a checkpoint (the JAX init's
 distributions, other numbers). Flags whose modules are not ported yet raise

@@ -4,18 +4,21 @@ package's ``scripts/transcribe.py``, with its flags plus ``--device``.
     python -m whisper_context_biasing_tpu_torch.cli.transcribe --model base.en \\
         --audio a.wav b.wav [--bias_words aspirin --bias_boost 2.0] \\
         [--context "clinical description"] [--num_beams 5] \\
-        [--long --timestamps --format srt --output_dir out/] \\
-        [--language auto] [--task translate] [--init_checkpoint model.safetensors]
+        [--long [--chunked] --timestamps --format srt --output_dir out/] \\
+        [--word_timestamps] [--language auto] [--task translate] \\
+        [--init_checkpoint model.safetensors]
 
-Short-form (one window a file: greedy or beam) or, with ``--long``,
-sequential long-form with the temperature ladder, the no-speech rule, the
-VAD gate or clip ranges, and timestamp segments (``--format srt|vtt`` needs
-``--long --timestamps``). On a card the serving fast path is on (the mel,
-flash and int8 cross-attention kernels, int8 cross-K/V, tanh gelu) unless
-``--exact``. ``--chunked``, ``--word_timestamps`` (and short-form
-``--format srt|vtt``, which needs word alignment), ``--alignment_heads``,
+Short-form (one window a file: greedy or beam; WAV files decode through the
+native C++ runtime where it builds) or, with ``--long``, sequential
+long-form with the temperature ladder, the no-speech rule, the VAD gate or
+clip ranges, and timestamp segments; ``--long --chunked`` decodes all
+windows in parallel (mono 16 kHz 16-bit WAVs cross to the card as int16).
+``--word_timestamps`` adds per-word times by cross-attention alignment on
+every route; short-form ``--format srt|vtt`` turns it on to time its cues.
+On a card the serving fast path is on (the mel, flash and int8
+cross-attention kernels, int8 cross-K/V, tanh gelu) unless ``--exact``.
 ``--draft_model`` and ``--medusa`` raise ``NotImplementedError`` naming
-their ROADMAP item before any audio is read.
+ROADMAP Queue A.7 before any audio is read.
 """
 
 from __future__ import annotations
@@ -25,25 +28,28 @@ import json
 import os
 import sys
 import time
+import wave
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..audio import load_audio, pad_or_trim, pcm_to_float32, select_mel_frontend
+from ..audio import load_audio, native, pad_or_trim, pcm_to_float32, select_mel_frontend
 from ..data.collator import SpeechSeq2SeqCollator
 from ..decode import (
     beam_decode_batch,
     decode_batch,
     detect_language,
+    find_word_timestamps,
     resolve_start_tokens,
+    transcribe_chunked,
     transcribe_long_batch,
     unpack_long_form,
 )
 from ..models import FAST_OVERRIDES, build_model, get_config, load_checkpoint_or_safetensors
 from ..tokenizer import load_tokenizer
 from ..utils import warn_missing_assets
-from ..utils.subtitles import close_open_segments, format_srt, format_vtt
+from ..utils.subtitles import close_open_segments, format_srt, format_vtt, words_to_segments
 from . import not_ported
 
 
@@ -71,7 +77,9 @@ def parse_args(argv=None):
     p.add_argument("--long", action="store_true",
                    help="long-form mode: sequential windows with history conditioning")
     p.add_argument("--chunked", action="store_true",
-                   help="with --long: parallel overlapping windows (not ported yet)")
+                   help="with --long: decode all windows in parallel with overlapping strides "
+                        "and merge (segment-core ownership with --timestamps, LCS token merge "
+                        "without); no history conditioning")
     p.add_argument("--vad", action="store_true",
                    help="energy VAD: long-form windows with no detected speech are skipped")
     p.add_argument("--clip_timestamps", default=None,
@@ -100,11 +108,14 @@ def parse_args(argv=None):
     p.add_argument("--window_info", action="store_true",
                    help="long-form: per-window QC dicts in the JSON output")
     p.add_argument("--word_timestamps", action="store_true",
-                   help="per-word times (not ported yet)")
+                   help="per-word start/end times by cross-attention DTW alignment")
     p.add_argument("--alignment_heads", default=None,
-                   help="layer:head pairs for word alignment (not ported yet)")
+                   help="comma-separated layer:head pairs for alignment (e.g. '4:3,5:0'); "
+                        "default: the published set of a stock geometry, else all heads of "
+                        "the top half of the decoder layers")
     p.add_argument("--format", choices=["text", "json", "srt", "vtt"], default=None,
-                   help="output format; srt/vtt need --long --timestamps")
+                   help="output format; srt/vtt need timed segments (--long --timestamps, or "
+                        "word alignment, which short-form turns on)")
     p.add_argument("--output_dir", default=None,
                    help="write one <basename>.<format> file per input")
     p.add_argument("--json", action="store_true", help="alias for --format json")
@@ -121,15 +132,6 @@ def output_format(args) -> str:
 
 def check_ported(args) -> None:
     """Raise for a flag whose module is not ported yet, before any audio is read."""
-    if args.chunked:
-        not_ported("--chunked (parallel-window long-form)", "A.6, decode/chunked.py")
-    if args.word_timestamps or args.alignment_heads:
-        not_ported("--word_timestamps / --alignment_heads (word alignment)",
-                   "A.6, word timestamps")
-    if output_format(args) in ("srt", "vtt") and not (args.long and args.timestamps):
-        # the JAX CLI aligns words to time short-form cues
-        not_ported(f"--format {output_format(args)} without --long --timestamps (word "
-                   "alignment)", "A.6, word timestamps")
     if args.draft_model:
         not_ported("--draft_model (speculative decoding)", "A.7")
     if args.medusa:
@@ -139,6 +141,17 @@ def check_ported(args) -> None:
 def nan_off(x):
     """A threshold of nan means "disabled"."""
     return None if x is None or x != x else x
+
+
+def parse_alignment_heads(spec):
+    """'4:3,5:0' -> [(4, 3), (5, 0)] (None/empty -> None)."""
+    if not spec:
+        return None
+    try:
+        return [tuple(int(x) for x in pair.split(":")) for pair in spec.split(",")]
+    except ValueError:
+        raise SystemExit(f"--alignment_heads must be comma-separated layer:head pairs, "
+                         f"got {spec!r}")
 
 
 def parse_clip_timestamps(spec):
@@ -179,7 +192,7 @@ def build_starts(args, tokenizer, model, n, mel_thunk):
         raise SystemExit(str(e))
 
 
-def emit(args, fmt, path, text, segments, language=None, windows=None) -> str:
+def emit(args, fmt, path, text, segments, words=None, language=None, windows=None) -> str:
     """One input file's output in the chosen format."""
     if fmt == "json":
         rec = {"file": path, "text": text}
@@ -190,9 +203,18 @@ def emit(args, fmt, path, text, segments, language=None, windows=None) -> str:
         if segments is not None:
             rec["segments"] = [{"start": round(a, 3), "end": round(e, 3), "text": t.strip()}
                                for a, e, t in segments]
+        if words is not None:
+            rec["words"] = [{"word": w.word.strip(), "start": w.start, "end": w.end,
+                             "probability": w.probability} for w in words]
         return json.dumps(rec)
     if fmt in ("srt", "vtt"):
+        if segments is None:
+            raise SystemExit(f"--format {fmt} needs timed segments (--long --timestamps or "
+                             "--word_timestamps)")
         return (format_srt if fmt == "srt" else format_vtt)(segments)
+    if words is not None:
+        stamped = " ".join(f"{w.word.strip()}[{w.start:.2f}-{w.end:.2f}]" for w in words)
+        return f"{path}: {stamped or text}"
     if segments is not None and args.timestamps:
         return f"{path}: " + " ".join(f"[{a:.2f}-{e:.2f}]{t}" for a, e, t in segments)
     return f"{path}: {text}"
@@ -234,7 +256,7 @@ def main(argv=None):
     frontend = select_mel_frontend()
 
     def make_mel(chunk):
-        return frontend(torch.as_tensor(np.asarray(chunk), dtype=torch.float32, device=device),
+        return frontend(torch.as_tensor(chunk, dtype=torch.float32, device=device),
                         n_mels=cfg.n_mels)
 
     contexts = spans = None
@@ -247,6 +269,7 @@ def main(argv=None):
                                      bias_span_pad_id=tokenizer.eot)
         words = [tokenizer.encode(w.lower(), add_special_tokens=False) for w in args.bias_words]
         spans = coll.pad_bias_spans([words] * n)
+    heads = parse_alignment_heads(args.alignment_heads)
 
     t0 = time.time()
     if (args.vad or args.clip_timestamps) and not args.long:
@@ -255,32 +278,57 @@ def main(argv=None):
     if args.window_info and not args.long:
         print("warning: --window_info reports long-form window QC; ignored on the "
               "single-window path (use --long)", file=sys.stderr)
-    raw = [load_audio(p) for p in args.audio]
     if args.long:
+        # the chunked decoder normalizes on the card: mono 16 kHz 16-bit WAVs
+        # cross as int16, half the bytes
+        raw = [load_audio(p, keep_int16=args.chunked) for p in args.audio]
         # language detection reads the first window of each file
         starts, langs = build_starts(args, tokenizer, model, n, lambda: make_mel(np.stack(
             [pad_or_trim(pcm_to_float32(a[:480000])) for a in raw])))
-        out = transcribe_long_batch(
-            model, tokenizer, raw, mel_fn=make_mel, max_new=args.max_tokens,
-            contexts=contexts, bias_spans=spans, bias_boost=args.bias_boost,
-            use_timestamps=args.timestamps, temperatures=tuple(args.temperatures),
-            best_of=args.best_of, compression_ratio_threshold=args.compression_ratio_threshold,
+        common = dict(
+            mel_fn=make_mel, max_new=args.max_tokens, contexts=contexts, bias_spans=spans,
+            bias_boost=args.bias_boost, use_timestamps=args.timestamps,
+            temperatures=tuple(args.temperatures), best_of=args.best_of,
+            compression_ratio_threshold=args.compression_ratio_threshold,
             logprob_threshold=nan_off(args.logprob_threshold),
             no_speech_threshold=nan_off(args.no_speech_threshold), start_tokens=starts,
             return_segments=True, num_beams=args.num_beams,
             beam_early_stopping=args.beam_early_stopping,
+            word_timestamps=args.word_timestamps, alignment_heads=heads,
             vad=parse_clip_timestamps(args.clip_timestamps) or args.vad,
-            return_window_info=args.window_info,
-            prompt_reset_on_temperature=nan_off(args.prompt_reset_on_temperature),
-            device=device)
-        hyps, segments, _, winfo = unpack_long_form(out, return_segments=True,
-                                                    return_window_info=args.window_info)
+            return_window_info=args.window_info, device=device)
+        if args.chunked:
+            out = transcribe_chunked(model, tokenizer, raw, prefix_pad_to_multiple=32, **common)
+        else:
+            out = transcribe_long_batch(
+                model, tokenizer, raw,
+                prompt_reset_on_temperature=nan_off(args.prompt_reset_on_temperature), **common)
+        hyps, segments, long_words, winfo = unpack_long_form(
+            out, return_segments=True, word_timestamps=args.word_timestamps,
+            return_window_info=args.window_info)
         audio_seconds = sum(len(a) for a in raw) / 16000
-        segs = [close_open_segments(segments[i], clip_end=len(raw[i]) / 16000)
-                for i in range(n)]
+        segs, words = [], []
+        for i in range(n):
+            lw = long_words[i] if long_words is not None else None
+            seg = close_open_segments(segments[i], clip_end=len(raw[i]) / 16000)
+            if lw is not None and not args.timestamps:
+                seg = words_to_segments(lw)  # word-derived cues
+            segs.append(seg)
+            words.append(lw)
     else:
-        true_lengths = [min(len(a), 480000) for a in raw]
-        mel = make_mel(np.stack([pad_or_trim(a) for a in raw]))
+        if native.available() and all(p.lower().endswith(".wav") for p in args.audio):
+            audio = native.decode_batch(args.audio, fixed_len=480000)
+            # true durations from the WAV headers
+            true_lengths = []
+            for path in args.audio:
+                with wave.open(path, "rb") as w:
+                    true_lengths.append(min(int(w.getnframes() * 16000 / w.getframerate()),
+                                            480000))
+        else:
+            raw = [load_audio(p) for p in args.audio]
+            true_lengths = [min(len(a), 480000) for a in raw]
+            audio = np.stack([pad_or_trim(a) for a in raw])
+        mel = make_mel(audio)
         starts, langs = build_starts(args, tokenizer, model, n, lambda: mel)
         kwargs = dict(contexts=contexts, max_new=args.max_tokens, bias_spans=spans,
                       bias_boost=args.bias_boost, starts=starts, device=device)
@@ -290,12 +338,19 @@ def main(argv=None):
         else:
             hyps = decode_batch(model, tokenizer, mel, **kwargs)
         audio_seconds = sum(true_lengths) / 16000
-        segs, winfo = [None] * n, None
+        winfo = None
+        segs = words = [None] * n
+        # srt/vtt need timed segments: word alignment turns on
+        if args.word_timestamps or fmt in ("srt", "vtt"):
+            words = find_word_timestamps(model, tokenizer, mel, hyps, starts=starts,
+                                         num_frames=[t // 320 for t in true_lengths],
+                                         alignment_heads=heads)
+            segs = [words_to_segments(w) for w in words]
     wall = time.time() - t0
     rendered = []
     for i, (path, h) in enumerate(zip(args.audio, hyps)):
         text = tokenizer.decode(h, skip_special_tokens=True).strip()
-        rendered.append(emit(args, fmt, path, text, segs[i], language=langs[i],
+        rendered.append(emit(args, fmt, path, text, segs[i], words[i], language=langs[i],
                              windows=winfo[i] if winfo else None))
     write_outputs(args, fmt, rendered)
     print(f"[{n} files, {audio_seconds:.1f}s audio in {wall:.2f}s "

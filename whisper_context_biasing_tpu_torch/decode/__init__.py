@@ -1,5 +1,6 @@
 """Decoding: batched greedy and beam decode with the in-loop bias-trie
-processor, language identification, and sequential long-form transcription."""
+processor, language identification, sequential and chunked long-form
+transcription, word timestamps, and streaming sessions."""
 
 from .bias_processor import (
     BiasTrieState,
@@ -25,6 +26,14 @@ from .long_form import (
     transcribe_long_batch,
     unpack_long_form,
 )
+from .chunked import (
+    chunk_layout,
+    merge_longest_common_sequence,
+    split_token_segments,
+    transcribe_chunked,
+)
+from .word_timestamps import WordTiming, dtw_path, find_word_timestamps, split_words
+from .streaming import StreamingTranscriber
 
 __all__ = [
     "BiasTrieState",
@@ -48,4 +57,13 @@ __all__ = [
     "transcribe_long",
     "transcribe_long_batch",
     "unpack_long_form",
+    "chunk_layout",
+    "merge_longest_common_sequence",
+    "split_token_segments",
+    "transcribe_chunked",
+    "WordTiming",
+    "dtw_path",
+    "find_word_timestamps",
+    "split_words",
+    "StreamingTranscriber",
 ]

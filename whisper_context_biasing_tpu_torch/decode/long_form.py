@@ -14,7 +14,8 @@ sequential decoding with the robustness rules of OpenAI's long-form loop.
     low-confidence (average logprob under ``logprob_threshold``) is decoded
     again at the next temperature, with ``best_of`` samples a sampled rung;
   * the no-speech rule, the energy VAD gate (``audio/vad.py``) and clip
-    ranges; beam search at the t=0 rung (``num_beams``).
+    ranges; beam search at the t=0 rung (``num_beams``); word timestamps
+    (``decode/word_timestamps.py``), one alignment pass a window iteration.
 
 The current windows of all files decode together as one batch; per-file
 histories ride the left-padded prefixes. Sampling draws from one
@@ -132,6 +133,20 @@ def _best_beam_as_greedy(res, length_penalty: float, early_stopping: str = "off"
                         _np(res.no_speech_prob))
 
 
+def _mel_rows(mel, rows: list[int]):
+    """Rows ``rows`` of a batch mel (a tensor, or numpy from an injected
+    ``mel_fn``)."""
+    if isinstance(mel, torch.Tensor):
+        return mel[torch.as_tensor(rows, device=mel.device)]
+    return np.asarray(mel)[rows]
+
+
+def window_frames(n_samples: int, start: int, window_samples: int) -> int:
+    """Encoder frames the audio covers in the window at ``start`` (at least
+    2): the alignment's clamp, as the JAX surfaces compute it."""
+    return max(2, min(window_samples, max(n_samples - start, 0)) // 320)
+
+
 def _content_tokens(tokens: list[int], tokenizer) -> list[int]:
     """Strip specials and timestamp tokens (prompt/history hygiene)."""
     return [t for t in tokens if not tokenizer.is_special(t) and t < tokenizer.timestamp_begin]
@@ -229,21 +244,21 @@ def transcribe_long_batch(
     be injected; the default runs ``greedy_decode`` (``beam_decode`` at the
     t=0 rung when ``num_beams > 1``) with this call's bias arguments on
     ``device``. ``prefix_pad_to_multiple`` buckets the history-prompt length.
-    ``word_timestamps``, ``draft``, ``medusa`` and ``mesh`` are not ported
-    and raise."""
-    if word_timestamps and return_segments:
-        raise NotImplementedError("word timestamps in long-form (alignment) are not ported yet "
-                                  "(ROADMAP Queue A.6, word timestamps)")
+
+    ``word_timestamps=True`` with ``return_segments`` returns ``(tokens,
+    segments, words)``: each window iteration's emitted rows align in one
+    batched pass (``find_word_timestamps``), word times in absolute file time.
+    ``draft``, ``medusa`` and ``mesh`` are not ported and raise."""
     if draft is not None or medusa is not None:
         raise NotImplementedError("speculative and Medusa decoding in long-form are not ported "
                                   "yet (ROADMAP Queue A.7)")
     if mesh is not None:
         raise NotImplementedError("mesh-sharded long-form decoding is not ported yet "
                                   "(ROADMAP Queue A.9)")
-    cfg = model.cfg
     device = resolve_device(device)
     if mel_fn is None:
-        mel_fn = lambda a: np.stack([log_mel_spectrogram_np(x, cfg.n_mels) for x in a])  # noqa: E731
+        n_mels = model.cfg.n_mels
+        mel_fn = lambda a: np.stack([log_mel_spectrogram_np(x, n_mels) for x in a])  # noqa: E731
     if decode_fn is None:
         # per-row <|sot|> offsets: start sequences may differ per file
         sot_off = [len(st) for st in start_tokens] if start_tokens else 1
@@ -266,6 +281,8 @@ def transcribe_long_batch(
                 bias_spans=bias_spans, bias_boost=bias_boost, span_pad_id=tokenizer.eot,
                 temperature=temperature, generator=gen, no_speech_id=ns_id,
                 sot_offset=sot_off, timestamp_begin=ts_begin, device=device)
+    # the words are reachable only through (tokens, segments, words)
+    word_timestamps = word_timestamps and return_segments
     if not temperatures:
         temperatures = (0.0,)
     if generator is None and any(t > 0 for t in temperatures):
@@ -287,6 +304,7 @@ def transcribe_long_batch(
     histories: list[list[int]] = [[] for _ in range(b)]
     outputs: list[list[int]] = [[] for _ in range(b)]
     segments: list[list[tuple[float, float | None, str]]] = [[] for _ in range(b)]
+    words: list[list] = [[] for _ in range(b)]
     window_info: list[list[dict]] = [[] for _ in range(b)]
 
     def active(i):
@@ -395,6 +413,25 @@ def transcribe_long_batch(
                     row = kept
             kept_rows[i], advances[i] = row, advance
 
+        if word_timestamps:
+            # one batched alignment pass over this iteration's emitted rows
+            from .word_timestamps import find_word_timestamps
+
+            act = [i for i in kept_rows if kept_rows[i]]
+            if act:
+                timings = find_word_timestamps(
+                    model, tokenizer, _mel_rows(mel, act), [kept_rows[i] for i in act],
+                    starts=[start_tokens[i] for i in act] if start_tokens else None,
+                    num_frames=[window_frames(len(audios[i]), seek[i], window_samples)
+                                for i in act],
+                    alignment_heads=alignment_heads, pad_to=max_new + 8)
+                for i, ws in zip(act, timings):
+                    offset = seek[i] / SAMPLE_RATE
+                    for w in ws:
+                        w.start = round(w.start + offset, 3)
+                        w.end = round(w.end + offset, 3)
+                    words[i].extend(ws)
+
         for i, row in kept_rows.items():
             if return_window_info:
                 window_info[i].append({
@@ -426,6 +463,8 @@ def transcribe_long_batch(
     out: tuple = (outputs,)
     if return_segments:
         out += (segments,)
+        if word_timestamps:
+            out += (words,)
     if return_window_info:
         out += (window_info,)
     return out if len(out) > 1 else outputs

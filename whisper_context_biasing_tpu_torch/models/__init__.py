@@ -1,6 +1,15 @@
 """Model layer: configs, the Whisper modules and their functions, the
 weight carry-over from the JAX package, and HF checkpoints in and out."""
 
+from .alignment import (
+    ALIGNMENT_HEADS,
+    alignment_matrix,
+    default_alignment_mask,
+    heads_to_mask,
+    infer_model_name,
+    lookup_alignment_heads,
+    resolve_alignment_mask,
+)
 from .config import FAST_OVERRIDES, WhisperConfig, get_config, tiny_test_config
 from .convert import build_model, init_state_dict, params_from_jax, state_dict_to_jax
 from .load_hf import (
@@ -27,6 +36,13 @@ from .whisper import (
 )
 
 __all__ = [
+    "ALIGNMENT_HEADS",
+    "alignment_matrix",
+    "default_alignment_mask",
+    "heads_to_mask",
+    "infer_model_name",
+    "lookup_alignment_heads",
+    "resolve_alignment_mask",
     "FAST_OVERRIDES",
     "WhisperConfig",
     "get_config",

@@ -1,21 +1,21 @@
 """High-level serving API: load once, transcribe anything.
 
 The counterpart of the JAX package's ``pipeline.py``: batched short-form
-decode (greedy or beam), sequential long-form seeking with timestamps, the
-temperature ladder, the no-speech rule and the VAD gate, context
-conditioning (``<|startofprev|>`` prompt), bias words (the in-loop trie
-bonus), and language id / translation for the multilingual models::
+decode (greedy or beam, optionally in duration buckets), sequential or
+chunked long-form with timestamps, the temperature ladder, the no-speech
+rule and the VAD gate, word timestamps on every route, context conditioning
+(``<|startofprev|>`` prompt), bias words (the in-loop trie bonus), language
+id / translation for the multilingual models, and streaming sessions::
 
     from whisper_context_biasing_tpu_torch import Pipeline
 
     pipe = Pipeline("base.en")                 # on the card; device="cpu" to opt out
     res = pipe.transcribe(["a.wav", "b.wav"], context="patient on aspirin",
-                          bias_words=["aspirin"], bias_boost=2.0)
-    res[0].text, res[0].segments, res[0].srt()
+                          bias_words=["aspirin"], bias_boost=2.0, word_timestamps=True)
+    res[0].text, res[0].words, res[0].segments, res[0].srt()
 
-Options of the JAX Pipeline that are not ported yet (chunked long-form, word
-timestamps, ``window_buckets``, speculative and Medusa decoding) raise
-``NotImplementedError`` naming the ROADMAP queue item that brings them.
+Speculative and Medusa decoding are not ported yet and raise
+``NotImplementedError`` naming ROADMAP Queue A.7.
 """
 
 from __future__ import annotations
@@ -30,10 +30,13 @@ from ._device import resolve_device
 from .audio import load_audio, pad_or_trim, pcm_to_float32, select_mel_frontend
 from .data.collator import SpeechSeq2SeqCollator
 from .decode import (
+    StreamingTranscriber,
     beam_decode_batch,
     decode_batch,
     detect_language,
+    find_word_timestamps,
     resolve_start_tokens,
+    transcribe_chunked,
     transcribe_long_batch,
     unpack_long_form,
 )
@@ -47,7 +50,7 @@ from .models import (
 )
 from .models.whisper import encode_audio
 from .tokenizer import load_tokenizer
-from .utils.subtitles import close_open_segments, format_srt, format_vtt
+from .utils.subtitles import close_open_segments, format_srt, format_vtt, words_to_segments
 
 
 @dataclass
@@ -55,28 +58,24 @@ class TranscriptionResult:
     text: str
     tokens: list = field(default_factory=list)
     language: str | None = None
-    # (start_s, end_s, text) cues: long-form timestamps
+    # (start_s, end_s, text) cues: long-form timestamps or word grouping
     segments: list | None = None
-    # word-level timings (word timestamps are not ported yet: always None)
+    # word-level timings (decode/word_timestamps.WordTiming)
     words: list | None = None
-    # per-window QC dicts (transcribe(window_info=True), long-form):
+    # per-window QC dicts (transcribe(window_info=True), long-form modes):
     # start_s, temperature, avg_logprob, no_speech_prob, compression_ratio,
     # accepted
     windows: list | None = None
 
     def srt(self) -> str:
         if self.segments is None:
-            raise ValueError("no timed segments (use timestamps=True)")
+            raise ValueError("no timed segments (use timestamps=True or word_timestamps=True)")
         return format_srt(self.segments)
 
     def vtt(self) -> str:
         if self.segments is None:
-            raise ValueError("no timed segments (use timestamps=True)")
+            raise ValueError("no timed segments (use timestamps=True or word_timestamps=True)")
         return format_vtt(self.segments)
-
-
-def _not_ported(what: str, queue: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {queue})")
 
 
 class Pipeline:
@@ -112,7 +111,8 @@ class Pipeline:
         medusa=None,
     ):
         if draft_model is not None or medusa is not None:
-            _not_ported("speculative and Medusa decoding", "Queue A.7")
+            raise NotImplementedError("speculative and Medusa decoding are not ported yet "
+                                      "(ROADMAP Queue A.7)")
         self.device = resolve_device(device)
         self.tokenizer = tokenizer or load_tokenizer(
             vocab, merges, multilingual=not model.endswith(".en"))
@@ -138,7 +138,10 @@ class Pipeline:
         )
         # per-call times of the last short-form transcribe(): mel_ms,
         # encode_ms, prefill_ms, decode_ms (CUDA events on a card) and decode
-        # steps (beam search adds reorder_ms on a card); empty after long-form
+        # steps (beam search adds reorder_ms on a card), and align_ms with
+        # word timestamps; with window_buckets, the same per bucket under
+        # "buckets" (keyed by the bucket's window in samples); empty after
+        # long-form
         self.last_timings: dict = {}
 
     @property
@@ -186,6 +189,62 @@ class Pipeline:
                                      for a in clips]))
         return detect_language(self.model, self.tokenizer, mel, enc_out=enc_out)
 
+
+    def stream(self, **kwargs) -> StreamingTranscriber:
+        """An incremental transcriber on this pipeline's model and device
+        (``decode/streaming.StreamingTranscriber``): ``feed()`` audio chunks,
+        ``finish()`` the tail. The pipeline's bias defaults apply unless
+        overridden; ``context`` may be text."""
+        if "bias_spans" not in kwargs:
+            spans = self._spans(kwargs.pop("bias_words", None), 1)
+            if spans is not None:
+                kwargs["bias_spans"] = spans
+                kwargs.setdefault("bias_boost", self.default_bias_boost)
+        ctx = kwargs.pop("context", None)
+        if isinstance(ctx, str):
+            kwargs["context"] = self.tokenizer.encode(ctx.lower(), add_special_tokens=False)
+        elif ctx is not None:
+            kwargs["context"] = ctx
+        kwargs.setdefault("mel_fn", self.mel)
+        kwargs.setdefault("window_samples", self.window_samples)
+        return StreamingTranscriber(self.model, self.tokenizer, device=self.device, **kwargs)
+
+    def _short_form(self, clips, idxs, win_samples, *, ctx, spans, boost, language, task,
+                    num_beams, beam_early_stopping, max_tokens, word_timestamps,
+                    alignment_heads):
+        """Decode the clips at ``idxs`` padded or trimmed to one shared
+        ``win_samples`` window: (hyps, word timings or None, langs, timings)."""
+        clock = Clock(self.device)
+        clock.mark("start")
+        mel = self.mel(np.stack([pad_or_trim(clips[i], win_samples) for i in idxs]))
+        clock.mark("mel")
+        need_lang = self.tokenizer.multilingual and (
+            language == "auto" or (task == "translate" and not language))
+        # one encoder pass shared by language id and the word alignment (the
+        # decode encodes again inside its own call)
+        enc = self._encode(mel) if (word_timestamps or need_lang) else None
+        starts, langs = self._starts(len(idxs), lambda: mel, language, task, enc_out=enc)
+        timings: dict = {}
+        kwargs = dict(contexts=[ctx[i] for i in idxs] if ctx is not None else None,
+                      max_new=max_tokens, bias_spans=spans[list(idxs)] if spans is not None
+                      else None, bias_boost=boost, starts=starts, device=self.device,
+                      timings=timings)
+        if num_beams > 1:
+            hyps = beam_decode_batch(self.model, self.tokenizer, mel, num_beams=num_beams,
+                                     early_stopping=beam_early_stopping, **kwargs)
+        else:
+            hyps = decode_batch(self.model, self.tokenizer, mel, pad_to_multiple=32, **kwargs)
+        words = None
+        if word_timestamps:
+            clock.mark("decoded")
+            words = find_word_timestamps(
+                self.model, self.tokenizer, mel, hyps, starts=starts,
+                num_frames=[min(len(clips[i]), win_samples) // 320 for i in idxs],
+                alignment_heads=alignment_heads, enc_out=enc)
+            clock.mark("aligned")
+            timings["align_ms"] = clock.ms("decoded", "aligned")
+        return hyps, words, langs, dict(mel_ms=clock.ms("start", "mel"), **timings)
+
     @torch.no_grad()
     def transcribe(
         self,
@@ -200,12 +259,13 @@ class Pipeline:
         beam_early_stopping: str = "off",
         max_tokens: int = 224,
         long_form: bool | str = "auto",
+        chunked_batch: int = 64,
         vad: bool | dict | list = False,  # energy VAD gate / clip ranges (long-form)
         window_info: bool = False,  # long-form: per-window QC dicts on result.windows
         timestamps: bool = False,
         word_timestamps: bool = False,
         temperatures: tuple = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0),
-        window_buckets=None,
+        window_buckets: tuple | list | None = None,  # short-form duration buckets (s)
         best_of: int = 1,           # sampled fallback rungs keep the best of n
         prompt_reset_on_temperature: float | None = 0.5,
         no_speech_threshold: float | None = 0.6,
@@ -215,17 +275,21 @@ class Pipeline:
 
         ``long_form="auto"`` routes the batch through the sequential-window
         seek loop when any clip exceeds one window (``True`` forces it,
-        ``False`` trims each clip to the window); ``timestamps`` adds
-        absolute-time segments there (``result.srt()``, ``.vtt()``), and
-        ``temperatures``, ``best_of``, ``prompt_reset_on_temperature``,
-        ``no_speech_threshold``, ``vad`` and ``window_info`` drive its ladder
-        and gates. ``num_beams > 1`` decodes with beam search (short-form, and
-        the long-form t=0 rung). ``language`` (a code or ``"auto"``) and
-        ``task="translate"`` need a multilingual model. Not ported yet, and
-        raising: ``long_form="chunked"``, ``word_timestamps`` and
-        ``window_buckets``."""
-        if long_form == "chunked":
-            _not_ported("chunked long-form decoding", "Queue A.6 (decode/chunked.py)")
+        ``False`` trims each clip to the window); ``long_form="chunked"``
+        decodes all windows in parallel in padded batches of
+        ``chunked_batch`` (overlap-merged, no history conditioning).
+        ``timestamps`` adds absolute-time segments there (``result.srt()``,
+        ``.vtt()``), and ``temperatures``, ``best_of``,
+        ``prompt_reset_on_temperature``, ``no_speech_threshold``, ``vad`` and
+        ``window_info`` drive their ladder and gates. ``word_timestamps``
+        adds per-word times on every route (and, without ``timestamps``,
+        caption segments grouped from them); ``alignment_heads`` overrides
+        the published head set. ``window_buckets`` (seconds, e.g. (8, 15))
+        decodes each short clip in the smallest bucket window that holds it,
+        the full window always the last bucket. ``num_beams > 1`` decodes
+        with beam search (short-form, and the long-form t=0 rung).
+        ``language`` (a code or ``"auto"``) and ``task="translate"`` need a
+        multilingual model."""
         single = not isinstance(audio, (list, tuple))
         clips = [self._load(a) for a in ([audio] if single else audio)]
         n = len(clips)
@@ -235,16 +299,13 @@ class Pipeline:
         if context:
             ctx = [self.tokenizer.encode(context.lower(), add_special_tokens=False)] * n
         win = self.window_samples
-        use_long = long_form is True or (long_form == "auto" and any(len(c) > win for c in clips))
-        if word_timestamps:
-            _not_ported(f"word timestamps ({'long-form' if use_long else 'short-form'})",
-                        "Queue A.6 (models/alignment.py, decode/word_timestamps.py)")
-        if window_buckets:
-            if not use_long:
-                _not_ported("window_buckets", "Queue A.6 (serving surfaces)")
-            # as in JAX: the long-form route windows at the full context
+        chunked = long_form == "chunked"
+        use_long = long_form is True or chunked or (
+            long_form == "auto" and any(len(c) > win for c in clips))
+        if window_buckets and use_long:
+            # as in JAX: the long-form routes window at the full context
             warnings.warn("window_buckets applies to the short-form route only; this call "
-                          "took the long-form path (a clip exceeds one window, or long_form "
+                          "took a long-form path (a clip exceeds one window, or long_form "
                           "was forced) — buckets ignored.")
         if window_info and not use_long:
             warnings.warn("window_info=True reports long-form window QC; this call took the "
@@ -255,44 +316,78 @@ class Pipeline:
             starts, langs = self._starts(
                 n, lambda: self.mel(np.stack([pad_or_trim(c, win) for c in clips])),
                 language, task)
-            out = transcribe_long_batch(
-                self.model, self.tokenizer, clips, mel_fn=self.mel, max_new=max_tokens,
-                contexts=ctx, bias_spans=spans, bias_boost=boost, use_timestamps=timestamps,
-                temperatures=tuple(temperatures), best_of=best_of,
-                prompt_reset_on_temperature=prompt_reset_on_temperature,
-                no_speech_threshold=no_speech_threshold, start_tokens=starts,
-                return_segments=True, prefix_pad_to_multiple=32, window_samples=win,
-                vad=vad, num_beams=num_beams, beam_early_stopping=beam_early_stopping,
-                return_window_info=window_info, device=self.device)
+            common = dict(
+                mel_fn=self.mel, max_new=max_tokens, contexts=ctx, bias_spans=spans,
+                bias_boost=boost, use_timestamps=timestamps, temperatures=tuple(temperatures),
+                best_of=best_of, no_speech_threshold=no_speech_threshold, start_tokens=starts,
+                return_segments=True, word_timestamps=word_timestamps,
+                alignment_heads=alignment_heads, prefix_pad_to_multiple=32,
+                window_samples=win, vad=vad, num_beams=num_beams,
+                beam_early_stopping=beam_early_stopping, return_window_info=window_info,
+                device=self.device)
+            if chunked:
+                # every window batch padded to chunked_batch rows
+                out = transcribe_chunked(self.model, self.tokenizer, clips,
+                                         max_batch=chunked_batch, pad_batches=True, **common)
+            else:
+                out = transcribe_long_batch(
+                    self.model, self.tokenizer, clips,
+                    prompt_reset_on_temperature=prompt_reset_on_temperature, **common)
             self.last_timings = {}
-            hyps, segs, _, winfo = unpack_long_form(
-                out, return_segments=True, return_window_info=window_info)
-            results = [TranscriptionResult(
-                text=self.tokenizer.decode(h, skip_special_tokens=True).strip(),
-                tokens=list(h), language=langs[i],
-                segments=close_open_segments(segs[i], clip_end=len(clips[i]) / 16000),
-                windows=winfo[i] if winfo is not None else None)
-                for i, h in enumerate(hyps)]
+            hyps, segs, long_words, winfo = unpack_long_form(
+                out, return_segments=True, word_timestamps=word_timestamps,
+                return_window_info=window_info)
+            results = []
+            for i, h in enumerate(hyps):
+                lw = long_words[i] if long_words is not None else None
+                segments = close_open_segments(segs[i], clip_end=len(clips[i]) / 16000)
+                if lw is not None and not timestamps:
+                    segments = words_to_segments(lw)  # word cues beat whole-window ones
+                results.append(TranscriptionResult(
+                    text=self.tokenizer.decode(h, skip_special_tokens=True).strip(),
+                    tokens=list(h), language=langs[i], segments=segments, words=lw,
+                    windows=winfo[i] if winfo is not None else None))
             return results[0] if single else results
 
-        clock = Clock(self.device)
-        clock.mark("start")
-        mel = self.mel(np.stack([pad_or_trim(c, win) for c in clips]))
-        clock.mark("mel")
-        need_lang = self.tokenizer.multilingual and (
-            language == "auto" or (task == "translate" and not language))
-        enc = self._encode(mel) if need_lang else None
-        starts, langs = self._starts(n, lambda: mel, language, task, enc_out=enc)
-        timings: dict = {}
-        kwargs = dict(contexts=ctx, max_new=max_tokens, bias_spans=spans, bias_boost=boost,
-                      starts=starts, device=self.device, timings=timings)
-        if num_beams > 1:
-            hyps = beam_decode_batch(self.model, self.tokenizer, mel, num_beams=num_beams,
-                                     early_stopping=beam_early_stopping, **kwargs)
+        opts = dict(ctx=ctx, spans=spans, boost=boost, language=language, task=task,
+                    num_beams=num_beams, beam_early_stopping=beam_early_stopping,
+                    max_tokens=max_tokens, word_timestamps=word_timestamps,
+                    alignment_heads=alignment_heads)
+        if window_buckets:
+            # each clip decodes in the smallest bucket window that holds it;
+            # windows round up to the 320-sample encoder hop, the full window
+            # is always the last bucket
+            sizes = sorted({-(-int(float(b) * 16000) // 320) * 320 for b in window_buckets})
+            if not sizes or sizes[0] <= 0:
+                raise ValueError(f"window_buckets must be positive seconds, "
+                                 f"got {window_buckets!r}")
+            sizes = [s for s in sizes if s < win] + [win]
+            groups: dict[int, list[int]] = {}
+            for i, c in enumerate(clips):
+                s = next(sz for sz in sizes if len(c) <= sz or sz == win)
+                groups.setdefault(s, []).append(i)
+            hyps, words, langs = [None] * n, [None] * n if word_timestamps else None, [None] * n
+            per_bucket = {}
+            for s, idxs in sorted(groups.items()):
+                # each bucket's batch padded to a power of two (at least 8)
+                # with its first clip, as the JAX Pipeline does; the padding
+                # rows are dropped below
+                b = max(8, 1 << (len(idxs) - 1).bit_length())
+                h, t, lg, tm = self._short_form(clips, idxs + [idxs[0]] * (b - len(idxs)), s,
+                                                **opts)
+                per_bucket[s] = dict(tm, clips=len(idxs), rows=b)
+                for j, i in enumerate(idxs):
+                    hyps[i], langs[i] = h[j], lg[j]
+                    if words is not None:
+                        words[i] = t[j]
+            self.last_timings = {"buckets": per_bucket}
         else:
-            hyps = decode_batch(self.model, self.tokenizer, mel, pad_to_multiple=32, **kwargs)
-        self.last_timings = dict(mel_ms=clock.ms("start", "mel"), **timings)
+            hyps, words, langs, self.last_timings = self._short_form(
+                clips, list(range(n)), win, **opts)
         results = [TranscriptionResult(
             text=self.tokenizer.decode(h, skip_special_tokens=True).strip(),
-            tokens=list(h), language=langs[i]) for i, h in enumerate(hyps)]
+            tokens=list(h), language=langs[i],
+            words=words[i] if words is not None else None,
+            segments=words_to_segments(words[i]) if words is not None else None)
+            for i, h in enumerate(hyps)]
         return results[0] if single else results

@@ -1,12 +1,14 @@
 """Utilities: structured run logging (a copy of the JAX package's
 ``utils/logging.py``), the gated Hub sync (``utils/hub.py``), the SRT/WebVTT
-writers (``utils/subtitles.py``) and the missing-assets warning of the entry
+writers (``utils/subtitles.py``), the serving real-time-factor meter
+(``utils/profiling.py``) and the missing-assets warning of the entry
 points."""
 
 import sys
 
 from .hub import push_to_hub_if_exists, sync_from_hub, upload_results_to_hub
 from .logging import RunLogger
+from .profiling import RtfMeter
 
 
 def warn_missing_assets(vocab_path, weights_path, entry: str = "") -> bool:
@@ -27,6 +29,7 @@ def warn_missing_assets(vocab_path, weights_path, entry: str = "") -> bool:
 
 __all__ = [
     "RunLogger",
+    "RtfMeter",
     "warn_missing_assets",
     "sync_from_hub",
     "upload_results_to_hub",
