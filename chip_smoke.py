@@ -90,7 +90,23 @@ on failure:
    ``transcribe_long_batch``'s tokens; (f) ``cli.serve`` on 127.0.0.1:0 from
    phase 10's ``model.safetensors``: 8 concurrent posts in one micro-batch,
    a 75 s post, a word-timestamp post, a stream session, ``/health``, each
-   latency and the server's RTF meter.
+   latency and the server's RTF meter;
+13. speculative and Medusa decoding at base.en width on phase 3's requests
+   (bf16, every kernel): (a) a random tiny.en draft, k = 4: rounds, tokens a
+   round, ms a round beside plain greedy's ms a step, exactly K1 1, K2 10,
+   K3 4 x 5 x rounds; (b) the target as its own draft: K2 12, K3 6 x 5 x
+   rounds; (c) 4 untrained Medusa heads at 1 and 3 chains: K1 1, K2 6, K3
+   0; bf16 tokens equal plain greedy's or diverge at a top-2 gap under one
+   bf16 ulp (2^-7), and in f32 with the kernels (b) and (c) are held to
+   plain greedy's tokens by phase 4's rule; (d) ``cli.medusa`` from phase
+   10's ``model.safetensors`` on phase 10's corpus (exactly K2 6 a frozen
+   encoder pass), then ``cli.transcribe --medusa`` and ``--draft_model``
+   and ``cli.serve --medusa`` against the plain CLI and server (the bf16
+   rule); (e) phase 11's clips at t=0 in f32, sequential and chunked, with
+   a self-draft and with heads: tokens and segments equal the plain run's;
+   (f) ``quantize_decoder_weights`` on phase 3's model: decode ms a step
+   beside the bf16 model's, the largest prefill logit difference, K1 1, K2
+   6, K3 6 a step.
 
 Phase 2 also holds the mel kernel against its plain version at 80 and 128
 mels, a 3 s window and batch 1, and against the float64 numpy frontend on a
@@ -107,10 +123,11 @@ it, in bursts that rotate over the 6 layers (75 MB of K/V, more than the
 50 MB L2 holds), so its time is fed from device memory. It also holds K1,
 K2 and K3 at the shapes phase 12 gives them: K1 on 8 s and 15 s windows,
 K2 at T = 400 and 750 (the buckets' encoder), K3 at T_pad = 512 and 768 for
-batches of 8 and 32 and at T_pad = 1536 for the chunked batch of 32. The
+batches of 8 and 32 and at T_pad = 1536 for the chunked batch of 32, and K2
+and K3 at the tiny.en draft's width (d 384, 6 heads; 4 decoder layers). The
 line before the last is the kernel table as JSON, with each kernel's
-launches summed over the main-path phases (3, 5, 7, 9, 10, 11 and 12); the
-last line is
+launches summed over the main-path phases (3, 5, 7, 9, 10, 11, 12 and 13);
+the last line is
 ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only [TREE]`` stops after phase 2 (all five kernels checked and
@@ -1681,6 +1698,107 @@ BUCKETS = (8, 15)
 BUCKET_T = {8: 400, 15: 750}      # encoder states of a bucket's window
 CHUNKED_BATCH = 32
 
+# phase 13: the tiny.en draft's width, the draft's proposals a round, the
+# Medusa heads
+DRAFT = "tiny.en"
+DRAFT_D, DRAFT_HEADS, DRAFT_LAYERS = 384, 6, 4
+SPEC_K = 4
+MEDUSA_HEADS = 4
+# bf16 near-tie limit for speculative and Medusa tokens against plain
+# greedy's: verification scores several positions at once (through the
+# plain int8 path, not K3) where greedy scores one, so bf16 logits differ by
+# roundings; one bf16 ulp of a logit in [1, 2) (base.en's random-weight
+# logits stay under ~2.2 on these requests)
+BF16_TIE = 2 ** -7
+
+
+def check_flash_shape(torch, ops, rng, t, d=D_MODEL, heads=N_HEADS) -> dict:
+    """K2 on an encoder's full (BATCH, t, heads x 64) attention, f32 and
+    bf16, against its plain version with phase 2's limits, timed beside its
+    bound and SDPA."""
+    import torch.nn.functional as F
+
+    dh, bh = d // heads, BATCH * heads
+
+    def merged(t):
+        x = torch.from_numpy(rng.standard_normal((BATCH, t, d), np.float32)).cuda()
+        return x.view(BATCH, t, heads, dh)
+
+    qkv32 = [merged(t) for _ in range(3)]
+    o, lse = ops.flash_attention_fwd(*qkv32)
+    po, plse = ops.flash_attention_fwd_plain(*qkv32)
+    err32, lerr32 = max_err(o, po), max_err(lse, plse)
+    require(err32 <= 2e-5 and lerr32 <= 1e-4, f"flash f32 at T={t}, {heads} heads disagrees: "
+            f"{err32}")
+    qkv = [q.to(torch.bfloat16) for q in qkv32]
+    o, lse = ops.flash_attention_fwd(*qkv)
+    po, plse = ops.flash_attention_fwd_plain(*qkv)
+    err, lerr = max_err(o, po), max_err(lse, plse)
+    require(err <= 5e-3 and lerr <= 1e-4, f"flash bf16 at T={t}, {heads} heads disagrees: "
+            f"{err}, {lerr}")
+    n_ops = 4 * bh * t * t * dh
+    b_ms, b_by = bound(2 * bh * dh * 4 * t + 4 * bh * t, n_ops, PEAK_BF16_FLOP_S)
+    ms = median_ms(torch, lambda: ops.flash_attention_fwd(*qkv))
+    plain_ms = median_ms(torch, lambda: ops.flash_attention_fwd_plain(*qkv))
+    split = [q.transpose(1, 2) for q in qkv]
+    lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(*split))
+    print(f"K2 flash encoder ({BATCH}, {t}x{t}, {heads}x{dh}): f32 max |o err| {err32:.3e} "
+          f"(2e-5), |lse err| {lerr32:.3e} (1e-4); bf16 max |o err| {err:.3e} (5e-3), |lse err| "
+          f"{lerr:.3e} (1e-4); bf16 {ms:.4f} ms = {n_ops / ms / 1e9:.1f} TFLOP/s (plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, SDPA {lib_ms:.4f} ms)")
+    return dict(kernel="flash_attention", shape=f"{BATCH}x{t}x{t}x{heads}", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, library_ms=lib_ms)
+
+
+def check_quant_shape(torch, ops, rng, b, t_pad, t, d=D_MODEL, heads=N_HEADS,
+                      layers=N_LAYERS) -> dict:
+    """K3 on (layers, b, t_pad, d) int8 cross K/V with t real keys, f32 and
+    bf16 at every layer, against its plain version (limits relative to the
+    output's scale), timed rotating over the layers beside its bound."""
+    from whisper_context_biasing_tpu_torch.ops.quant_cross_attention import pick_splits
+
+    shape = (layers, b, t_pad, d)
+    k_q = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).cuda()
+    v_q = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).cuda()
+    scales = rng.uniform(0.005, 0.05, (2, layers, b, 1, t_pad)).astype(np.float32)
+    scales[..., t:] = 0.0
+    k_s, v_s = (torch.from_numpy(s).cuda() for s in scales)
+    q32 = torch.from_numpy(rng.standard_normal((b, 1, d), np.float32)).cuda()
+    errs, limits = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = q32.to(dtype)
+        pairs = [(ops.quant_cross_attention_step_indexed(q, k_q, k_s, v_q, v_s, li, heads),
+                  ops.quant_cross_attention_step_indexed_plain(q, k_q, k_s, v_q, v_s, li,
+                                                               heads))
+                 for li in range(layers)]
+        errs[dtype] = max(max_err(k, p) for k, p in pairs)
+        # relative to the output's scale, as the K2 causal and K5 checks
+        # are: a batch of 32 holds 4x the outputs of phase 2's 8, so its
+        # largest error is larger. f32: sums in another order; bf16: the
+        # output rounds once more on each route, one ulp of an output in
+        # [2, 4) is 2^-6 = 0.0156, over phase 2's absolute 1e-2
+        scale = max(1.0, max(p.float().abs().max().item() for _, p in pairs))
+        limits[dtype] = (1e-5 if dtype == torch.float32 else 1e-2) * scale
+        require(errs[dtype] <= limits[dtype], f"int8 cross-attention {dtype} at B={b}, "
+                f"T_pad={t_pad}, {heads} heads disagrees: {errs[dtype]} > {limits[dtype]}")
+    n_bytes = 2 * b * t * d + 2 * 4 * b * t_pad + 2 * 2 * b * d
+    b_ms, b_by = bound(n_bytes, 4 * b * t * d, PEAK_BF16_FLOP_S)
+    cycle = itertools.cycle(range(layers))
+    ms = median_ms(torch, lambda: ops.quant_cross_attention_step_indexed(
+        q, k_q, k_s, v_q, v_s, next(cycle), heads))
+    plain_ms = median_ms(torch, lambda: ops.quant_cross_attention_step_indexed_plain(
+        q, k_q, k_s, v_q, v_s, layers // 2, heads))
+    width = "" if (d, heads, layers) == (D_MODEL, N_HEADS, N_LAYERS) else \
+        f"{layers} layers, d {d}, {heads} heads, "
+    print(f"K3 int8 cross-attention ({width}B {b}, T_pad {t_pad}, {t} keys, "
+          f"{pick_splits(t_pad, b * heads)} splits): f32 max |err| {errs[torch.float32]:.3e} (atol "
+          f"{limits[torch.float32]:.2e}: 1e-5 x max(1, max |out|)), bf16 "
+          f"{errs[torch.bfloat16]:.3e} (atol {limits[torch.bfloat16]:.2e}: 1% of it); bf16 "
+          f"rotating over the layers {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"by {b_by})")
+    return dict(kernel="quant_cross_attention", shape=f"{layers}x{b}x{t_pad}({t})x{d}",
+                max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain_ms, bound_ms=b_ms)
+
 
 def check_bucket_shapes(torch, ops) -> list[dict]:
     """K1, K2 and K3 at the shapes phase 12 gives them and no earlier path
@@ -1691,10 +1809,7 @@ def check_bucket_shapes(torch, ops) -> list[dict]:
     chunked batch of 32, and at T_pad = 1536 for the chunked batch of 32.
     Each against its plain version with phase 2's tolerances, timed as
     phase 2 times it, beside its bound."""
-    import torch.nn.functional as F
-
     from whisper_context_biasing_tpu_torch.audio.mel import log_mel_tail
-    from whisper_context_biasing_tpu_torch.ops.quant_cross_attention import pick_splits
 
     rows = []
     rng = np.random.default_rng(21)
@@ -1715,72 +1830,23 @@ def check_bucket_shapes(torch, ops) -> list[dict]:
               f"1e-4); {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by})")
         rows.append(dict(kernel="mel", shape=f"{BATCH}x{n}", max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms))
-    dh, bh = D_MODEL // N_HEADS, BATCH * N_HEADS
     for t in BUCKET_T.values():
-        qkv32 = [merged_heads(torch, rng, t) for _ in range(3)]
-        o, lse = ops.flash_attention_fwd(*qkv32)
-        po, plse = ops.flash_attention_fwd_plain(*qkv32)
-        err32, lerr32 = max_err(o, po), max_err(lse, plse)
-        require(err32 <= 2e-5 and lerr32 <= 1e-4, f"flash f32 at T={t} disagrees: {err32}")
-        qkv = [q.to(torch.bfloat16) for q in qkv32]
-        o, lse = ops.flash_attention_fwd(*qkv)
-        po, plse = ops.flash_attention_fwd_plain(*qkv)
-        err, lerr = max_err(o, po), max_err(lse, plse)
-        require(err <= 5e-3 and lerr <= 1e-4, f"flash bf16 at T={t} disagrees: {err}, {lerr}")
-        n_ops = 4 * bh * t * t * dh
-        b_ms, b_by = bound(2 * bh * dh * 4 * t + 4 * bh * t, n_ops, PEAK_BF16_FLOP_S)
-        ms = median_ms(torch, lambda: ops.flash_attention_fwd(*qkv))
-        plain_ms = median_ms(torch, lambda: ops.flash_attention_fwd_plain(*qkv))
-        heads = [q.transpose(1, 2) for q in qkv]
-        lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(*heads))
-        print(f"K2 flash encoder ({BATCH}, {t}x{t}, 8x64): f32 max |o err| {err32:.3e} (2e-5), "
-              f"|lse err| {lerr32:.3e} (1e-4); bf16 max |o err| {err:.3e} (5e-3), |lse err| "
-              f"{lerr:.3e} (1e-4); bf16 {ms:.4f} ms = {n_ops / ms / 1e9:.1f} TFLOP/s (plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, SDPA {lib_ms:.4f} ms)")
-        rows.append(dict(kernel="flash_attention", shape=f"{BATCH}x{t}x{t}", max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, library_ms=lib_ms))
+        rows.append(check_flash_shape(torch, ops, rng, t))
     for b, t_pad, t in ((BATCH, 512, 400), (BATCH, 768, 750), (CHUNKED_BATCH, 512, 400),
                         (CHUNKED_BATCH, 768, 750), (CHUNKED_BATCH, T_PAD, T_AUDIO)):
-        shape = (N_LAYERS, b, t_pad, D_MODEL)
-        k_q = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).cuda()
-        v_q = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).cuda()
-        scales = rng.uniform(0.005, 0.05, (2, N_LAYERS, b, 1, t_pad)).astype(np.float32)
-        scales[..., t:] = 0.0
-        k_s, v_s = (torch.from_numpy(s).cuda() for s in scales)
-        q32 = torch.from_numpy(rng.standard_normal((b, 1, D_MODEL), np.float32)).cuda()
-        errs, limits = {}, {}
-        for dtype in (torch.float32, torch.bfloat16):
-            q = q32.to(dtype)
-            pairs = [(ops.quant_cross_attention_step_indexed(q, k_q, k_s, v_q, v_s, li, N_HEADS),
-                      ops.quant_cross_attention_step_indexed_plain(q, k_q, k_s, v_q, v_s, li,
-                                                                   N_HEADS))
-                     for li in range(N_LAYERS)]
-            errs[dtype] = max(max_err(k, p) for k, p in pairs)
-            # relative to the output's scale, as the K2 causal and K5 checks
-            # are: a batch of 32 holds 4x the outputs of phase 2's 8, so its
-            # largest error is larger. f32: sums in another order; bf16: the
-            # output rounds once more on each route, one ulp of an output in
-            # [2, 4) is 2^-6 = 0.0156, over phase 2's absolute 1e-2
-            scale = max(1.0, max(p.float().abs().max().item() for _, p in pairs))
-            limits[dtype] = (1e-5 if dtype == torch.float32 else 1e-2) * scale
-            require(errs[dtype] <= limits[dtype], f"int8 cross-attention {dtype} at B={b}, "
-                    f"T_pad={t_pad} disagrees: {errs[dtype]} > {limits[dtype]}")
-        n_bytes = 2 * b * t * D_MODEL + 2 * 4 * b * t_pad + 2 * 2 * b * D_MODEL
-        b_ms, b_by = bound(n_bytes, 4 * b * t * D_MODEL, PEAK_BF16_FLOP_S)
-        layers = itertools.cycle(range(N_LAYERS))
-        ms = median_ms(torch, lambda: ops.quant_cross_attention_step_indexed(
-            q, k_q, k_s, v_q, v_s, next(layers), N_HEADS))
-        plain_ms = median_ms(torch, lambda: ops.quant_cross_attention_step_indexed_plain(
-            q, k_q, k_s, v_q, v_s, 3, N_HEADS))
-        print(f"K3 int8 cross-attention (B {b}, T_pad {t_pad}, {t} keys, "
-              f"{pick_splits(t_pad, b * N_HEADS)} splits): f32 max |err| {errs[torch.float32]:.3e} (atol "
-              f"{limits[torch.float32]:.2e}: 1e-5 x max(1, max |out|)), bf16 "
-              f"{errs[torch.bfloat16]:.3e} (atol {limits[torch.bfloat16]:.2e}: 1% of it); bf16 rotating over the layers {ms:.4f} ms "
-              f"(plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by})")
-        rows.append(dict(kernel="quant_cross_attention", shape=f"{b}x{t_pad}({t})",
-                         max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms))
+        rows.append(check_quant_shape(torch, ops, rng, b, t_pad, t))
     return rows
+
+
+def check_draft_shapes(torch, ops) -> list[dict]:
+    """K2 and K3 at the width of phase 13's tiny.en draft (d 384, 6 heads of
+    64, 4 decoder layers), which no earlier path gives them: K2 on its
+    encoder's (8, 1500, 6 x 64), K3 on its (4, 8, 1536, 384) int8 cross K/V;
+    each as ``check_bucket_shapes`` holds and times its shapes."""
+    rng = np.random.default_rng(31)
+    return [check_flash_shape(torch, ops, rng, T_AUDIO, DRAFT_D, DRAFT_HEADS),
+            check_quant_shape(torch, ops, rng, BATCH, T_PAD, T_AUDIO, DRAFT_D, DRAFT_HEADS,
+                              DRAFT_LAYERS)]
 
 
 # ---------------------------------------------------------------------------
@@ -2267,6 +2333,415 @@ def rest_of_serving(torch, Pipeline, ops, card, init_path):
     return {k: sum(c.get(k, 0) for c in runs) for k in set().union(*runs)}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: speculative and Medusa decoding
+# ---------------------------------------------------------------------------
+
+def timed_transcribe(torch, pipe, ops, clips, kwargs):
+    """A warm-up ``transcribe``, then one timed: (results, launches,
+    ``last_timings``, wall s)."""
+    pipe.transcribe(clips, **kwargs)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.transcribe(clips, **kwargs)
+    torch.cuda.synchronize()
+    return res, dict(ops.launches), dict(pipe.last_timings), time.perf_counter() - t0
+
+
+def emitted_per_round(res, rounds: int) -> float:
+    """Tokens a row emits a verify round after its first (the eot counts):
+    the correction plus the accepted proposals, averaged over rows and
+    rounds (a row that has finished idles through the rest)."""
+    emitted = [min(len(r.tokens) + 1, MAX_TOKENS) - 1 for r in res]
+    return sum(emitted) / (len(res) * max(rounds, 1))
+
+
+def divergences(got, plain, margins) -> list[tuple[int, int, float]]:
+    """(row, step, plain top-2 logit gap there) of each row whose tokens
+    differ from plain greedy's, at its first differing step (the rest of the
+    row, which the divergence may steer, is not compared)."""
+    out = []
+    for i, (g, p) in enumerate(zip(got, plain)):
+        if g != p:
+            s = next(j for j in range(len(g) + 1) if j == len(g) or j == len(p) or g[j] != p[j])
+            out.append((i, s, float(margins[i, s])))
+    return out
+
+
+def bf16_agreement(label, got, plain, margins) -> str:
+    """A bf16 run's rows against plain greedy's: identical, or each first
+    divergence at a plain top-2 logit gap < BF16_TIE; returns what it found."""
+    div = divergences(got, plain, margins)
+    for i, _, gap in div:
+        require(gap < BF16_TIE, f"{label}: bf16 row {i} differs from plain greedy at a top-2 "
+                f"gap of {gap:.3e} >= {BF16_TIE:.3e}")
+    return (f"rows identical to plain greedy's {len(plain) - len(div)}/{len(plain)}"
+            + "".join(f"; row {i} from step {s} (plain top-2 gap {gap:.3e})"
+                      for i, s, gap in div))
+
+
+def token_rows(tokens: np.ndarray, eot: int) -> list[list[int]]:
+    """(B, max_new) eot-padded decode output -> each row's tokens before eot."""
+    return [row[: int(np.argmax(row == eot)) if (row == eot).any() else len(row)].tolist()
+            for row in tokens]
+
+
+def same_as_plain(label, got, plain, margins) -> bool:
+    """Rows of tokens against plain greedy's: identical, or the first
+    divergence at a plain top-2 logit gap < 1e-4 (phase 11's rule)."""
+    div = divergences(got, plain, margins)
+    for i, s, gap in div:
+        print(f"  {label}: row {i} diverges from plain greedy at step {s}, plain top-2 logit "
+              f"gap {gap:.3e} (passes only if < 1e-4)")
+        require(gap < 1e-4, f"{label}: row {i} differs from plain greedy")
+    return not div
+
+
+def write_wavs(root, clips) -> list[str]:
+    import wave
+
+    root.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for i, clip in enumerate(clips):
+        paths.append(str(root / f"req{i}.wav"))
+        with wave.open(paths[-1], "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((np.clip(clip, -1, 1) * 32767).astype(np.int16).tobytes())
+    return paths
+
+
+def speculative_serving(torch, Pipeline, ops, card):
+    """(a) phase 3's requests with a random tiny.en draft, k = 4, bf16 with
+    every kernel: rounds, tokens a round, ms a round beside plain greedy's ms
+    a step on the same target, exactly K1 1, K2 10, K3 4 x 5 x rounds; (b)
+    the target as its own draft: K2 12, K3 6 x 5 x rounds; then in f32 with
+    the kernels, held to plain greedy's tokens; (c) Medusa with 4 untrained
+    heads at 1 and 3 chains: K1 1, K2 6, K3 0, and in f32 as (b). Returns the
+    bf16 runs' launches, summed, and the f32 pipeline."""
+    from whisper_context_biasing_tpu_torch.models import init_medusa_params
+
+    clips = requests(np.random.default_rng(4))
+    kwargs = dict(context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0, max_tokens=MAX_TOKENS)
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    pipe = Pipeline("base.en", device=DEVICE, seed=0, draft_model=DRAFT, speculative_k=SPEC_K)
+    dcfg = pipe.draft_cfg
+    require((dcfg.d_model, dcfg.n_heads, dcfg.n_text_layers) == (DRAFT_D, DRAFT_HEADS,
+                                                                 DRAFT_LAYERS)
+            and dcfg.fused_quant_cross and dcfg.flash_attention, f"the draft config {dcfg}")
+    draft = pipe.draft
+    pipe.draft = None  # plain greedy on the same target, beside it
+    _, plain_counts, plain_tm, plain_wall = timed_transcribe(torch, pipe, ops, clips, kwargs)
+    with PathRecorder(margins=True) as rec:
+        plain = [r.tokens for r in pipe.transcribe(clips, **kwargs)]
+    margins = rec.calls[0]["margins"]
+    step_ms = plain_tm["decode_ms"] / max(plain_tm["steps"], 1)
+    add(plain_counts)
+    print(f"(a) speculative decoding, base.en target, random {DRAFT} draft (d {DRAFT_D}, "
+          f"{DRAFT_HEADS} heads, {DRAFT_LAYERS} layers), k = {SPEC_K}, phase 3's {BATCH} "
+          f"requests, bf16 with every kernel, on {card}:")
+    print(f"  plain greedy on the same target right before: decode {step_ms:.3f} ms/step over "
+          f"{plain_tm['steps']} steps, wall {plain_wall * 1e3:.1f} ms")
+    for label, dmodel, dlayers in (("(a) random draft", draft, DRAFT_LAYERS),
+                                   ("(b) self-draft", pipe.model, N_LAYERS)):
+        if dmodel is pipe.model:  # the API's own self-draft: a Whisper as draft_params
+            del pipe
+            pipe = Pipeline("base.en", device=DEVICE, seed=0, draft_model="base.en",
+                            speculative_k=SPEC_K, draft_params=dmodel)
+        else:
+            pipe.draft = dmodel
+        res, counts, tm, wall = timed_transcribe(torch, pipe, ops, clips, kwargs)
+        rounds = tm["rounds"]
+        want = {"mel": 1, "flash_attention": N_LAYERS + dlayers,
+                "quant_cross_attention": dlayers * (SPEC_K + 1) * rounds}
+        per_round = emitted_per_round(res, rounds)
+        print(f"  {label}: {rounds} rounds, {per_round:.2f} tokens a row a round "
+              f"({per_round - 1:.2f} accepted drafts), decode "
+              f"{tm['decode_ms'] / max(rounds, 1):.3f} ms a round = "
+              f"{tm['decode_ms'] / max(rounds, 1) / max(per_round, 1e-9):.3f} ms a token "
+              f"(plain: {step_ms:.3f} ms a step), encoders + prefills {tm['encode_ms']:.3f} ms, "
+              f"wall {wall * 1e3:.1f} ms  [{card}]")
+        print(f"    launches {counts} (the run implies {want}); bf16 "
+              f"{bf16_agreement(label, [r.tokens for r in res], plain, margins)}")
+        require(counts == want, f"{label} launches {counts} != {want}")
+        add(counts)
+    pipe.draft = pipe.draft_cfg = None
+
+    # (c) Medusa, untrained heads, 1 and 3 chains, on the same target
+    heads = init_medusa_params(pipe.cfg, MEDUSA_HEADS, 0)
+    mpipe = Pipeline("base.en", device=DEVICE, seed=0, medusa=heads, medusa_chains=1)
+    for chains in (1, 3):
+        mpipe.medusa["n_chains"] = chains
+        res, counts, tm, wall = timed_transcribe(torch, mpipe, ops, clips, kwargs)
+        rounds = tm["rounds"]
+        per_round = emitted_per_round(res, rounds)
+        want = {"mel": 1, "flash_attention": N_LAYERS}
+        print(f"(c) Medusa, {MEDUSA_HEADS} untrained heads, {chains} chain(s) (verify S = "
+              f"{1 + chains * MEDUSA_HEADS}): {rounds} rounds, {per_round:.2f} tokens a row a "
+              f"round, decode {tm['decode_ms'] / max(rounds, 1):.3f} ms a round, wall "
+              f"{wall * 1e3:.1f} ms; launches {counts} (the run implies {want}); bf16 "
+              f"{bf16_agreement(f'(c) {chains} chain(s)', [r.tokens for r in res], plain, margins)}"
+              f"  [{card}]")
+        require(counts == want, f"(c) Medusa launches {counts} != {want}")
+        add(counts)
+    del mpipe, pipe
+
+    # f32 with the kernels: each accelerator held to plain greedy's tokens
+    p32 = Pipeline("base.en", device=DEVICE, seed=0, dtype="float32")
+    with PathRecorder(margins=True) as rec:
+        plain = [r.tokens for r in p32.transcribe(clips, **kwargs)]
+    margins = rec.calls[0]["margins"]
+    for label, attrs in (("(b) f32 self-draft", dict(draft=p32.model, draft_cfg=p32.cfg)),
+                         ("(c) f32 Medusa 1 chain", dict(medusa=dict(heads, n_chains=1))),
+                         ("(c) f32 Medusa 3 chains", dict(medusa=dict(heads, n_chains=3)))):
+        for k, v in attrs.items():
+            setattr(p32, k, v)
+        ops.reset_launch_counts()
+        got = [r.tokens for r in p32.transcribe(clips, **kwargs)]
+        counts = dict(ops.launches)
+        require(counts.get("flash_attention", 0) > 0 and counts.get("mel", 0) > 0,
+                f"{label} never launched the kernels: {counts}")
+        same = same_as_plain(label, got, plain, margins)
+        print(f"  {label}, kernels (launches {counts}) vs plain greedy: tokens identical: "
+              f"{same} ({p32.last_timings['rounds']} rounds)")
+        p32.draft = p32.draft_cfg = p32.medusa = None
+    return total, p32, heads
+
+
+def medusa_entry_points(torch, ops, card, init_path, tmp):
+    """(d) ``cli.medusa`` from phase 10's ``model.safetensors`` on phase 10's
+    corpus (2 steps of batch 8, a dev probe): its files, the head accuracies,
+    the expected tokens a round and exactly K2 6 an encoder pass (12 more a
+    forward whose labels reach ``flash_decoder_min_seq``); then
+    ``cli.transcribe --medusa`` and ``--draft_model tiny.en`` on phase 3's
+    requests as WAVs, and ``cli.serve --medusa`` on one post: the plain
+    CLI's and server's text. Returns cli.medusa's launches."""
+    import contextlib
+    import http.client
+    import io
+    import pathlib
+    import threading
+
+    from whisper_context_biasing_tpu_torch.cli import medusa as medusa_cli
+    from whisper_context_biasing_tpu_torch.cli import serve, transcribe
+    from whisper_context_biasing_tpu_torch.models import get_config
+    from whisper_context_biasing_tpu_torch.train import medusa as medusa_train
+
+    root = pathlib.Path(tmp)
+    corpus, out = root / "corpus", root / "medusa"
+    seqs = []
+    real = medusa_train.forward_hidden
+
+    def recorded(model, feats, ids):
+        seqs.append(ids.shape[1])
+        return real(model, feats, ids)
+
+    medusa_train.forward_hidden = recorded
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        medusa_cli.main(["--data_root", str(corpus), "--data_dir", "audio", "--jsonl_data",
+                         str(corpus / "jsonl"), "--init_checkpoint", str(init_path),
+                         "--output", str(out), "--prompt", "--medusa_heads", str(MEDUSA_HEADS),
+                         "--batch", str(BATCH), "--epoch", "1", "--warmup_steps", "0",
+                         "--eval_steps", "2", "--logging_steps", "1", "--eval_batches", "1",
+                         "--device", DEVICE])
+        torch.cuda.synchronize()
+    finally:
+        medusa_train.forward_hidden = real
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launches)
+    min_seq = get_config("base.en").flash_decoder_min_seq
+    want = {"flash_attention": sum(N_LAYERS + (2 * N_LAYERS if s >= min_seq else 0)
+                                   for s in seqs)}
+    summary = json.loads((out / "medusa_results.json").read_text())
+    print(f"(d) cli.medusa ({MEDUSA_HEADS} heads, 2 steps of batch {BATCH} and a dev probe, "
+          f"labels of {sorted(set(seqs))} tokens): dev head accuracy "
+          f"{summary['eval_head_acc']}, expected {summary['eval_tokens_per_round']} tokens a "
+          f"round, wall {wall:.2f} s; launches {counts} ({len(seqs)} frozen forwards imply "
+          f"{want})  [{card}]")
+    require(counts == want, f"(d) cli.medusa launches {counts} != {want}")
+    require((out / "medusa.npz").is_file() and summary["n_heads"] == MEDUSA_HEADS,
+            "(d) cli.medusa wrote no heads")
+
+    paths = write_wavs(root / "requests", requests(np.random.default_rng(4)))
+
+    def cli(*extra):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            hyps = transcribe.main(["--audio", *paths, "--init_checkpoint", str(init_path),
+                                    "--max_tokens", str(MAX_TOKENS), "--context", CONTEXT,
+                                    "--bias_words", *BIAS_WORDS, "--bias_boost", "2.0",
+                                    "--device", DEVICE, *extra])
+        return hyps, buf.getvalue().splitlines()
+
+    t0 = time.perf_counter()
+    with PathRecorder(margins=True) as rec:
+        (plain_hyps, plain) = cli()
+    margins = rec.calls[0]["margins"]
+    t1 = time.perf_counter()
+    medusa_hyps, by_medusa = cli("--medusa", str(out / "medusa.npz"))
+    t2 = time.perf_counter()
+    draft_hyps, by_draft = cli("--draft_model", DRAFT, "--spec_k", str(SPEC_K))
+    t3 = time.perf_counter()
+    print(f"  cli.transcribe on {len(paths)} WAVs: plain {t1 - t0:.2f} s, --medusa {t2 - t1:.2f} "
+          f"s, --draft_model {DRAFT} {t3 - t2:.2f} s (each with its model builds); the same "
+          f"text as the plain CLI: --medusa {by_medusa == plain} (bf16 "
+          f"{bf16_agreement('(d) --medusa', medusa_hyps, plain_hyps, margins)}), --draft_model "
+          f"{by_draft == plain} (bf16 "
+          f"{bf16_agreement('(d) --draft_model', draft_hyps, plain_hyps, margins)})  [{card}]")
+    require(len(plain) == len(paths), "(d) cli.transcribe printed no line a file")
+
+    args = serve.parse_args(["--init_checkpoint", str(init_path), "--host", "127.0.0.1",
+                             "--port", "0", "--batch", str(BATCH), "--max_tokens",
+                             str(MAX_TOKENS), "--medusa", str(out / "medusa.npz"),
+                             "--device", DEVICE])
+    engine, server = serve.make_server(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    body = open(paths[2], "rb").read()
+
+    def post():
+        c = http.client.HTTPConnection(*server.server_address, timeout=600)
+        c.request("POST", "/transcribe", body=body, headers={"X-Context": CONTEXT})
+        r = c.getresponse()
+        reply = (r.status, json.loads(r.read()))
+        c.close()
+        return reply
+
+    batches = []
+    real_medusa = serve.medusa_decode_batch
+
+    def recorded(*a, **kw):
+        batches.append(real_medusa(*a, **kw))
+        return batches[-1]
+
+    serve.medusa_decode_batch = recorded
+    try:
+        with_heads = post()
+        engine.medusa = None
+        with PathRecorder(margins=True) as rec:
+            without = post()
+    finally:
+        serve.medusa_decode_batch = real_medusa
+        server.shutdown()
+        engine.close()
+        thread.join()
+    plain_rows = token_rows(rec.calls[0]["tokens"], engine.tokenizer.eot)
+    agreement = bf16_agreement("(d) cli.serve --medusa", batches[0], plain_rows,
+                               rec.calls[0]["margins"])
+    print(f"  cli.serve --medusa, one post: {with_heads[0]}, the same text as without the "
+          f"heads: {with_heads[1]['text'] == without[1]['text']} (its micro-batch of "
+          f"{len(plain_rows)} rows, bf16 {agreement}; {with_heads[1]['latency_ms']:.0f} ms with, "
+          f"{without[1]['latency_ms']:.0f} ms without)  [{card}]")
+    require(with_heads[0] == without[0] == 200, "(d) cli.serve --medusa did not answer")
+    return counts
+
+
+def long_form_accelerated(torch, p32, heads, card):
+    """(e) phase 11's 75 s and 48 s clips at t=0 in f32 with the kernels,
+    sequential and chunked long-form, with the target as its own draft and
+    with the Medusa heads: tokens and segments equal the plain run's."""
+    rng = np.random.default_rng(11)
+    clips = [synthetic_audio(rng, s) for s in LONG_CLIPS_S]
+    kwargs = dict(context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0, temperatures=(0.0,),
+                  max_tokens=MAX_TOKENS)
+    for route in ("sequential", "chunked"):
+        kw = dict(kwargs, long_form=True) if route == "sequential" else dict(
+            kwargs, long_form="chunked", chunked_batch=CHUNKED_BATCH)
+        t0 = time.perf_counter()
+        plain = p32.transcribe(clips, **kw)
+        walls = [time.perf_counter() - t0]
+        same = []
+        for attrs in (dict(draft=p32.model, draft_cfg=p32.cfg),
+                      dict(medusa=dict(heads, n_chains=1))):
+            for k, v in attrs.items():
+                setattr(p32, k, v)
+            t0 = time.perf_counter()
+            got = p32.transcribe(clips, **kw)
+            walls.append(time.perf_counter() - t0)
+            p32.draft = p32.draft_cfg = p32.medusa = None
+            same.append([r.tokens for r in got] == [r.tokens for r in plain]
+                        and [r.segments for r in got] == [r.segments for r in plain])
+        n_tokens = sum(len(r.tokens) for r in plain)
+        print(f"(e) f32 {route} long-form at t=0: tokens and segments equal the plain run's "
+              f"with the self-draft {same[0]}, with the heads {same[1]} ({n_tokens} tokens; "
+              f"walls plain / draft / heads {walls[0]:.2f} / {walls[1]:.2f} / {walls[2]:.2f} s)"
+              f"  [{card}]")
+        require(all(same), f"(e) f32 {route} long-form differs from the plain run")
+
+
+def int8_decoder(torch, Pipeline, ops, card):
+    """(f) ``quantize_decoder_weights`` on phase 3's model: decode ms/step
+    beside the bf16 model's in this call, exactly K1 1, K2 6, K3 6 a step,
+    and the largest logit difference from the bf16 model on the prefill."""
+    from whisper_context_biasing_tpu_torch.audio import pad_or_trim
+    from whisper_context_biasing_tpu_torch.decode import pack_prefixes
+    from whisper_context_biasing_tpu_torch.models import (
+        decode_tokens,
+        encode_audio,
+        init_kv_cache,
+        precompute_cross_kv,
+        quantize_cross_kv,
+        quantize_decoder_weights,
+    )
+
+    clips = requests(np.random.default_rng(4))
+    kwargs = dict(context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0, max_tokens=MAX_TOKENS)
+    pipe = Pipeline("base.en", device=DEVICE, seed=0)
+    _, _, tm, _ = timed_transcribe(torch, pipe, ops, clips, kwargs)
+    float_model = pipe.model
+    pipe.model = quantize_decoder_weights(float_model)
+    res, counts, qtm, wall = timed_transcribe(torch, pipe, ops, clips, kwargs)
+    want = {"mel": 1, "flash_attention": N_LAYERS,
+            "quant_cross_attention": N_LAYERS * qtm["steps"]}
+    tok = pipe.tokenizer
+    ids, mask = pack_prefixes([[tok.sop] + tok.encode(CONTEXT.lower(), add_special_tokens=False)
+                               + [tok.sot]] * BATCH, tok.eot, 32)
+    ids, mask = torch.from_numpy(ids).long().to(DEVICE), torch.from_numpy(mask).to(DEVICE)
+    mel = pipe.mel(np.stack([pad_or_trim(c, pipe.window_samples) for c in clips]))
+    pos = torch.clamp(torch.cumsum(mask.long(), dim=1) - 1, min=0)
+    logits = []
+    with torch.no_grad():
+        for model in (float_model, pipe.model):
+            cross = quantize_cross_kv(precompute_cross_kv(model, encode_audio(model, mel)))
+            lg, _ = decode_tokens(model, ids, cross_kv=cross,
+                                  cache=init_kv_cache(model.cfg, BATCH, ids.shape[1], DEVICE),
+                                  token_positions=pos, self_mask=mask)
+            logits.append(lg[mask])
+    diff = max_err(*logits)
+    scale = logits[0].abs().max().item()
+    print(f"(f) int8 decoder weights (quantize_decoder_weights of phase 3's model): decode "
+          f"{qtm['decode_ms'] / max(qtm['steps'], 1):.3f} ms/step over {qtm['steps']} steps "
+          f"(the bf16 model right before: {tm['decode_ms'] / max(tm['steps'], 1):.3f}), wall "
+          f"{wall * 1e3:.1f} ms; prefill logits max |int8 - bf16| {diff:.3e} (max |logit| "
+          f"{scale:.2f}); launches {counts} (the run implies {want})  [{card}]")
+    require(counts == want, f"(f) int8 decoder launches {counts} != {want}")
+    require(np.isfinite(diff) and all(0 <= t < pipe.cfg.n_vocab for r in res for t in r.tokens),
+            "(f) the int8 decoder gave non-finite logits or out-of-range tokens")
+    return counts
+
+
+def speculative_and_medusa(torch, Pipeline, ops, card, init_path, tmp):
+    """Phase 13; returns the launches of its bf16 runs, summed."""
+    start = time.perf_counter()
+    spec_counts, p32, heads = speculative_serving(torch, Pipeline, ops, card)
+    runs = [spec_counts, medusa_entry_points(torch, ops, card, init_path, tmp)]
+    long_form_accelerated(torch, p32, heads, card)
+    del p32
+    runs.append(int8_decoder(torch, Pipeline, ops, card))
+    print(f"  phase 13 took {time.perf_counter() - start:.1f} s  [{card}]")
+    return {k: sum(c.get(k, 0) for c in runs) for k in set().union(*runs)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="TABLE_PATH",
@@ -2320,6 +2795,7 @@ def main() -> int:
         print(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']}, library {k['library_ms']}) [{card}]")
     check_bucket_shapes(torch, ops)
+    check_draft_shapes(torch, ops)
     if tree:
         print(f"chip_smoke --kernels-only {os.path.abspath(tree)} took "
               f"{time.perf_counter() - start:.1f} s  [{card}]")
@@ -2349,11 +2825,16 @@ def main() -> int:
         print("phase 12, the rest of serving (chunked long-form, word timestamps, window "
               "buckets, streaming, cli.serve):")
         rest_counts = rest_of_serving(torch, Pipeline, ops, card, init_path)
-    # launches: the runs of the main-path phases (3, 5, 7, 9, 10, 11 and 12)
+        print("phase 13, speculative and Medusa decoding (a draft, a self-draft, Medusa heads, "
+              "cli.medusa, the CLIs and the server with them, long-form, int8 decoder "
+              "weights):")
+        spec_counts = speculative_and_medusa(torch, Pipeline, ops, card, init_path, tmp)
+    # launches: the runs of the main-path phases (3, 5, 7, 9, 10, 11, 12 and 13)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in (serve_counts, train_counts,
                                                           fused_counts, entry_counts,
-                                                          cli_counts, long_counts, rest_counts))
+                                                          cli_counts, long_counts, rest_counts,
+                                                          spec_counts))
         require(k["launches"] > 0, f"the main path never launched {k['name']}")
     print(f"chip_smoke total {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -17,6 +17,7 @@ and window fields identical, except ``avg_logprob`` and
 ``no_speech_prob`` within 1e-5 (f32 sums over 51864 logits in other
 orders)."""
 
+import dataclasses
 import functools
 import importlib.util
 import json
@@ -345,12 +346,23 @@ def test_int16_input_matches_float_and_jax(tok, setup):
 
 
 def test_unported_chunked_options_raise(tok, setup):
+    """A mesh raises (A.9); a draft and Medusa heads are ported: the plain
+    tokens, and a draft with another n_mels refused at the t=0 rung."""
+    from whisper_context_biasing_tpu_torch.models import init_medusa_params
+
     model = setup[2]
-    for kw, item in ((dict(draft=(None, None, 4)), "A.7"), (dict(medusa={}), "A.7"),
-                     (dict(mesh=object()), "A.9")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue {item}"):
-            chunked.transcribe_chunked(model, tok, [np.zeros(1600, np.float32)], device="cpu",
-                                       **kw)
+    clip = [np.zeros(1600, np.float32)]
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A.9"):
+        chunked.transcribe_chunked(model, tok, clip, device="cpu", mesh=object())
+    # the timestamp rules stay off with an accelerator (as in JAX)
+    kw = dict(max_new=3, temperatures=(0.0,), use_timestamps=False, device="cpu")
+    plain = chunked.transcribe_chunked(model, tok, clip, **kw)
+    for accel in (dict(draft=(model, model.cfg, 2)),
+                  dict(medusa=init_medusa_params(model.cfg, 2))):
+        assert chunked.transcribe_chunked(model, tok, clip, **accel, **kw) == plain
+    other = dataclasses.replace(model.cfg, n_mels=128)
+    with pytest.raises(ValueError, match="n_mels"):
+        chunked.transcribe_chunked(model, tok, clip, draft=(model, other, 2), **kw)
 
 
 # ---------------------------------------------------------------------------

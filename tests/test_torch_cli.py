@@ -10,8 +10,11 @@ command line asks for, and both run on one device (``--model_parallelism
 ``TrainingConfig`` fields and ``get_config`` arguments for each command
 line, equal ``test_results.json``, ``bias_wer_results.json`` and
 ``refs_and_pred.txt``, losses at rel 1e-5, byte-equal exported files, the
-offline Hub cases of ``--best_checkpoint``, and ``NotImplementedError``
-naming its ROADMAP item for each flag whose module is not ported."""
+offline Hub cases of ``--best_checkpoint``, ``cli/medusa.py`` against
+``scripts/medusa.py`` (flags, the ``MedusaConfig`` a command line gives, and
+the heads it writes reaching ``evaluate_wer`` through ``cli/evaluation.py
+--medusa`` as the JAX script's do), and ``NotImplementedError`` naming its
+ROADMAP item for each flag whose module is not ported."""
 
 import dataclasses
 import functools
@@ -30,6 +33,7 @@ from whisper_context_biasing_tpu.models import init_params as jax_init
 from whisper_context_biasing_tpu.models import save_safetensors as jax_save_safetensors
 from whisper_context_biasing_tpu.models import tiny_test_config as jax_tiny
 from whisper_context_biasing_tpu_torch.cli import evaluation, export_hf, train
+from whisper_context_biasing_tpu_torch.cli import medusa as medusa_cli
 from whisper_context_biasing_tpu_torch.models import tiny_test_config
 from whisper_context_biasing_tpu_torch.utils import hub
 
@@ -67,9 +71,9 @@ def narrow_config(tiny, calls=None):
 def patch_narrow(monkeypatch):
     """Both packages' CLIs build the narrow config; returns the call logs."""
     calls = {"port": [], "jax": []}
-    for mod in (train, evaluation, export_hf):
+    for mod in (train, evaluation, export_hf, medusa_cli):
         monkeypatch.setattr(mod, "get_config", narrow_config(tiny_test_config, calls["port"]))
-    for name in ("train", "evaluation"):
+    for name in ("train", "evaluation", "medusa"):
         monkeypatch.setattr(jax_script(name), "get_config",
                             narrow_config(jax_tiny, calls["jax"]))
     # scripts/export_hf.py imports it inside main()
@@ -324,8 +328,9 @@ UNPORTED = {
     "train_orbax": (train, ["--checkpoint_backend", "orbax"], "A.9"),
     "train_remat_dots": (train, ["--remat", "dots"], "A.5"),
     "train_remat_wide": (train, ["--remat", "wide"], "A.5"),
-    "eval_num_beams": (evaluation, ["--num_beams", "4", "--medusa", "medusa.npz"], "A.7"),
-    "eval_medusa": (evaluation, ["--medusa", "medusa.npz"], "A.7"),
+    # ported since: accepted, and the run goes on to read the missing data
+    "eval_num_beams": (evaluation, ["--num_beams", "4", "--medusa", "medusa.npz"], None),
+    "eval_medusa": (evaluation, ["--medusa", "medusa.npz"], None),
     "eval_model_parallelism": (evaluation, ["--model_parallelism", "4"], "A.9"),
 }
 
@@ -333,6 +338,11 @@ UNPORTED = {
 @pytest.mark.parametrize("case", list(UNPORTED))
 def test_unported_flags_raise_before_reading_data(case, tmp_path):
     mod, argv, item = UNPORTED[case]
+    if item is None:
+        with pytest.raises(FileNotFoundError, match="none"):
+            mod.main(["--jsonl_data", str(tmp_path / "none"), "--output", str(tmp_path),
+                      "--device", "cpu", *argv])
+        return
     # the data paths do not exist: the flag is refused before they are read
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue {item}"):
         mod.main(["--jsonl_data", str(tmp_path / "none"), "--output", str(tmp_path),
@@ -347,3 +357,77 @@ def test_clis_default_to_the_card(mod, tmp_path):
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(["--jsonl_data", str(tmp_path), "--output", str(tmp_path)])
+
+
+# ---------------------------------------------------------------------------
+# Medusa heads: cli/medusa.py, and evaluation --medusa
+# ---------------------------------------------------------------------------
+
+def medusa_args(root, init, out, *extra):
+    return [*data_args(root), "--output", str(out), "--init_checkpoint", init, "--prompt",
+            "--medusa_heads", "2", "--batch", "2", "--epoch", "1", "--warmup_steps", "0",
+            "--eval_steps", "1", "--logging_steps", "1", "--eval_batches", "1", *extra]
+
+
+def test_medusa_parse_args_and_config_match_jax(corpus, narrow, monkeypatch, tmp_path):
+    """The flag defaults, and the ``MedusaConfig`` and model a command line
+    gives the runner, are the JAX script's (the port's init draws other
+    numbers: the head shapes are compared)."""
+    monkeypatch.setattr(sys, "argv", ["medusa.py"])
+    want = vars(jax_script("medusa").parse_args())
+    got = vars(medusa_cli.parse_args([]))
+    assert got.pop("device") == "cuda" and got == want
+    root, init = corpus
+    argv = medusa_args(root, init, tmp_path, "--medusa_chains", "3", "--lr", "5e-3", "--seed",
+                       "7")
+    seen = {}
+
+    def capture(side):
+        def train_medusa_heads(cfg, base, heads, dtrain, deval, coll, mcfg):
+            seen[side] = (dataclasses.asdict(mcfg), cfg.d_model, tuple(heads["w"].shape),
+                          len(dtrain), len(deval))
+            raise Captured
+        return train_medusa_heads
+
+    monkeypatch.setattr(medusa_cli, "train_medusa_heads", capture("port"))
+    monkeypatch.setattr(jax_script("medusa"), "train_medusa_heads", capture("jax"))
+    with pytest.raises(Captured):
+        medusa_cli.main(argv + ["--device", "cpu"])
+    with pytest.raises(Captured):
+        run_jax(monkeypatch, "medusa", argv)
+    assert seen["port"] == seen["jax"]
+    assert seen["port"][0]["n_chains"] == 3 and seen["port"][2] == (2, 16, 16)
+
+
+def test_medusa_cli_heads_reach_evaluation_like_jax(runs, narrow, monkeypatch, tmp_path):
+    """cli.medusa trains heads on the corpus (medusa.npz, its results and
+    log); ``cli.evaluation --medusa --medusa_chains 3`` hands evaluate_wer
+    the heads the JAX script hands its own (evaluate_wer(medusa=) itself is
+    held to JAX in test_torch_medusa.py)."""
+    out = tmp_path / "heads"
+    heads, hist = medusa_cli.main(medusa_args(runs["root"], runs["init"], out, "--medusa_chains",
+                                              "2", "--device", "cpu"))
+    summary = json.loads(read(out / "medusa_results.json"))
+    assert summary["n_heads"] == 2 and hist[-1] == summary
+    assert (out / "medusa_log.jsonl").is_file()
+    seen = {}
+
+    def capture(side):
+        def evaluate_wer(*a, medusa=None, **kw):
+            seen[side] = {k: np.asarray(v) for k, v in medusa.items()}
+            raise Captured
+        return evaluate_wer
+
+    monkeypatch.setattr(evaluation, "evaluate_wer", capture("port"))
+    monkeypatch.setattr(jax_script("evaluation"), "evaluate_wer", capture("jax"))
+    mode = ("--final_model", "--model_path", runs["init"], "--medusa",
+            str(out / "medusa.npz"), "--medusa_chains", "3")
+    with pytest.raises(Captured):
+        evaluation.main(eval_args(runs, tmp_path / "port", *mode) + ["--device", "cpu"])
+    with pytest.raises(Captured):
+        run_jax(monkeypatch, "evaluation", eval_args(runs, tmp_path / "jax", *mode))
+    assert seen["port"].keys() == seen["jax"].keys() == {"w", "b", "n_chains"}
+    for k in ("w", "b", "n_chains"):
+        np.testing.assert_array_equal(seen["port"][k], seen["jax"][k])
+    assert int(seen["port"]["n_chains"]) == 3
+    np.testing.assert_array_equal(seen["port"]["w"], heads["w"].numpy())

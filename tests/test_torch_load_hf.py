@@ -350,3 +350,21 @@ def test_load_checkpoint_or_safetensors_and_pretrained(tmp_path):
     assert got_cfg == get_config("tiny.en", dtype="float32")
     assert all(torch.equal(sd[k], v) for k, v in init_state_dict(got_cfg, 0).items())
     assert not os.path.exists("openai")
+
+
+def test_quantized_params_rejected(jax_params):
+    """int8 decoder weights are not exportable, in either package: the
+    JAX quantized tree carried over, and the port's own quantized model."""
+    from whisper_context_biasing_tpu.models.whisper import quantize_decoder_weights as jax_q
+    from whisper_context_biasing_tpu_torch.models import quantize_decoder_weights
+
+    cfg = tiny_test_config()
+    q = jax.tree.map(np.asarray, jax_q(jax_params))
+    with pytest.raises(ValueError, match="not exportable"):
+        jax_state_dict_from_params(q, jax_tiny())
+    with pytest.raises(ValueError, match="not exportable"):
+        state_dict_from_params(params_from_jax(q, cfg), cfg)
+    model = quantize_decoder_weights(build_model(cfg, params_from_jax(jax_params, cfg),
+                                                 device="cpu"))
+    with pytest.raises(ValueError, match="not exportable"):
+        state_dict_from_params(model.state_dict(), cfg)

@@ -65,16 +65,34 @@ def test_pipeline_trims_a_long_clip_short_form_as_jax():
 def test_pipeline_long_clip_auto_is_not_ported():
     """Sequential and chunked long-form and long-form word timestamps are
     ported (tests/test_torch_long_form.py, test_torch_chunked.py,
-    test_torch_word_timestamps.py); what still raises on a long clip is a
-    draft or Medusa model (Queue A.7)."""
+    test_torch_word_timestamps.py), and so are a draft and Medusa heads on a
+    long clip (the t=0 rung): the plain tokens, and a stream too."""
+    from whisper_context_biasing_tpu_torch.models import init_medusa_params
+
     _, port = _tiny_pipelines()
     clip = np.zeros(port.window_samples + 16000, np.float32)
     for kw in (dict(long_form="chunked"), dict(long_form="auto", word_timestamps=True)):
         res = port.transcribe(clip, max_tokens=4, temperatures=(0.0,), **kw)
         assert res.segments is not None
-    for kw in (dict(draft_model="tiny.en"), dict(medusa={})):
-        with pytest.raises(NotImplementedError, match="Queue A.7"):
-            Pipeline("tiny.en", config=tiny_test_config(**FAST_OVERRIDES), device="cpu", **kw)
+    cfg = port.cfg
+    for accel in (dict(draft_model="tiny.en", draft_config=cfg), dict(
+            medusa=init_medusa_params(cfg, 2))):
+        fast = Pipeline("tiny.en", config=cfg, device="cpu", **accel)
+        fast.model = port.model  # the same weights as the plain pipeline
+        if fast.draft is not None:
+            fast.draft = port.model
+        for kw in (dict(long_form="chunked"), dict(long_form="auto")):
+            got = fast.transcribe(clip, max_tokens=4, temperatures=(0.0,), **kw)
+            assert got.tokens == port.transcribe(clip, max_tokens=4, temperatures=(0.0,),
+                                                 **kw).tokens
+        # the timestamp rules stay off with an accelerator (as in JAX)
+        st = fast.stream(max_new=4, temperatures=(0.0,), use_timestamps=False)
+        st.feed(clip)
+        st.finish()
+        plain = port.stream(max_new=4, temperatures=(0.0,), use_timestamps=False)
+        plain.feed(clip)
+        plain.finish()
+        assert st.tokens == plain.tokens
 
 
 # ---------------------------------------------------------------------------
@@ -138,3 +156,45 @@ def test_load_audio_matches_jax(tmp_path):
     got = load_audio(path)
     assert got.dtype == np.float32 and got.shape == (8000,)
     np.testing.assert_array_equal(got, jax_load_audio(path))
+
+
+def test_pipeline_draft_and_medusa_match_jax(tmp_path):
+    """``Pipeline(draft_model=..., draft_params=...)`` (a draft with the
+    target's mel, and one with 128 mels that gets its own mel on the
+    short-form route and a warning with plain decoding on the long-form one)
+    and ``Pipeline(medusa="medusa.npz")``: the JAX Pipeline's tokens, which
+    are the plain pipeline's."""
+    from whisper_context_biasing_tpu_torch.models import init_medusa_params, save_medusa
+
+    ref, port = _tiny_pipelines()
+    jcfg = ref.cfg
+    rng = np.random.default_rng(1)
+    clips = [(0.1 * rng.standard_normal(n)).astype(np.float32) for n in (8000, 16000)]
+    kw = dict(context="patient on aspirin", bias_words=["aspirin"], bias_boost=2.0,
+              max_tokens=8)
+    plain = [r.tokens for r in port.transcribe(clips, **kw)]
+    heads = str(tmp_path / "medusa.npz")
+    save_medusa(heads, init_medusa_params(port.cfg, 2, 0))
+    dcfg = dict(n_audio_layers=1, n_text_layers=1, d_model=32, n_heads=2)
+    for name, mels in (("same mel", 80), ("own mel", 128)):
+        jd = jax_tiny(n_mels=mels, **dcfg)
+        dparams = jax.tree.map(np.asarray, jax_init(jd, 3))
+        d = tiny_test_config(n_mels=mels, **dcfg)
+        both = [P("tiny.en", config=c, params=ref.params, draft_model="tiny.en", draft_config=dc,
+                  draft_params=dparams, speculative_k=3, **extra)
+                for P, c, dc, extra in ((JaxPipeline, jcfg, jd, dict(model_parallelism=0)),
+                                        (Pipeline, port.cfg, d, dict(device="cpu")))]
+        want, got = (p.transcribe(clips, **kw) for p in both)
+        assert [r.tokens for r in got] == [r.tokens for r in want] == plain, name
+    with pytest.warns(UserWarning, match="n_mels"):
+        long = both[1].transcribe(np.zeros(port.window_samples + 8000, np.float32),
+                                  max_tokens=4, temperatures=(0.0,))
+    assert long.tokens == port.transcribe(np.zeros(port.window_samples + 8000, np.float32),
+                                          max_tokens=4, temperatures=(0.0,)).tokens
+    pipes = [JaxPipeline("tiny.en", config=jcfg, params=ref.params, model_parallelism=0,
+                         medusa=heads, medusa_chains=2),
+             Pipeline("tiny.en", config=port.cfg, params=ref.params, device="cpu", medusa=heads,
+                      medusa_chains=2)]
+    want, got = (p.transcribe(clips, **kw) for p in pipes)
+    assert pipes[1].medusa["n_chains"] == 2
+    assert [r.tokens for r in got] == [r.tokens for r in want] == plain

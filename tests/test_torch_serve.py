@@ -8,8 +8,10 @@ config as tests/test_serve.py does), and get the same requests: the JSON of
 sequential long-form with window info and words, the chunked route with an
 int16 upload, a bad option) and of a stream session's every call are equal,
 apart from ``latency_ms``. Then two concurrent posts land in one
-micro-batch, ``/health``, the audio-body decoders against the JAX ones, and
-the A.7/A.9 flags raising before any weights load.
+micro-batch, ``/health``, the audio-body decoders against the JAX ones, the
+A.9 flag raising before any weights load (the draft and Medusa flags going
+on to load them), and ``--medusa`` and ``--draft_model`` servers against the
+JAX server with the same heads or draft.
 
 The model is ``tiny_test_config`` with the real 30 s window; the JAX
 engine's log-mel is its jnp frontend, the port's the mel kernel's plain
@@ -253,15 +255,71 @@ def test_audio_body_decoders_match_jax():
     assert serve._parse_opt_headers(headers) == jax_serve._parse_opt_headers(headers)
 
 
-@pytest.mark.parametrize("argv,item", [(["--draft_model", "tiny.en"], "A.7"),
-                                       (["--medusa", "medusa.npz"], "A.7"),
+@pytest.mark.parametrize("argv,item", [(["--draft_model", "tiny.en"], None),
+                                       (["--medusa", "medusa.npz"], None),
                                        (["--model_parallelism", "2"], "A.9")],
                          ids=["draft_model", "medusa", "model_parallelism"])
 def test_unported_serve_flags_raise_before_loading(argv, item, tmp_path):
-    # the checkpoint does not exist: the flag is refused before it is read
+    # the checkpoint does not exist: a flag not ported is refused before it
+    # is read; the draft and Medusa flags, ported since, go on to read it
+    argv = ["--init_checkpoint", str(tmp_path / "none.safetensors"), "--device", "cpu", *argv]
+    if item is None:
+        with pytest.raises(FileNotFoundError, match="none"):
+            serve.main(argv)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue {item}"):
-        serve.main(["--init_checkpoint", str(tmp_path / "none.safetensors"), "--device", "cpu",
-                    *argv])
+        serve.main(argv)
+
+
+@pytest.mark.parametrize("accel", ["medusa", "draft"])
+def test_medusa_and_draft_match_jax(servers, accel, tmp_path):
+    """``--medusa heads.npz`` and ``--draft_model`` (a self-draft on the
+    target's weights, through the engine's draft hooks): a short request
+    with a context and bias words and a 33 s request with window info give
+    the JAX server's JSON with the same heads or draft."""
+    from http.server import ThreadingHTTPServer
+
+    from whisper_context_biasing_tpu.models import load_medusa as jax_load_medusa
+    from whisper_context_biasing_tpu_torch.models import init_medusa_params, save_medusa
+
+    _, _, jeng, jax_addr = servers
+    params = jeng.params
+    extra, hooks = [], {}
+    if accel == "medusa":
+        path = str(tmp_path / "medusa.npz")
+        save_medusa(path, dict(init_medusa_params(tiny_test_config(), 2, 3), n_chains=2))
+        extra = ["--medusa", path]
+        jeng.medusa = jax_load_medusa(path)
+    else:
+        extra = ["--draft_model", "tiny.en", "--spec_k", "3"]
+        hooks = dict(draft_config=tiny_test_config(**CFG, flash_attention=True,
+                                                   fused_quant_cross=True), draft_params=params)
+        jeng.draft_params, jeng.draft_cfg = params, jeng.cfg
+    jeng.args.spec_k = 3
+    eng, srv = serve.make_server(
+        serve.parse_args(FLAGS + extra),
+        config=tiny_test_config(**CFG, flash_attention=True, fused_quant_cross=True),
+        params=params, warmup=False, **hooks)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        for seconds, headers in ((1.5, {"X-Context": "patient on aspirin",
+                                        "X-Bias-Words": "aspirin,metformin"}),
+                                 (33.0, {"X-Window-Info": "1"})):
+            body = wav_bytes(speech_like(np.random.default_rng(3), seconds))
+            got = post(srv.server_address, "/transcribe", body, headers)
+            want = post(jax_addr, "/transcribe", body, headers)
+            for out in (got[1], want[1]):
+                out.pop("latency_ms", None)
+            for gw, ww in zip(got[1].pop("windows", []), want[1].pop("windows", []),
+                              strict=True):
+                for key in ("avg_logprob", "no_speech_prob"):
+                    assert gw.pop(key) == pytest.approx(ww.pop(key), abs=1e-5)
+                assert gw == ww
+            assert got == want and got[0] == 200
+    finally:
+        srv.shutdown()
+        eng.q.put(None)
+        jeng.medusa = jeng.draft_params = jeng.draft_cfg = None
 
 
 def test_serve_defaults_to_the_card(tmp_path):

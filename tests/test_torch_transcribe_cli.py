@@ -9,10 +9,12 @@ JSON records (short-form beam search), the ``.srt`` files of ``--long
 --timestamps --format srt --output_dir``, and the ``--long --timestamps``
 text lines with ``--vad``; the JSON of ``--long --window_info`` equal except
 ``avg_logprob`` and ``no_speech_prob``, within 1e-5 (f32 sums in other
-orders). The draft and Medusa flags raise ``NotImplementedError`` naming
-their ROADMAP item before any audio is read; the flags ported since
-(``--chunked``, ``--word_timestamps``, ``--alignment_heads``, short-form
-``--format srt``) go on to read the audio."""
+orders). ``--medusa`` (short-form and ``--long``) and ``--draft_model``
+(with a narrow draft) print the plain run's lines, as the JAX script does.
+The flags ported since the first slice (``--chunked``,
+``--word_timestamps``, ``--alignment_heads``, short-form ``--format srt``,
+``--draft_model``, ``--medusa``) are accepted and go on to read the
+audio."""
 
 import functools
 import importlib.util
@@ -154,16 +156,52 @@ def test_long_window_info_json_matches_jax(files, narrow, monkeypatch, capsys):
         assert g == w
 
 
-# the chunked mode, word timestamps, alignment heads and short-form srt are
-# ported: those flags are accepted and the run goes on to read the missing
-# file; draft and Medusa models are refused before it is read
+# case -> (the accelerator's flags, the flags a plain run shares)
+ACCEL = {
+    "medusa_short": (["--medusa", "{heads}", "--medusa_chains", "2"],
+                     ["--context", "on aspirin"]),
+    "medusa_long": (["--medusa", "{heads}"], ["--long", "--temperatures", "0.0"]),
+    "medusa_long_timestamps": (["--medusa", "{heads}"],
+                               ["--long", "--timestamps", "--temperatures", "0.0"]),
+    "draft_short": (["--draft_model", "tiny.en", "--spec_k", "3"],
+                    ["--bias_words", "aspirin", "--bias_boost", "2.0"]),
+}
+
+
+@pytest.mark.parametrize("case", list(ACCEL))
+def test_medusa_and_draft_match_jax(files, narrow, monkeypatch, capsys, tmp_path, case):
+    """``--medusa`` (short-form with 2 chains, and ``--long``) and
+    ``--draft_model`` (a random narrow draft in each package) print the JAX
+    script's lines, and the plain run's (except with ``--timestamps``, whose
+    rules stay off with an accelerator, as in JAX)."""
+    import whisper_context_biasing_tpu_torch.models as port_models
+    from whisper_context_biasing_tpu_torch.models import init_medusa_params, save_medusa
+
+    paths, init = files
+    heads = str(tmp_path / "medusa.npz")
+    save_medusa(heads, init_medusa_params(tiny_test_config(**NARROW), 2, 1))
+    # the draft loader's get_config (the JAX one is patched by ``narrow``)
+    monkeypatch.setattr(port_models, "get_config", lambda name, **kw: tiny_test_config(**NARROW))
+    accel, shared = ACCEL[case]
+    clips = [paths["long"]] if "--long" in shared else [paths["a"], paths["b"]]
+    base = ["--audio", *clips, "--init_checkpoint", init, "--max_tokens", "6", *shared]
+    port, ref = run_both(monkeypatch, capsys, base + [a.format(heads=heads) for a in accel])
+    assert port == ref and port.count(".wav: ") == len(clips)
+    if "--timestamps" not in shared:
+        transcribe.main([*base, "--device", "cpu"])
+        assert port == capsys.readouterr().out
+
+
+# the chunked mode, word timestamps, alignment heads, short-form srt and
+# draft and Medusa models are ported: those flags are accepted and the run
+# goes on to read the missing file
 UNPORTED = {
     "chunked": (["--long", "--chunked"], None),
     "word_timestamps": (["--word_timestamps"], None),
     "alignment_heads": (["--alignment_heads", "0:1"], None),
     "short_srt": (["--format", "srt"], None),
-    "draft_model": (["--draft_model", "tiny.en"], "A.7"),
-    "medusa": (["--medusa", "medusa.npz"], "A.7"),
+    "draft_model": (["--draft_model", "tiny.en"], None),
+    "medusa": (["--medusa", "medusa.npz"], None),
 }
 
 

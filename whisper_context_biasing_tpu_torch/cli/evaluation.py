@@ -31,11 +31,17 @@ from .._device import resolve_device
 from ..config import DATA_DIR, DATA_ROOT, JSONL_DATA
 from ..data import PromptWhisperDataset, SpeechSeq2SeqCollator
 from ..metrics import compute_bias_wer
-from ..models import build_model, get_config, init_state_dict, load_checkpoint_or_safetensors
+from ..models import (
+    build_model,
+    get_config,
+    init_state_dict,
+    load_checkpoint_or_safetensors,
+    load_medusa,
+)
 from ..tokenizer import load_tokenizer
 from ..train import evaluate_wer, find_best_checkpoint, load_checkpoint
 from ..utils import hub, warn_missing_assets
-from . import check_model_parallelism, not_ported, report_devices
+from . import check_model_parallelism, report_devices
 
 
 def parse_args(argv=None):
@@ -65,8 +71,11 @@ def parse_args(argv=None):
     p.add_argument("--bias_boost", type=float, default=0.0)
     p.add_argument("--num_beams", type=int, default=1, help="> 1: beam search")
     p.add_argument("--medusa", type=str, default=None,
-                   help="medusa.npz: self-speculative decode (not ported yet)")
-    p.add_argument("--medusa_chains", type=int, default=None)
+                   help="medusa.npz (cli.medusa): self-speculative greedy decode, the same "
+                        "tokens as plain greedy (beams win with --num_beams > 1)")
+    p.add_argument("--medusa_chains", type=int, default=None,
+                   help="Medusa tree chains: branch on head 1's top-N (default: the value "
+                        "saved in medusa.npz, else 1)")
     p.add_argument("--model_parallelism", type=int, default=1,
                    help="0 or 1: one device (a tensor-parallel degree > 1 is "
                         "not ported yet)")
@@ -78,8 +87,6 @@ def parse_args(argv=None):
 
 def check_ported(args) -> None:
     """Raise for a flag whose module is not ported yet, before any data is read."""
-    if args.medusa:
-        not_ported("--medusa (self-speculative decoding)", "A.7")
     check_model_parallelism(args.model_parallelism)
 
 
@@ -96,11 +103,12 @@ def run_eval(args, state_dict, model_cfg, tokenizer, data_test, collator, bias_s
              model_name):
     refs_pred_file = args.refs_pred_file or os.path.join(args.output, "refs_and_pred.txt")
     model = build_model(model_cfg, state_dict, device=args.device)
+    medusa = load_medusa(args.medusa, n_chains=args.medusa_chains) if args.medusa else None
     result = evaluate_wer(
         model, tokenizer, data_test, collator, args.batch, 224,
         refs_pred_file=refs_pred_file,
         prompt_generation=args.prompt_generation, bias_boost=args.bias_boost,
-        num_beams=args.num_beams,
+        num_beams=args.num_beams, medusa=medusa,
     )
     if not args.only_eval_bias_wer:
         print(f"{model_name} Test set evaluation results:", result)

@@ -34,8 +34,11 @@ around every call into the model, so one call runs on the card at a time (on
 the default stream), each with its own cache and K/V, and the kernels' launch
 counters are updated by one thread at a time. ``--device`` defaults to
 ``cuda`` and raises without a card; ``--device cpu`` runs on the CPU.
-``--draft_model`` and ``--medusa`` raise naming ROADMAP Queue A.7 and
-``--model_parallelism > 1`` naming A.9, before any weights load.
+Greedy decoding runs speculatively with the same output on every route:
+``--draft_model`` (``--draft_checkpoint``, ``--spec_k``; long-form and
+streams only with the target's ``n_mels``) or ``--medusa medusa.npz``
+(``--medusa_chains``), which wins over a draft. ``--model_parallelism > 1``
+raises naming ROADMAP Queue A.9 before any weights load.
 """
 
 from __future__ import annotations
@@ -64,17 +67,26 @@ from ..decode import (
     decode_batch,
     detect_language,
     find_word_timestamps,
+    load_draft,
+    medusa_decode_batch,
     resolve_start_tokens,
+    speculative_decode_batch,
     transcribe_chunked,
     transcribe_long_batch,
     unpack_long_form,
 )
-from ..models import FAST_OVERRIDES, build_model, get_config, load_checkpoint_or_safetensors
+from ..models import (
+    FAST_OVERRIDES,
+    build_model,
+    get_config,
+    load_checkpoint_or_safetensors,
+    load_medusa,
+)
 from ..models.convert import params_from_jax
 from ..models.whisper import encode_audio
 from ..tokenizer import LANGUAGES, load_tokenizer
 from ..utils import RtfMeter, warn_missing_assets
-from . import check_model_parallelism, not_ported
+from . import check_model_parallelism
 
 
 def parse_args(argv=None):
@@ -90,11 +102,18 @@ def parse_args(argv=None):
                    help="max queueing delay before a partial batch is flushed")
     p.add_argument("--max_tokens", type=int, default=128)
     p.add_argument("--num_beams", type=int, default=1)
-    p.add_argument("--draft_model", default=None, help="speculative decoding (not ported yet)")
+    p.add_argument("--draft_model", default=None,
+                   help="speculative decoding draft family (greedy path; output exactly "
+                        "matches the target model)")
     p.add_argument("--draft_checkpoint", default=None)
     p.add_argument("--spec_k", type=int, default=4)
-    p.add_argument("--medusa", default=None, help="Medusa heads (not ported yet)")
-    p.add_argument("--medusa_chains", type=int, default=None)
+    p.add_argument("--medusa", default=None,
+                   help="medusa.npz (cli.medusa): self-speculative multi-token heads, no "
+                        "draft model; output exactly matches plain greedy. Applies to "
+                        "short-form, long-form and streaming greedy paths")
+    p.add_argument("--medusa_chains", type=int, default=None,
+                   help="branch on head 1's top-S candidates per round (tree-attention "
+                        "chain mode; default: the value saved in medusa.npz, else 1)")
     p.add_argument("--bias_words", nargs="*", default=None, help="server-wide default bias words")
     p.add_argument("--bias_boost", type=float, default=0.0)
     p.add_argument("--model_parallelism", type=int, default=1,
@@ -131,10 +150,6 @@ def parse_args(argv=None):
 
 def check_ported(args) -> None:
     """Raise for a flag whose module is not ported yet, before any weights load."""
-    if args.draft_model:
-        not_ported("--draft_model (speculative decoding)", "A.7")
-    if args.medusa:
-        not_ported("--medusa (self-speculative decoding)", "A.7")
     check_model_parallelism(args.model_parallelism)
 
 
@@ -145,13 +160,15 @@ def _nan_off(x):
 class Engine:
     """The model on one device, and the micro-batching worker. ``config``
     and ``params`` (the JAX package's params tree as numpy arrays) replace
-    what ``args`` would load; ``warmup`` runs one silent batch before the
+    what ``args`` would load, and ``draft_config`` and ``draft_params`` what
+    ``--draft_model`` would; ``warmup`` runs one silent batch before the
     first request. ``batches`` lists the real requests of each micro-batch
     the worker ran."""
 
     MAX_SPANS = (16, 16)  # bias spans padded to one shape for every request
 
-    def __init__(self, args, *, config=None, params=None, warmup: bool = True):
+    def __init__(self, args, *, config=None, params=None, draft_config=None,
+                 draft_params=None, warmup: bool = True):
         check_ported(args)
         self.args = args
         self.device = resolve_device(args.device)
@@ -167,6 +184,15 @@ class Engine:
         elif args.init_checkpoint:
             state, self.cfg = load_checkpoint_or_safetensors(args.init_checkpoint, self.cfg)
         self.model = build_model(self.cfg, state, seed=0, device=self.device)
+        self.medusa = (load_medusa(args.medusa, n_chains=args.medusa_chains)
+                       if args.medusa else None)
+        # the draft inherits the serving overrides: the target's kernel family
+        self.draft = self.draft_cfg = None
+        if args.draft_model:
+            self.draft, self.draft_cfg = load_draft(
+                args.draft_model, args.draft_checkpoint,
+                overrides=FAST_OVERRIDES if fast else {}, target_cfg=self.cfg,
+                cfg=draft_config, params=draft_params, device=self.device)
         self.frontend = select_mel_frontend()
         self.rtf = RtfMeter()
         self.collator = SpeechSeq2SeqCollator(
@@ -194,9 +220,16 @@ class Engine:
         self.q.put(None)
         self.worker.join()
 
-    def mel(self, audio) -> torch.Tensor:
+    def mel(self, audio, n_mels: int | None = None) -> torch.Tensor:
         return self.frontend(torch.as_tensor(audio, dtype=torch.float32, device=self.device),
-                             n_mels=self.cfg.n_mels)
+                             n_mels=n_mels or self.cfg.n_mels)
+
+    def _long_draft(self):
+        """The draft tuple of the long-form routes and streams: only a draft
+        with the target's mel frontend (their mel is shared)."""
+        if self.draft is None or self.draft_cfg.n_mels != self.cfg.n_mels:
+            return None
+        return (self.draft, self.draft_cfg, self.args.spec_k)
 
     def _spans_for(self, words_lists):
         if not any(words_lists):
@@ -239,7 +272,8 @@ class Engine:
         n = len(audios)
         opts = opts or [{} for _ in range(n)]
         # never raw PCM here, however routing changes: int16 normalizes first
-        mel = self.mel(np.stack([pad_or_trim(pcm_to_float32(a)) for a in audios]))
+        stacked = np.stack([pad_or_trim(pcm_to_float32(a)) for a in audios])
+        mel = self.mel(stacked)
         ctx = None
         if any(contexts):
             # rows without a context stay unprompted
@@ -258,6 +292,15 @@ class Engine:
         if self.args.num_beams > 1:
             hyps = beam_decode_batch(self.model, tok, mel, num_beams=self.args.num_beams,
                                      **kwargs)
+        elif self.medusa is not None:
+            hyps = medusa_decode_batch(self.model, self.medusa, tok, mel, pad_to_multiple=32,
+                                       **kwargs)
+        elif self.draft is not None:
+            mel_d = (None if self.draft_cfg.n_mels == self.cfg.n_mels
+                     else self.mel(stacked, n_mels=self.draft_cfg.n_mels))
+            hyps = speculative_decode_batch(self.draft, self.model, tok, mel,
+                                            k=self.args.spec_k, pad_to_multiple=32,
+                                            input_features_draft=mel_d, **kwargs)
         else:
             hyps = decode_batch(self.model, tok, mel, pad_to_multiple=32, **kwargs)
         results = [{"text": tok.decode(h, skip_special_tokens=True).strip()} for h in hyps]
@@ -333,7 +376,8 @@ class Engine:
             logprob_threshold=lp, prefix_pad_to_multiple=32,
             max_batch=self.args.chunked_batch, pad_batches=True, start_tokens=start_tokens,
             num_beams=self.args.num_beams, vad=self.args.vad, return_segments=want_words,
-            word_timestamps=want_words, return_window_info=want_info, device=self.device)
+            word_timestamps=want_words, return_window_info=want_info, medusa=self.medusa,
+            draft=self._long_draft(), device=self.device)
         return self._long_results(out, n, audios, opts, langs, want_words, want_info)
 
     @torch.no_grad()
@@ -361,7 +405,7 @@ class Engine:
             logprob_threshold=lp, prefix_pad_to_multiple=32, start_tokens=start_tokens,
             return_segments=want_words, word_timestamps=want_words,
             num_beams=self.args.num_beams, vad=self.args.vad, return_window_info=want_info,
-            device=self.device)
+            medusa=self.medusa, draft=self._long_draft(), device=self.device)
         return self._long_results(out, n, audios, opts, langs, want_words, want_info)
 
     # -- streaming sessions (decode/streaming.py) -------------------------
@@ -388,7 +432,8 @@ class Engine:
             best_of=self.args.best_of, logprob_threshold=_nan_off(self.args.logprob_threshold),
             language=opt.get("language") if tok.multilingual else None,
             task=opt.get("task", "transcribe") if tok.multilingual else "transcribe",
-            word_timestamps=bool(opt.get("words")), vad=self.args.vad, device=self.device)
+            word_timestamps=bool(opt.get("words")), vad=self.args.vad, medusa=self.medusa,
+            draft=None if self.medusa is not None else self._long_draft(), device=self.device)
         sid = uuid.uuid4().hex[:16]
         with self.streams_lock:
             if len(self.streams) >= self.args.max_streams:

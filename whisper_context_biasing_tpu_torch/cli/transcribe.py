@@ -17,8 +17,10 @@ windows in parallel (mono 16 kHz 16-bit WAVs cross to the card as int16).
 every route; short-form ``--format srt|vtt`` turns it on to time its cues.
 On a card the serving fast path is on (the mel, flash and int8
 cross-attention kernels, int8 cross-K/V, tanh gelu) unless ``--exact``.
-``--draft_model`` and ``--medusa`` raise ``NotImplementedError`` naming
-ROADMAP Queue A.7 before any audio is read.
+Greedy decoding runs speculatively with the same output: ``--draft_model``
+(with ``--draft_checkpoint`` and ``--spec_k``) proposes with a draft model,
+``--medusa medusa.npz`` (from ``cli.medusa``; ``--medusa_chains``) with
+Medusa heads, which win over a draft; in long-form they drive the t=0 rung.
 """
 
 from __future__ import annotations
@@ -41,16 +43,24 @@ from ..decode import (
     decode_batch,
     detect_language,
     find_word_timestamps,
+    load_draft,
+    medusa_decode_batch,
     resolve_start_tokens,
+    speculative_decode_batch,
     transcribe_chunked,
     transcribe_long_batch,
     unpack_long_form,
 )
-from ..models import FAST_OVERRIDES, build_model, get_config, load_checkpoint_or_safetensors
+from ..models import (
+    FAST_OVERRIDES,
+    build_model,
+    get_config,
+    load_checkpoint_or_safetensors,
+    load_medusa,
+)
 from ..tokenizer import load_tokenizer
 from ..utils import warn_missing_assets
 from ..utils.subtitles import close_open_segments, format_srt, format_vtt, words_to_segments
-from . import not_ported
 
 
 def parse_args(argv=None):
@@ -65,11 +75,18 @@ def parse_args(argv=None):
     p.add_argument("--bias_words", nargs="*", default=None)
     p.add_argument("--bias_boost", type=float, default=0.0)
     p.add_argument("--num_beams", type=int, default=1)
-    p.add_argument("--draft_model", default=None, help="speculative decoding (not ported yet)")
+    p.add_argument("--draft_model", default=None,
+                   help="speculative decoding: small draft model family (e.g. tiny.en for "
+                        "base.en); output equals plain greedy")
     p.add_argument("--draft_checkpoint", default=None)
-    p.add_argument("--spec_k", type=int, default=4)
-    p.add_argument("--medusa", default=None, help="Medusa heads (not ported yet)")
-    p.add_argument("--medusa_chains", type=int, default=None)
+    p.add_argument("--spec_k", type=int, default=4,
+                   help="draft tokens proposed per verification round")
+    p.add_argument("--medusa", default=None,
+                   help="medusa.npz from cli.medusa: self-speculative decoding with "
+                        "multi-token heads (wins over --draft_model)")
+    p.add_argument("--medusa_chains", type=int, default=None,
+                   help="Medusa tree chains: branch on head 1's top-N (default: the value "
+                        "saved in medusa.npz, else 1)")
     p.add_argument("--beam_early_stopping", choices=["off", "true", "false", "never"],
                    default="off",
                    help="off = frozen-beam pool; true/false/never = HF generate semantics")
@@ -128,14 +145,6 @@ def parse_args(argv=None):
 
 def output_format(args) -> str:
     return args.format or ("json" if args.json else "text")
-
-
-def check_ported(args) -> None:
-    """Raise for a flag whose module is not ported yet, before any audio is read."""
-    if args.draft_model:
-        not_ported("--draft_model (speculative decoding)", "A.7")
-    if args.medusa:
-        not_ported("--medusa (self-speculative decoding)", "A.7")
 
 
 def nan_off(x):
@@ -241,7 +250,6 @@ def write_outputs(args, fmt, rendered) -> None:
 @torch.no_grad()
 def main(argv=None):
     args = parse_args(argv)
-    check_ported(args)
     fmt = output_format(args)
     device = resolve_device(args.device)
     tokenizer = load_tokenizer(args.vocab, args.merges,
@@ -255,9 +263,14 @@ def main(argv=None):
     model = build_model(cfg, state, seed=0, device=device)
     frontend = select_mel_frontend()
 
-    def make_mel(chunk):
+    def make_mel(chunk, n_mels=None):
         return frontend(torch.as_tensor(chunk, dtype=torch.float32, device=device),
-                        n_mels=cfg.n_mels)
+                        n_mels=n_mels or cfg.n_mels)
+
+    def draft_model():
+        return load_draft(args.draft_model, args.draft_checkpoint,
+                          overrides=FAST_OVERRIDES if fast else {}, target_cfg=cfg,
+                          device=device)
 
     contexts = spans = None
     n = len(args.audio)
@@ -279,6 +292,26 @@ def main(argv=None):
         print("warning: --window_info reports long-form window QC; ignored on the "
               "single-window path (use --long)", file=sys.stderr)
     if args.long:
+        # beams drive the t=0 rung over Medusa and a draft; Medusa wins over
+        # a draft, which must share the target's mel
+        medusa = draft = None
+        if args.medusa:
+            medusa = load_medusa(args.medusa, n_chains=args.medusa_chains)
+            if args.num_beams > 1:
+                print("warning: --num_beams > 1 takes the beam path at temperature 0; "
+                      "--medusa heads unused in long-form", file=sys.stderr)
+        if args.num_beams > 1 and args.draft_model:
+            print("warning: --num_beams > 1 takes the beam path; --draft_model ignored in "
+                  "long-form", file=sys.stderr)
+        elif medusa is not None and args.draft_model:
+            print("warning: --medusa wins over --draft_model; draft ignored", file=sys.stderr)
+        elif args.draft_model:
+            dmodel, dcfg = draft_model()
+            if dcfg.n_mels != cfg.n_mels:
+                print("warning: --draft_model n_mels mismatch; speculative long-form "
+                      "disabled", file=sys.stderr)
+            else:
+                draft = (dmodel, dcfg, args.spec_k)
         # the chunked decoder normalizes on the card: mono 16 kHz 16-bit WAVs
         # cross as int16, half the bytes
         raw = [load_audio(p, keep_int16=args.chunked) for p in args.audio]
@@ -296,7 +329,7 @@ def main(argv=None):
             beam_early_stopping=args.beam_early_stopping,
             word_timestamps=args.word_timestamps, alignment_heads=heads,
             vad=parse_clip_timestamps(args.clip_timestamps) or args.vad,
-            return_window_info=args.window_info, device=device)
+            return_window_info=args.window_info, medusa=medusa, draft=draft, device=device)
         if args.chunked:
             out = transcribe_chunked(model, tokenizer, raw, prefix_pad_to_multiple=32, **common)
         else:
@@ -333,8 +366,21 @@ def main(argv=None):
         kwargs = dict(contexts=contexts, max_new=args.max_tokens, bias_spans=spans,
                       bias_boost=args.bias_boost, starts=starts, device=device)
         if args.num_beams > 1:
+            for flag in ("draft_model", "medusa"):
+                if getattr(args, flag):
+                    print(f"warning: --{flag} is greedy-only; ignored with --num_beams > 1",
+                          file=sys.stderr)
             hyps = beam_decode_batch(model, tokenizer, mel, num_beams=args.num_beams,
                                      early_stopping=args.beam_early_stopping, **kwargs)
+        elif args.medusa:
+            hyps = medusa_decode_batch(model, load_medusa(args.medusa,
+                                                          n_chains=args.medusa_chains),
+                                       tokenizer, mel, **kwargs)
+        elif args.draft_model:
+            dmodel, dcfg = draft_model()
+            mel_d = make_mel(audio, n_mels=dcfg.n_mels) if dcfg.n_mels != cfg.n_mels else None
+            hyps = speculative_decode_batch(dmodel, model, tokenizer, mel, k=args.spec_k,
+                                            input_features_draft=mel_d, **kwargs)
         else:
             hyps = decode_batch(model, tokenizer, mel, **kwargs)
         audio_seconds = sum(true_lengths) / 16000

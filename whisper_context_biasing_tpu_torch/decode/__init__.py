@@ -1,5 +1,6 @@
 """Decoding: batched greedy and beam decode with the in-loop bias-trie
-processor, language identification, sequential and chunked long-form
+processor, speculative (draft model) and Medusa (self-speculative) greedy
+decode, language identification, sequential and chunked long-form
 transcription, word timestamps, and streaming sessions."""
 
 from .bias_processor import (
@@ -18,6 +19,13 @@ from .greedy import (
     greedy_decode,
     pack_prefixes,
 )
+from .speculative import (
+    load_draft,
+    speculative_decode_batch,
+    speculative_greedy_decode,
+    t0_verified_decode,
+)
+from .medusa import medusa_decode_batch, medusa_greedy_decode
 from .beam import BeamResult, beam_decode, beam_decode_batch
 from .language import detect_language, resolve_start_tokens
 from .long_form import (
@@ -48,6 +56,12 @@ __all__ = [
     "decode_batch",
     "greedy_decode",
     "pack_prefixes",
+    "load_draft",
+    "speculative_decode_batch",
+    "speculative_greedy_decode",
+    "t0_verified_decode",
+    "medusa_decode_batch",
+    "medusa_greedy_decode",
     "BeamResult",
     "beam_decode",
     "beam_decode_batch",

@@ -38,6 +38,7 @@ from ..audio.io import pcm_to_float32
 from ..audio.mel import N_SAMPLES, SAMPLE_RATE, select_mel_frontend
 from ..models.whisper import Whisper
 from .greedy import greedy_decode, pack_prefixes
+from .speculative import t0_verified_decode
 from .long_form import (
     DEFAULT_TEMPERATURES,
     MAX_PROMPT_TOKENS,
@@ -218,10 +219,11 @@ def transcribe_chunked(
     ladder. ``decode_fn(mel, ids, mask, temperature, generator) ->
     GreedyResult`` can be injected; the default runs ``greedy_decode``
     (``beam_decode`` at the t=0 rung with ``num_beams > 1``) on ``device``.
-    ``draft``, ``medusa`` and ``mesh`` are not ported and raise."""
-    if draft is not None or medusa is not None:
-        raise NotImplementedError("speculative and Medusa decoding in chunked long-form are not "
-                                  "ported yet (ROADMAP Queue A.7)")
+    ``medusa`` (a head dict) or ``draft`` (``(draft model, its config, k)``
+    with the target's ``n_mels``) drives the t=0 rung through
+    ``t0_verified_decode`` (Medusa wins; beams win over both), with the same
+    tokens as plain greedy; the timestamp rules are then off on every rung,
+    as in JAX. ``mesh`` is not ported and raises."""
     if mesh is not None:
         raise NotImplementedError("mesh-sharded chunked decoding is not ported yet "
                                   "(ROADMAP Queue A.9)")
@@ -285,7 +287,10 @@ def transcribe_chunked(
         phase_times["n_windows"] = len(work)
     t_dec = time.perf_counter()
     ns_id = tokenizer.no_speech if no_speech_threshold is not None else None
-    ts_begin = tokenizer.timestamp_begin if use_timestamps else None
+    # the timestamp rules stay off when Medusa or a draft drives t=0, so the
+    # verified-equals-greedy contract holds on every rung
+    ts_begin = (tokenizer.timestamp_begin
+                if use_timestamps and medusa is None and draft is None else None)
 
     for lo in range(0, len(work), max_batch):
         batch = work[lo: lo + max_batch]
@@ -319,6 +324,14 @@ def transcribe_chunked(
                     early_stopping=beam_early_stopping, no_speech_id=ns_id,
                     sot_offset=sot_off, timestamp_begin=ts_begin, device=device)
                 return _best_beam_as_greedy(res, length_penalty, beam_early_stopping)
+            if temperature == 0.0 and (medusa is not None or draft is not None):
+                if medusa is None and draft[1].n_mels != model.cfg.n_mels:
+                    raise ValueError("chunked speculative decoding needs a draft with the "
+                                     "target's n_mels")
+                return t0_verified_decode(
+                    model, tokenizer, mel, ids, mask, max_new=max_new, spans=spans,
+                    bias_boost=bias_boost, no_speech_id=ns_id, sot_offset=sot_off,
+                    medusa=medusa, draft=draft, device=device)
             return greedy_decode(
                 model, mel, ids, mask, max_new=max_new, eot_id=tokenizer.eot,
                 bias_spans=spans, bias_boost=bias_boost, span_pad_id=tokenizer.eot,

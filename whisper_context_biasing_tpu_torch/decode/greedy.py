@@ -53,6 +53,8 @@ class GreedyResult(NamedTuple):
                                # the <|sot|> input position (no_speech_id)
     margins: torch.Tensor | None = None  # (B, max_new) f32 — top-1 minus top-2
                                # logit at each pick (return_margins=True)
+    spec_rounds: int | None = None  # verify rounds of a speculative or Medusa
+                               # decode (decode/speculative.py, decode/medusa.py)
 
 
 def pack_prefixes(

@@ -34,6 +34,7 @@ from .._device import resolve_device
 from ..audio.mel import N_SAMPLES, SAMPLE_RATE, log_mel_spectrogram_np
 from ..models.whisper import Whisper
 from .greedy import GreedyResult, greedy_decode, pack_prefixes
+from .speculative import t0_verified_decode
 
 MAX_PROMPT_TOKENS = 190  # the reference's desc-prompt truncation bound
 DEFAULT_TEMPERATURES = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
@@ -248,10 +249,12 @@ def transcribe_long_batch(
     ``word_timestamps=True`` with ``return_segments`` returns ``(tokens,
     segments, words)``: each window iteration's emitted rows align in one
     batched pass (``find_word_timestamps``), word times in absolute file time.
-    ``draft``, ``medusa`` and ``mesh`` are not ported and raise."""
-    if draft is not None or medusa is not None:
-        raise NotImplementedError("speculative and Medusa decoding in long-form are not ported "
-                                  "yet (ROADMAP Queue A.7)")
+
+    ``medusa`` (a head dict) or ``draft`` (``(draft model, its config, k)``,
+    the draft with the target's ``n_mels``: ``mel_fn`` is shared) drives the
+    t=0 rung through ``t0_verified_decode`` (Medusa wins), with the same
+    tokens as plain greedy; the timestamp rules are then off on every rung,
+    as in JAX. ``mesh`` is not ported and raises."""
     if mesh is not None:
         raise NotImplementedError("mesh-sharded long-form decoding is not ported yet "
                                   "(ROADMAP Queue A.9)")
@@ -263,7 +266,13 @@ def transcribe_long_batch(
         # per-row <|sot|> offsets: start sequences may differ per file
         sot_off = [len(st) for st in start_tokens] if start_tokens else 1
         ns_id = tokenizer.no_speech if no_speech_threshold is not None else None
-        ts_begin = tokenizer.timestamp_begin if use_timestamps else None
+        if draft is not None and draft[1].n_mels != model.cfg.n_mels:
+            raise ValueError("long-form speculative decoding needs a draft with the target's "
+                             "n_mels (mel_fn is shared)")
+        # the timestamp rules stay off when Medusa or a draft drives t=0, so
+        # the verified-equals-greedy contract holds on every rung
+        ts_begin = (tokenizer.timestamp_begin
+                    if use_timestamps and medusa is None and draft is None else None)
 
         def decode_fn(mel, ids, mask, temperature, gen):
             if num_beams > 1 and temperature == 0.0:
@@ -276,6 +285,11 @@ def transcribe_long_batch(
                     early_stopping=beam_early_stopping, no_speech_id=ns_id,
                     sot_offset=sot_off, timestamp_begin=ts_begin, device=device)
                 return _best_beam_as_greedy(res, length_penalty, beam_early_stopping)
+            if temperature == 0.0 and (medusa is not None or draft is not None):
+                return t0_verified_decode(
+                    model, tokenizer, mel, ids, mask, max_new=max_new, spans=bias_spans,
+                    bias_boost=bias_boost, no_speech_id=ns_id, sot_offset=sot_off,
+                    medusa=medusa, draft=draft, device=device)
             return greedy_decode(
                 model, mel, ids, mask, max_new=max_new, eot_id=tokenizer.eot,
                 bias_spans=bias_spans, bias_boost=bias_boost, span_pad_id=tokenizer.eot,

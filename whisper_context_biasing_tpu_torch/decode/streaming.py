@@ -19,6 +19,7 @@ import torch
 from .._device import resolve_device
 from ..audio.mel import N_SAMPLES, SAMPLE_RATE
 from .greedy import greedy_decode, pack_prefixes
+from .speculative import t0_verified_decode
 from .long_form import (
     DEFAULT_TEMPERATURES,
     MAX_PROMPT_TOKENS,
@@ -74,9 +75,6 @@ class StreamingTranscriber:
         medusa: dict | None = None,
         device="cuda",
     ):
-        if draft is not None or medusa is not None:
-            raise NotImplementedError("speculative and Medusa decoding in streaming are not "
-                                      "ported yet (ROADMAP Queue A.7)")
         self.tokenizer = tokenizer
         self.context = list(context) if context else []
         self.condition_on_previous = condition_on_previous
@@ -130,17 +128,28 @@ class StreamingTranscriber:
         self.mel_fn = mel_fn
         if decode_fn is None:
             outer = self
+            # the draft is unreachable when Medusa is set (Medusa wins)
+            if medusa is None and draft is not None and draft[1].n_mels != model.cfg.n_mels:
+                raise ValueError("streaming speculative decoding needs a draft with the "
+                                 "target's n_mels")
 
             def decode_fn(mel, ids, mask, temperature, gen):
+                ns_id = tokenizer.no_speech if no_speech_threshold is not None else None
+                if temperature == 0.0 and (medusa is not None or draft is not None):
+                    return t0_verified_decode(
+                        model, tokenizer, mel, ids, mask, max_new=max_new, spans=bias_spans,
+                        bias_boost=bias_boost, no_speech_id=ns_id, sot_offset=len(outer.start),
+                        medusa=medusa, draft=draft, device=outer.device)
                 return greedy_decode(
                     model, mel, ids, mask, max_new=max_new, eot_id=tokenizer.eot,
                     bias_spans=bias_spans, bias_boost=bias_boost, span_pad_id=tokenizer.eot,
-                    temperature=temperature, generator=gen,
-                    no_speech_id=tokenizer.no_speech if no_speech_threshold is not None
-                    else None,
+                    temperature=temperature, generator=gen, no_speech_id=ns_id,
                     # read at call time: detection may rewrite the start
                     sot_offset=len(outer.start),
-                    timestamp_begin=tokenizer.timestamp_begin if use_timestamps else None,
+                    # the timestamp rules on plain greedy only, as on the
+                    # batch long-form routes
+                    timestamp_begin=(tokenizer.timestamp_begin if use_timestamps
+                                     and medusa is None and draft is None else None),
                     device=outer.device)
 
         self.decode_fn = decode_fn

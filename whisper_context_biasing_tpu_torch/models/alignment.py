@@ -29,6 +29,7 @@ from .whisper import (
     _proj,
     _split_heads,
     attention,
+    embed_tokens,
     layer_norm,
     precompute_cross_kv,
     project_vocab,
@@ -173,9 +174,6 @@ def alignment_matrix(
     audio)`` from the same pass (position 0 has no context and is 1.0),
     projecting the vocab 16 positions at a time."""
     cfg, dec = model.cfg, model.decoder
-    if dec.token_emb.dtype == torch.int8:
-        raise NotImplementedError("int8 decoder weights are not ported yet (ROADMAP Queue "
-                                  "A.7, quantize_decoder_weights)")
     dt = cfg.compute_dtype
     dev = enc_out.device
     tokens = tokens.to(device=dev, dtype=torch.int64)
@@ -183,7 +181,7 @@ def alignment_matrix(
     nh, dh = cfg.n_heads, cfg.head_dim
     head_mask = head_mask.to(device=dev, dtype=torch.float32)
 
-    x = dec.token_emb[tokens].to(dt) + dec.pos_emb[torch.arange(s, device=dev)][None].to(dt)
+    x = embed_tokens(dec, tokens, dt) + dec.pos_emb[torch.arange(s, device=dev)][None].to(dt)
     cross_k, cross_v = precompute_cross_kv(model, enc_out)
     causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
     tmask = token_mask.to(device=dev, dtype=torch.float32)

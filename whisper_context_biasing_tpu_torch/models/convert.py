@@ -8,7 +8,10 @@ gradients keyed by parameter name) back. The JAX tree stacks each block paramete
 block, ``nn.Linear`` weights (out, in) and ``nn.Conv1d`` weights (O, I, W).
 The token embedding is also the (tied) vocab projection, unless the tree
 holds an untied ``proj_out`` (V, D): then the model gets one too, under the
-same name.
+same name. A tree from the JAX package's ``quantize_decoder_weights`` holds
+``{"q", "s"}`` int8 leaves for the decoder: they carry over as int8 weights
+with their scales (``models/whisper.py:int8_decoder_layout``), which
+``build_model`` gives a decode-only model.
 
 ``init_state_dict`` draws the same distributions as the JAX package's
 ``init_params`` from a ``torch.Generator``: the numbers differ from JAX's for
@@ -24,7 +27,7 @@ import torch
 
 from .._device import resolve_device
 from .config import WhisperConfig
-from .whisper import Whisper, sinusoids
+from .whisper import Whisper, int8_decoder_layout, sinusoids
 
 _ATTN = {"query": ("wq", "bq"), "key": ("wk", None), "value": ("wv", "bv"),
          "out": ("wo", "bo")}
@@ -36,9 +39,22 @@ def params_from_jax(np_tree: dict, cfg: WhisperConfig) -> dict[str, torch.Tensor
     def t(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
+    def q8(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.int8))
+
+    def rows(sd, name, leaf):
+        if isinstance(leaf, dict):  # int8 rows (V, D), scales (V, 1)
+            sd[name], sd[f"{name}_scale"] = q8(leaf["q"]), t(leaf["s"])
+        else:
+            sd[name] = t(leaf)
+
     def lin(sd, prefix, group, i, names):
         for mod, (w, b) in names.items():
-            sd[f"{prefix}.{mod}.weight"] = t(group[w][i]).T.contiguous()
+            if isinstance(group[w], dict):  # int8 (in, out), scales (1, out) a layer
+                sd[f"{prefix}.{mod}.weight"] = q8(group[w]["q"][i]).T.contiguous()
+                sd[f"{prefix}.{mod}.scale"] = t(group[w]["s"][i])[0]
+            else:
+                sd[f"{prefix}.{mod}.weight"] = t(group[w][i]).T.contiguous()
             if b is not None:
                 sd[f"{prefix}.{mod}.bias"] = t(group[b][i])
 
@@ -60,7 +76,7 @@ def params_from_jax(np_tree: dict, cfg: WhisperConfig) -> dict[str, torch.Tensor
         lin(sd, f"{p}.mlp", enc["mlp"], i, _MLP)
     ln(sd, "encoder.ln_post", enc["ln_post"])
 
-    sd["decoder.token_emb"] = t(dec["token_emb"])
+    rows(sd, "decoder.token_emb", dec["token_emb"])
     sd["decoder.pos_emb"] = t(dec["pos_emb"])
     for i in range(cfg.n_text_layers):
         p = f"decoder.blocks.{i}"
@@ -71,7 +87,7 @@ def params_from_jax(np_tree: dict, cfg: WhisperConfig) -> dict[str, torch.Tensor
         lin(sd, f"{p}.mlp", dec["mlp"], i, _MLP)
     ln(sd, "decoder.ln", dec["ln"])
     if "proj_out" in np_tree:
-        sd["proj_out"] = t(np_tree["proj_out"])
+        rows(sd, "proj_out", np_tree["proj_out"])
     return sd
 
 
@@ -150,13 +166,20 @@ def build_model(cfg: WhisperConfig, state_dict: dict | None = None, seed: int = 
     embeddings stored in ``cfg``'s compute dtype, no gradients. Training:
     every parameter an f32 master that requires grad; the model casts it to
     the compute dtype at each use. A state dict with a ``proj_out`` gives
-    the model an untied head."""
+    the model an untied head; one with an int8 token embedding (from
+    ``quantize_decoder_weights`` or a quantized JAX tree) gives int8 decoder
+    weights, for decoding only."""
     device = resolve_device(device)
     if state_dict is None:
         state_dict = init_state_dict(cfg, seed)
+    int8 = state_dict["decoder.token_emb"].dtype == torch.int8
+    if int8 and train:
+        raise ValueError("int8 decoder weights are decode-only; train from the float weights")
     with torch.device("meta"):
         model = Whisper(cfg, param_dtype=torch.float32 if train else None,
                         untied_head="proj_out" in state_dict)
+        if int8:
+            int8_decoder_layout(model)
     model = model.to_empty(device=device)
     model.load_state_dict(state_dict)
     return model.train().requires_grad_(True) if train else model.eval().requires_grad_(False)

@@ -112,7 +112,12 @@ def state_dict_from_params(state_dict: dict, cfg: WhisperConfig) -> dict[str, np
     """The inverse of :func:`params_from_state_dict`: the port's state dict
     -> an HF ``WhisperForConditionalGeneration`` state dict of contiguous
     numpy float32 arrays, keys prefixed with ``model.``, plus
-    ``proj_out.weight`` (the token embedding when the head is tied)."""
+    ``proj_out.weight`` (the token embedding when the head is tied).
+    Quantized (int8) weights are not exportable, as in the JAX package."""
+    if any(v.dtype == torch.int8 for v in state_dict.values()):
+        raise ValueError("quantized (int8) params are not exportable — dequantize or export "
+                         "the float master copy")
+
     def put(t):
         return np.ascontiguousarray(t.detach().float().cpu().numpy(), dtype=np.float32)
 

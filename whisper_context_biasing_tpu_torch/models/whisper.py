@@ -28,7 +28,16 @@ The decoder has two modes: cached (prefill and single-token steps over a
 preallocated KV cache, written in place) and full-sequence (training:
 causal self-attention over the labels, the flash kernels at label lengths
 of at least ``flash_decoder_min_seq``). In training, each block runs under
-``cfg.remat`` (``torch.utils.checkpoint`` for "full").
+``cfg.remat`` (``torch.utils.checkpoint`` for "full"). The cached mode also
+takes per-row cache offsets (speculative decoding, where rows advance at
+different rates) and a per-query (B, S, T) mask (Medusa's chain trees).
+
+``quantize_decoder_weights`` gives a decode-only copy of a model with int8
+decoder weights: per-output-column scales for the attention and MLP
+products (``Linear.weight`` int8 and a ``scale`` buffer), per-row scales for
+the token embedding and an untied ``proj_out`` (``*_scale`` buffers). Their
+products run as the JAX package's: the int8 values widened, an f32 product,
+times the scale, rounded to the compute dtype.
 """
 
 from __future__ import annotations
@@ -73,10 +82,19 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
                         1e-5).to(x.dtype)
 
 
+def _is_int8(lin: nn.Linear) -> bool:
+    return lin.weight.dtype == torch.int8
+
+
 def _proj(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """x @ W^T + b with W and b cast to x's dtype: the product accumulates
-    in f32 and rounds to x's dtype, then the bias adds in that dtype."""
-    y = F.linear(x, lin.weight.to(x.dtype))
+    in f32 and rounds to x's dtype, then the bias adds in that dtype. An int8
+    weight (``quantize_decoder_weights``) is widened, its f32 product scaled
+    per output column, then rounded to x's dtype."""
+    if _is_int8(lin):
+        y = (F.linear(x.float(), lin.weight.float()) * lin.scale).to(x.dtype)
+    else:
+        y = F.linear(x, lin.weight.to(x.dtype))
     if lin.bias is not None:
         y = y + lin.bias.to(x.dtype)
     return y
@@ -120,7 +138,7 @@ def _ln_qkv(h, ln: nn.LayerNorm, attn: "Attention", cfg: WhisperConfig):
     (N, 3d) product with W = [Wq | Wk | Wv] in the compute dtype and the
     bias [bq, 0, bv] (Whisper's key has no bias); q, k and v are views of
     its output."""
-    if cfg.fused_ln_qkv:
+    if cfg.fused_ln_qkv and not _is_int8(attn.query):
         d = h.shape[-1]
         w = torch.cat([attn.query.weight, attn.key.weight, attn.value.weight]).to(h.dtype)
         b = torch.cat([attn.query.bias, attn.query.bias.new_zeros(d), attn.value.bias])
@@ -133,7 +151,7 @@ def _ln_qkv(h, ln: nn.LayerNorm, attn: "Attention", cfg: WhisperConfig):
 def _ln_proj(h, ln: nn.LayerNorm, lin: nn.Linear, cfg: WhisperConfig):
     """LayerNorm + one projection (the cross-attention query), fused under
     ``cfg.fused_ln_qkv``."""
-    if cfg.fused_ln_qkv:
+    if cfg.fused_ln_qkv and not _is_int8(lin):
         return fused_ln_matmul(h, ln.weight, ln.bias, lin.weight.to(h.dtype).t(), lin.bias)
     return _proj(layer_norm(h, ln), lin)
 
@@ -141,7 +159,7 @@ def _ln_proj(h, ln: nn.LayerNorm, lin: nn.Linear, cfg: WhisperConfig):
 def _ln_mlp(h, ln: nn.LayerNorm, mlp: "MLP", cfg: WhisperConfig):
     """Pre-MLP LayerNorm + MLP. With ``cfg.fused_ln_mlp`` the LayerNorm, the
     first product, its bias and the gelu are one fused pass."""
-    if cfg.fused_ln_mlp:
+    if cfg.fused_ln_mlp and not _is_int8(mlp.fc1):
         wide = fused_ln_matmul(h, ln.weight, ln.bias, mlp.fc1.weight.to(h.dtype).t(),
                                mlp.fc1.bias, act="gelu_tanh" if cfg.gelu_approx else "gelu")
         return _proj(wide, mlp.fc2)
@@ -333,6 +351,69 @@ def _attention_quant_cross(q, kv, n_heads: int):
                                        n_heads)
 
 
+def _int8_linears(model: Whisper):
+    """The decoder products ``quantize_decoder_weights`` makes int8: every
+    block's self- and cross-attention q/k/v/o and both MLP products, with
+    their state-dict prefixes."""
+    for i, blk in enumerate(model.decoder.blocks):
+        for grp in ("self_attn", "cross_attn"):
+            for name in ("query", "key", "value", "out"):
+                yield f"decoder.blocks.{i}.{grp}.{name}", getattr(getattr(blk, grp), name)
+        for name in ("fc1", "fc2"):
+            yield f"decoder.blocks.{i}.mlp.{name}", getattr(blk.mlp, name)
+
+
+def int8_decoder_layout(model: Whisper) -> None:
+    """Give ``model`` (in place, values unset) the layout of int8 decoder
+    weights: each product of ``_int8_linears`` an int8 ``weight`` (out, in)
+    and an f32 ``scale`` buffer (out,), the token embedding (and an untied
+    ``proj_out``) int8 (V, D) with an f32 ``*_scale`` buffer (V, 1)."""
+    def int8_param(p: torch.Tensor) -> nn.Parameter:
+        return nn.Parameter(torch.empty(p.shape, dtype=torch.int8, device=p.device),
+                            requires_grad=False)
+
+    for _, lin in _int8_linears(model):
+        lin.weight = int8_param(lin.weight)
+        lin.register_buffer("scale", torch.empty(lin.weight.shape[0], device=lin.weight.device))
+    dec = model.decoder
+    dec.token_emb = int8_param(dec.token_emb)
+    dec.register_buffer("token_emb_scale", torch.empty(dec.token_emb.shape[0], 1,
+                                                        device=dec.token_emb.device))
+    if model.proj_out is not None:
+        model.proj_out = int8_param(model.proj_out)
+        model.register_buffer("proj_out_scale", torch.empty(model.proj_out.shape[0], 1,
+                                                            device=model.proj_out.device))
+
+
+def _quantize(w: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 with one f32 scale per slice along ``dim``: scale =
+    max|w| / 127 (at least 1e-8), values rounded half to even."""
+    wf = w.float()
+    s = torch.clamp(wf.abs().amax(dim=dim, keepdim=True) / 127.0, min=1e-8)
+    return torch.round(wf / s).to(torch.int8), s
+
+
+@torch.no_grad()
+def quantize_decoder_weights(model: Whisper) -> Whisper:
+    """Weight-only int8 for the decoder, decode only (not differentiable): a
+    new serving model on ``model``'s device whose decoder products have
+    per-output-column scales and whose token embedding (and untied
+    ``proj_out``) have per-row scales. The encoder, layer norms, biases and
+    position tables keep their weights. The JAX package quantizes its f32
+    params; this quantizes the weights ``model`` holds (the compute dtype in
+    a serving model)."""
+    from .convert import build_model
+
+    sd = dict(model.state_dict())
+    for prefix, _ in _int8_linears(model):
+        q, s = _quantize(sd[f"{prefix}.weight"], dim=1)  # (out, in): per output column
+        sd[f"{prefix}.weight"], sd[f"{prefix}.scale"] = q, s[:, 0]
+    for name in ("decoder.token_emb", "proj_out"):
+        if name in sd:
+            sd[name], sd[f"{name}_scale"] = _quantize(sd[name], dim=1)  # (V, D): per row
+    return build_model(model.cfg, sd, device=next(model.parameters()).device)
+
+
 def init_kv_cache(cfg: WhisperConfig, batch: int, max_len: int, device) -> dict:
     shape = (cfg.n_text_layers, batch, max_len, cfg.d_model)
     dt = cfg.compute_dtype
@@ -359,40 +440,68 @@ def _decoder_block_full(blk: DecoderBlock, h, ck, cv, cfg: WhisperConfig, use_fl
     return h + _ln_mlp(h, blk.mlp_ln, blk.mlp, cfg)
 
 
+def embed_tokens(dec: TextDecoder, tokens: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Token embeddings in ``dt``; an int8 table (``quantize_decoder_weights``)
+    is widened and scaled per row in f32 first."""
+    if dec.token_emb.dtype == torch.int8:
+        return (dec.token_emb[tokens].float() * dec.token_emb_scale[tokens]).to(dt)
+    return dec.token_emb[tokens].to(dt)
+
+
+def _write_cache(c: torch.Tensor, new: torch.Tensor, pos_offset, per_row: bool) -> None:
+    """Write ``new`` (B, S, D) into one layer's cache (B, T, D) in place at
+    slot ``pos_offset`` (an int) or, per row, ``pos_offset[b]`` ((B,)). A
+    per-row start that would run past the cache is clamped to T - S, as
+    ``lax.dynamic_update_slice`` clamps it in the JAX package (whose callers
+    size their caches so that it never happens)."""
+    if not per_row:
+        c[:, pos_offset:pos_offset + new.shape[1]] = new
+        return
+    b, s = new.shape[:2]
+    start = torch.clamp(pos_offset, 0, c.shape[1] - s)
+    slots = start[:, None] + torch.arange(s, device=c.device)
+    c[torch.arange(b, device=c.device)[:, None], slots] = new.to(c.dtype)
+
+
 def decode_tokens(
     model: Whisper,
     tokens: torch.Tensor,              # (B, S) int
     cross_kv=None,                     # (k, v) each (L, B, T, D), or the int8 dict
     cache: dict | None = None,         # KV cache from init_kv_cache, written in place
-    pos_offset: int = 0,               # cache slot of tokens[:, 0]
+    pos_offset: int | torch.Tensor = 0,  # cache slot of tokens[:, 0]: an int, or
+                                         # (B,) per row (speculative decoding:
+                                         # rows advance at different rates)
     token_positions: torch.Tensor | None = None,  # (B, S) position ids (left-pad)
-    self_mask: torch.Tensor | None = None,        # (B, T_cache) key-side, True=attend
+    self_mask: torch.Tensor | None = None,        # True=attend: (B, T_cache) key-side,
+                                                  # or (B, S, T_cache) per query (trees)
     enc_out: torch.Tensor | None = None,          # (B, T, D), when cross_kv is None
+    return_hidden: bool = False,       # also return the final-LN states (B, S, D)
 ):
     """Decoder forward. Cached mode: keys/values of ``tokens`` are written
-    into ``cache`` at slots ``pos_offset..pos_offset+S`` (in place) and
-    attention spans the whole cache with later slots masked. Full-sequence
-    mode (``cache=None``, training): causal self-attention over ``tokens``.
-    Returns (f32 logits (B, S, V), cache or None)."""
+    into ``cache`` at slots ``pos_offset..pos_offset+S`` (in place; per row
+    for a (B,) offset) and attention spans the whole cache with later slots
+    masked. Full-sequence mode (``cache=None``, training): causal
+    self-attention over ``tokens``. Returns (f32 logits (B, S, V), cache or
+    None), and the final-LN decoder states after them with
+    ``return_hidden`` (the Medusa heads' input)."""
     if cross_kv is None:
         if enc_out is None:
             raise ValueError("need enc_out or cross_kv")
         cross_kv = precompute_cross_kv(model, enc_out)
-    if isinstance(pos_offset, torch.Tensor) and pos_offset.ndim == 1:
-        raise NotImplementedError(
-            "per-row pos_offset is not ported yet (ROADMAP Queue A.7, speculative decode)")
-    if self_mask is not None and self_mask.ndim == 3:
-        raise NotImplementedError(
-            "per-query self_mask is not ported yet (ROADMAP Queue A.7, Medusa trees)")
     cfg, dec = model.cfg, model.decoder
     dt = cfg.compute_dtype
     b, s = tokens.shape
     dev = tokens.device
-    pos_offset = int(pos_offset)
+    per_row = isinstance(pos_offset, torch.Tensor) and pos_offset.ndim == 1
+    if per_row:
+        pos_offset = pos_offset.to(device=dev, dtype=torch.int64)
+    else:
+        pos_offset = int(pos_offset)
 
     if token_positions is None:
-        token_positions = pos_offset + torch.arange(s, device=dev)[None, :]
-    x = dec.token_emb[tokens].to(dt) + dec.pos_emb[token_positions].to(dt)
+        token_positions = (pos_offset[:, None] if per_row else pos_offset) + torch.arange(
+            s, device=dev)[None, :]
+    x = embed_tokens(dec, tokens, dt) + dec.pos_emb[token_positions].to(dt)
     quantized = isinstance(cross_kv, dict)
 
     if cache is None:
@@ -404,24 +513,31 @@ def decode_tokens(
             fn = functools.partial(_decoder_block_full, blk, cfg=cfg, use_flash=use_flash,
                                    causal_mask=causal)
             x = _run_block(fn, cfg, x, cross_kv[0][li].to(dt), cross_kv[1][li].to(dt))
-        return project_vocab(model, layer_norm(x, dec.ln)), None
+        x = layer_norm(x, dec.ln)
+        return (project_vocab(model, x), None) + ((x,) if return_hidden else ())
 
     t_cache = cache["k"].shape[2]
     # causal over cache *slots* (slot i holds token i of the padded sequence;
     # position ids lag slots under left-padding, so compare slots)
     key_slot = torch.arange(t_cache, device=dev)
-    query_slot = pos_offset + torch.arange(s, device=dev)
-    attn_mask = key_slot[None, None, :] <= query_slot[None, :, None]  # (1, S, T)
+    if per_row:
+        query_slot = pos_offset[:, None] + torch.arange(s, device=dev)[None, :]
+        attn_mask = key_slot[None, None, :] <= query_slot[:, :, None]  # (B, S, T)
+    else:
+        query_slot = pos_offset + torch.arange(s, device=dev)
+        attn_mask = key_slot[None, None, :] <= query_slot[None, :, None]  # (1, S, T)
     if self_mask is not None:
-        attn_mask = attn_mask & self_mask[:, None, :]
+        # (B, T): key-side mask shared by every query (left padding); (B, S,
+        # T): one mask a query (sibling chain slots of a Medusa tree hidden)
+        attn_mask = attn_mask & (self_mask if self_mask.ndim == 3 else self_mask[:, None, :])
     attn_mask = attn_mask[:, None]  # (B|1, 1, S, T) -> broadcast over heads
 
     for li, blk in enumerate(dec.blocks):
         a = layer_norm(x, blk.self_attn_ln)
         q = _proj(a, blk.self_attn.query)
         ck, cv = cache["k"][li], cache["v"][li]
-        ck[:, pos_offset:pos_offset + s] = _proj(a, blk.self_attn.key)
-        cv[:, pos_offset:pos_offset + s] = _proj(a, blk.self_attn.value)
+        _write_cache(ck, _proj(a, blk.self_attn.key), pos_offset, per_row)
+        _write_cache(cv, _proj(a, blk.self_attn.value), pos_offset, per_row)
         x = x + _proj(attention(q, ck, cv, cfg.n_heads, attn_mask), blk.self_attn.out)
 
         cq = _proj(layer_norm(x, blk.cross_attn_ln), blk.cross_attn.query)
@@ -438,22 +554,27 @@ def decode_tokens(
         x = x + blk.mlp(layer_norm(x, blk.mlp_ln), cfg)
 
     x = layer_norm(x, dec.ln)
-    return project_vocab(model, x), cache
+    return (project_vocab(model, x), cache) + ((x,) if return_hidden else ())
 
 
 def project_vocab(model: Whisper, x: torch.Tensor) -> torch.Tensor:
     """Vocab projection of decoder states (B, S, D) -> ``_acc`` logits
     (B, S, V), f32 (float64 for a float64 model): compute-dtype operands,
     the product and its output in ``_acc``. The projection is ``proj_out``
-    when the model has an untied head, else the token embedding (tied).
-    While autograd records a trainable weight, the cast stays in the graph,
-    so the weight gets the projection's share of its gradient."""
+    when the model has an untied head, else the token embedding (tied); an
+    int8 one is scaled per vocab row after the product. While autograd
+    records a trainable weight, the cast stays in the graph, so the weight
+    gets the projection's share of its gradient."""
     head = model.proj_out
     w = model.decoder.token_emb if head is None else head
     ft = _acc(x)
     if torch.is_grad_enabled() and w.requires_grad:
         return F.linear(x.to(ft), w.to(x.dtype).to(ft))
-    return F.linear(x.to(ft), model.decoder.vocab_weight_acc(x.dtype, head))
+    logits = F.linear(x.to(ft), model.decoder.vocab_weight_acc(x.dtype, head))
+    if w.dtype == torch.int8:
+        scale = model.decoder.token_emb_scale if head is None else model.proj_out_scale
+        logits = logits * scale[:, 0]
+    return logits
 
 
 def forward(model: Whisper, input_features: torch.Tensor,
@@ -463,3 +584,13 @@ def forward(model: Whisper, input_features: torch.Tensor,
     enc_out = encode_audio(model, input_features)
     logits, _ = decode_tokens(model, decoder_input_ids, enc_out=enc_out)
     return logits
+
+
+def forward_hidden(model: Whisper, input_features: torch.Tensor,
+                   decoder_input_ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``forward`` that also returns the final-LN decoder states (B, S, D):
+    the Medusa heads' training input."""
+    enc_out = encode_audio(model, input_features)
+    logits, _, hid = decode_tokens(model, decoder_input_ids, enc_out=enc_out,
+                                   return_hidden=True)
+    return logits, hid

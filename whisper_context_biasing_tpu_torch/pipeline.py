@@ -14,8 +14,12 @@ id / translation for the multilingual models, and streaming sessions::
                           bias_words=["aspirin"], bias_boost=2.0, word_timestamps=True)
     res[0].text, res[0].words, res[0].segments, res[0].srt()
 
-Speculative and Medusa decoding are not ported yet and raise
-``NotImplementedError`` naming ROADMAP Queue A.7.
+Greedy decoding can run speculatively, with the same tokens: a draft model
+proposes (``Pipeline("base.en", draft_model="tiny.en", draft_checkpoint=...)``)
+or Medusa heads on the model itself do (``Pipeline("base.en",
+medusa="medusa.npz")``, from ``cli.medusa``; they win over a draft). Both
+drive the short-form route and the t=0 rung of the long-form, chunked and
+streaming routes.
 """
 
 from __future__ import annotations
@@ -35,7 +39,10 @@ from .decode import (
     decode_batch,
     detect_language,
     find_word_timestamps,
+    load_draft,
+    medusa_decode_batch,
     resolve_start_tokens,
+    speculative_decode_batch,
     transcribe_chunked,
     transcribe_long_batch,
     unpack_long_form,
@@ -48,7 +55,8 @@ from .models import (
     load_checkpoint_or_safetensors,
     params_from_jax,
 )
-from .models.whisper import encode_audio
+from .models.medusa import load_medusa
+from .models.whisper import Whisper, encode_audio
 from .tokenizer import load_tokenizer
 from .utils.subtitles import close_open_segments, format_srt, format_vtt, words_to_segments
 
@@ -88,7 +96,16 @@ class Pipeline:
     ``fast`` (default: on a card) turns on the serving fast path: the
     flash-attention and int8 cross-attention kernels, int8 cross-K/V and tanh
     gelu. The log-mel frontend takes the mel kernel on a card either way.
-    ``config`` replaces the named config outright."""
+    ``config`` replaces the named config outright.
+
+    ``draft_model`` (a family name; ``draft_config`` replaces its config)
+    turns on speculative greedy decoding with ``speculative_k`` proposals a
+    round: the draft's weights come from ``draft_checkpoint``, from
+    ``draft_params`` (a JAX params tree, or a ``Whisper`` model used as it
+    is, e.g. the pipeline's own for a self-draft) or from the seeded init
+    with a warning. It inherits the target's kernel switches. ``medusa`` (a
+    ``medusa.npz`` path or a head dict) turns on Medusa decoding and wins
+    over a draft; ``medusa_chains`` overrides its chain width."""
 
     def __init__(
         self,
@@ -108,11 +125,13 @@ class Pipeline:
         seed: int = 0,
         device="cuda",
         draft_model: str | None = None,
-        medusa=None,
+        draft_checkpoint: str | None = None,
+        speculative_k: int = 4,
+        draft_config=None,
+        draft_params=None,
+        medusa: str | dict | None = None,
+        medusa_chains: int | None = None,
     ):
-        if draft_model is not None or medusa is not None:
-            raise NotImplementedError("speculative and Medusa decoding are not ported yet "
-                                      "(ROADMAP Queue A.7)")
         self.device = resolve_device(device)
         self.tokenizer = tokenizer or load_tokenizer(
             vocab, merges, multilingual=not model.endswith(".en"))
@@ -129,6 +148,22 @@ class Pipeline:
         elif checkpoint:
             state, self.cfg = load_checkpoint_or_safetensors(checkpoint, self.cfg)
         self.model = build_model(self.cfg, state, seed=seed, device=self.device)
+        self.medusa = None
+        if medusa is not None:
+            self.medusa = (load_medusa(medusa, n_chains=medusa_chains)
+                           if isinstance(medusa, str) else dict(medusa))
+            if medusa_chains and not isinstance(medusa, str):
+                self.medusa["n_chains"] = medusa_chains
+        self.draft = self.draft_cfg = None
+        self.speculative_k = speculative_k
+        if draft_model or draft_config is not None:
+            if isinstance(draft_params, Whisper):
+                self.draft, self.draft_cfg = draft_params, draft_params.cfg
+            else:
+                self.draft, self.draft_cfg = load_draft(
+                    draft_model, draft_checkpoint, dtype=dtype, overrides=overrides,
+                    target_cfg=self.cfg, cfg=draft_config, params=draft_params,
+                    device=self.device)
         self.default_bias_words = bias_words
         self.default_bias_boost = bias_boost
         self.collator = SpeechSeq2SeqCollator(
@@ -162,11 +197,25 @@ class Pipeline:
         enc = [self.tokenizer.encode(w.lower(), add_special_tokens=False) for w in words]
         return self.collator.pad_bias_spans([enc] * n)
 
-    def mel(self, stacked: np.ndarray) -> torch.Tensor:
-        """(B, window) audio -> (B, n_mels, frames) features on the device,
-        through the mel kernel on a card."""
+    def mel(self, stacked: np.ndarray, n_mels: int | None = None) -> torch.Tensor:
+        """(B, window) audio -> (B, n_mels, frames) features on the device
+        (the model's ``n_mels`` by default), through the mel kernel on a
+        card."""
         audio = torch.as_tensor(stacked, dtype=torch.float32, device=self.device)
-        return select_mel_frontend()(audio, n_mels=self.cfg.n_mels)
+        return select_mel_frontend()(audio, n_mels=n_mels or self.cfg.n_mels)
+
+    def _long_form_draft(self, route: str):
+        """The draft tuple for a long-form route, None with Medusa (it wins)
+        or without a draft; a draft with another ``n_mels`` can't share the
+        route's mel, so that route decodes plain with a warning."""
+        if self.medusa is not None or self.draft is None:
+            return None
+        if self.draft_cfg.n_mels != self.cfg.n_mels:
+            warnings.warn(f"{route} speculative decoding needs a draft with the target's n_mels "
+                          f"({self.cfg.n_mels}); draft has {self.draft_cfg.n_mels} — "
+                          f"decoding plain")
+            return None
+        return (self.draft, self.draft_cfg, self.speculative_k)
 
     @torch.no_grad()
     def _encode(self, mel: torch.Tensor) -> torch.Tensor:
@@ -207,6 +256,12 @@ class Pipeline:
             kwargs["context"] = ctx
         kwargs.setdefault("mel_fn", self.mel)
         kwargs.setdefault("window_samples", self.window_samples)
+        # the session's accelerators carry into streaming (Medusa wins; a
+        # draft with another mel frontend can't share the stream's mel_fn)
+        if self.medusa is not None:
+            kwargs.setdefault("medusa", self.medusa)
+        elif (draft := self._long_form_draft("streaming")) is not None:
+            kwargs.setdefault("draft", draft)
         return StreamingTranscriber(self.model, self.tokenizer, device=self.device, **kwargs)
 
     def _short_form(self, clips, idxs, win_samples, *, ctx, spans, boost, language, task,
@@ -216,7 +271,8 @@ class Pipeline:
         ``win_samples`` window: (hyps, word timings or None, langs, timings)."""
         clock = Clock(self.device)
         clock.mark("start")
-        mel = self.mel(np.stack([pad_or_trim(clips[i], win_samples) for i in idxs]))
+        stacked = np.stack([pad_or_trim(clips[i], win_samples) for i in idxs])
+        mel = self.mel(stacked)
         clock.mark("mel")
         need_lang = self.tokenizer.multilingual and (
             language == "auto" or (task == "translate" and not language))
@@ -232,6 +288,16 @@ class Pipeline:
         if num_beams > 1:
             hyps = beam_decode_batch(self.model, self.tokenizer, mel, num_beams=num_beams,
                                      early_stopping=beam_early_stopping, **kwargs)
+        elif self.medusa is not None:
+            hyps = medusa_decode_batch(self.model, self.medusa, self.tokenizer, mel,
+                                       pad_to_multiple=32, **kwargs)
+        elif self.draft is not None:
+            # a draft with another mel frontend gets its own mel
+            mel_d = (None if self.draft_cfg.n_mels == self.cfg.n_mels
+                     else self.mel(stacked, n_mels=self.draft_cfg.n_mels))
+            hyps = speculative_decode_batch(self.draft, self.model, self.tokenizer, mel,
+                                            k=self.speculative_k, pad_to_multiple=32,
+                                            input_features_draft=mel_d, **kwargs)
         else:
             hyps = decode_batch(self.model, self.tokenizer, mel, pad_to_multiple=32, **kwargs)
         words = None
@@ -324,6 +390,8 @@ class Pipeline:
                 alignment_heads=alignment_heads, prefix_pad_to_multiple=32,
                 window_samples=win, vad=vad, num_beams=num_beams,
                 beam_early_stopping=beam_early_stopping, return_window_info=window_info,
+                medusa=self.medusa, draft=self._long_form_draft("chunked" if chunked
+                                                                else "long-form"),
                 device=self.device)
             if chunked:
                 # every window batch padded to chunked_batch rows

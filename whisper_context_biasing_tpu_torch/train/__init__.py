@@ -1,6 +1,7 @@
 """Training layer: the WeightCE loss, clipped AdamW with a warmup-cosine
 schedule, the training step with microbatch accumulation, npz checkpoints in
-the JAX package's layout, and the fine-tuning loop with WER evaluation."""
+the JAX package's layout, the fine-tuning loop with WER evaluation, and
+Medusa head training."""
 
 from .checkpoint import (
     find_best_checkpoint,
@@ -12,6 +13,14 @@ from .checkpoint import (
 )
 from .loop import TrainingConfig, evaluate_wer, train_and_evaluate
 from .loss import bias_span_weights, weighted_ce_loss
+from .medusa import (
+    MedusaConfig,
+    expected_tokens_per_round,
+    init_medusa_state,
+    make_medusa_loss_fn,
+    make_medusa_train_step,
+    train_medusa_heads,
+)
 from .optim import AdamW, OptState, global_norm, make_optimizer, warmup_cosine_schedule
 from .step import (
     TrainState,
@@ -34,6 +43,12 @@ __all__ = [
     "train_and_evaluate",
     "bias_span_weights",
     "weighted_ce_loss",
+    "MedusaConfig",
+    "expected_tokens_per_round",
+    "init_medusa_state",
+    "make_medusa_loss_fn",
+    "make_medusa_train_step",
+    "train_medusa_heads",
     "AdamW",
     "OptState",
     "global_norm",

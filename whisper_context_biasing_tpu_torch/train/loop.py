@@ -24,7 +24,7 @@ train=True)``) in place through the port's ``TrainState``; with
 ``cfg.fused_ln_qkv`` / ``fused_ln_mlp`` (the ``--fused_ln`` switch) its
 steps and the eval's encoder run the fused LayerNorm+matmul kernel. Options
 whose modules are not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item: Medusa eval (A.7), LoRA and SpecAugment (A.8),
+ROADMAP item: LoRA and SpecAugment (A.8),
 meshes, shard functions and the Orbax backend (A.9). With ``hub_model_id``
 each save pushes the output dir to the Hub and a resume without a local
 checkpoint tries a Hub snapshot, as in JAX; offline both degrade to a
@@ -47,9 +47,11 @@ from ..data.prefetch import BatchLoader, prefetch_to_device
 from ..decode.beam import beam_decode
 from ..decode.bias_processor import sanitize_bias_spans
 from ..decode.greedy import greedy_decode, pack_prefixes
+from ..decode.medusa import medusa_greedy_decode
 from ..metrics.evaluate import score_predictions
 from ..models.config import WhisperConfig
 from ..models.convert import build_model
+from ..models.medusa import split_medusa
 from ..models.whisper import Whisper
 from ..utils import hub
 from ..utils.logging import RunLogger
@@ -141,9 +143,9 @@ def evaluate_wer(
     up to ``batch_size`` by repeating its first row (stripped after decode),
     prefix lengths are bucketed to multiples of 32 and bias-span dims to
     multiples of 4, as in the JAX package (there for its compiled shapes;
-    here they keep the batches, and so the results, the same)."""
-    if medusa is not None:
-        raise NotImplementedError("Medusa decoding is not ported yet (ROADMAP Queue A.7)")
+    here they keep the batches, and so the results, the same). ``medusa``
+    (a head dict) decodes greedily through ``medusa_greedy_decode``: the same
+    tokens, fewer model passes with trained heads."""
     if mesh is not None:
         raise NotImplementedError("mesh-sharded evaluation is not ported yet "
                                   "(ROADMAP Queue A.9)")
@@ -173,7 +175,7 @@ def evaluate_wer(
     loader = BatchLoader(dataset, collate, batch_size, num_workers=num_workers)
     for batch in loader:
         _eval_decode_batch(batch, all_preds, all_labels, model, tokenizer, collator,
-                           batch_size, max_new, bias_boost, num_beams)
+                           batch_size, max_new, bias_boost, num_beams, medusa)
     return score_predictions(all_preds, all_labels, tokenizer, refs_pred_file)
 
 
@@ -186,7 +188,7 @@ def _pad_rows(a: np.ndarray, b_full: int) -> np.ndarray:
 
 
 def _eval_decode_batch(batch, all_preds, all_labels, model: Whisper, tokenizer, collator,
-                       batch_size, max_new, bias_boost, num_beams):
+                       batch_size, max_new, bias_boost, num_beams, medusa=None):
     prefixes = batch.pop("_prefixes")
     b = len(prefixes)
     ids, mask = pack_prefixes(prefixes, tokenizer.eot, pad_to_multiple=32)
@@ -208,7 +210,11 @@ def _eval_decode_batch(batch, all_preds, all_labels, model: Whisper, tokenizer, 
         toks = beam_decode(model, feats, ids, mask, num_beams=num_beams, **kw).best.cpu().numpy()
         lens = np.cumprod(toks != tokenizer.eot, axis=1).sum(axis=1)
     else:
-        res = greedy_decode(model, feats, ids, mask, **kw)
+        if medusa is not None:
+            heads, n_chains = split_medusa(medusa)
+            res = medusa_greedy_decode(model, heads, feats, ids, mask, n_chains=n_chains, **kw)
+        else:
+            res = greedy_decode(model, feats, ids, mask, **kw)
         toks = res.tokens.cpu().numpy()
         lens = res.lengths.cpu().numpy()
     for i in range(b):
