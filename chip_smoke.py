@@ -106,7 +106,28 @@ on failure:
    a self-draft and with heads: tokens and segments equal the plain run's;
    (f) ``quantize_decoder_weights`` on phase 3's model: decode ms a step
    beside the bf16 model's, the largest prefill logit difference, K1 1, K2
-   6, K3 6 a step.
+   6, K3 6 a step;
+14. training extensions and the last entry points: (a) ``train_and_evaluate``
+   with ``lora_rank=8`` and SpecAugment at base.en over phase 10's corpus,
+   unfused and with the ``--fused_ln`` config (2 steps of batch 8 x accum 2,
+   an eval, a save): exactly the launches the steps and the eval imply, the
+   returned model the base with checkpoint-2's adapters merged and bit-equal
+   to the base elsewhere; then the LoRA step in f32 with every kernel
+   against the all-plain configuration (phase 6's rule, on the adapters'
+   gradients); (b) ``make_distill_step`` with a base.en teacher and a
+   tiny.en student on phase 5's batch (raw audio, labels of 449 tokens),
+   bf16, 3 steps: step ms and exactly the launches the step implies (the
+   teacher's forward once, the student's twice under full remat); the step
+   in f32 against the all-plain configuration; ``cli.distill`` from phase
+   10's ``model.safetensors`` over its corpus; (c) one raw-audio distillation
+   step of a large-v3 teacher (128 mels, full width, drawn on the card) and
+   a tiny student with its vocab (80 mels): K1 exactly twice, the 128-mel
+   features within 1e-4 of the plain version's; (d) ``cli.acceptance`` on
+   the five BASELINE configs offline (config 1 on the CPU, 2-5 on the card
+   at the full width of base.en, small.en, medium.en and large-v3): ``ok``,
+   the asserts JAX's offline run skips skipped, each config's wall and
+   exactly its launches; (e) ``cli.check_weightce``,
+   ``cli.check_data_collator`` and ``cli.check_data_loader`` once each.
 
 Phase 2 also holds the mel kernel against its plain version at 80 and 128
 mels, a 3 s window and batch 1, and against the float64 numpy frontend on a
@@ -124,9 +145,12 @@ it, in bursts that rotate over the 6 layers (75 MB of K/V, more than the
 K2 and K3 at the shapes phase 12 gives them: K1 on 8 s and 15 s windows,
 K2 at T = 400 and 750 (the buckets' encoder), K3 at T_pad = 512 and 768 for
 batches of 8 and 32 and at T_pad = 1536 for the chunked batch of 32, and K2
-and K3 at the tiny.en draft's width (d 384, 6 heads; 4 decoder layers). The
-line before the last is the kernel table as JSON, with each kernel's
-launches summed over the main-path phases (3, 5, 7, 9, 10, 11, 12 and 13);
+and K3 at the tiny.en draft's width (d 384, 6 heads; 4 decoder layers), K2
+and K3 at the widths of small.en, medium.en and large-v3 (12, 16 and 20
+heads; 12, 24 and 32 decoder layers) and K4 at small.en's encoder shape,
+each with its bound and, for K2 and K4, SDPA's time beside it. The line
+before the last is the kernel table as JSON, with each kernel's launches
+summed over the main-path phases (3, 5, 7, 9, 10, 11, 12, 13 and 14);
 the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -1849,6 +1873,69 @@ def check_draft_shapes(torch, ops) -> list[dict]:
                               DRAFT_LAYERS)]
 
 
+# phase 14: the widths of the acceptance sweep's models, (d, heads, decoder
+# layers), that no earlier phase gives the kernels
+WIDTHS = {"small.en": (768, 12, 12), "medium.en": (1024, 16, 24), "large-v3": (1280, 20, 32)}
+
+
+def check_flash_bwd_shape(torch, ops, rng, t, d, heads) -> dict:
+    """K4 on an encoder's full (BATCH, t, heads x 64) attention, f32 and bf16,
+    on the forward's own output and logsumexp, against its plain version
+    with phase 2's limits, timed beside its bound and SDPA's backward."""
+    import torch.nn.functional as F
+
+    dh, bh = d // heads, BATCH * heads
+    f32 = [torch.from_numpy(rng.standard_normal((BATCH, t, d), np.float32)).cuda()
+           .view(BATCH, t, heads, dh) for _ in range(4)]  # q, k, v, do
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (x.to(dtype) for x in f32)
+        o, lse = ops.flash_attention_fwd_plain(q, k, v)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do)
+        want = ops.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        rel = 1e-4 if dtype == torch.float32 else 1e-2  # phase 2's limits
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err, scale = max_err(g, w), w.float().abs().max().item()
+            errs[dtype] = max(errs.get(dtype, 0.0), err / scale)
+            require(err <= rel * scale, f"flash backward {dtype} at T={t}, {heads} heads "
+                    f"{name} disagrees: {err} > {rel * scale}")
+    n_ops = 10 * bh * t * t * dh
+    b_ms, b_by = bound(2 * bh * dh * 8 * t + 4 * bh * t, n_ops, PEAK_BF16_FLOP_S)
+    ms = median_ms(torch, lambda: ops.flash_attention_bwd(q, k, v, o, lse, do))
+    plain_ms = median_ms(torch, lambda: ops.flash_attention_bwd_plain(q, k, v, o, lse, do))
+    qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qh, kh, vh)
+    doh = do.transpose(1, 2)
+    lib_ms = median_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                                          retain_graph=True))
+    print(f"K4 flash bwd encoder ({BATCH}, {t}x{t}, {heads}x{dh}): max |err| / max |grad| f32 "
+          f"{errs[torch.float32]:.2e} (1e-4), bf16 {errs[torch.bfloat16]:.2e} (1e-2); bf16 "
+          f"{ms:.4f} ms = {n_ops / ms / 1e9:.1f} TFLOP/s of the 5 products (plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, SDPA backward {lib_ms:.4f} ms)")
+    return dict(kernel="flash_attention_bwd", shape=f"{BATCH}x{t}x{t}x{heads}",
+                max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                library_ms=lib_ms)
+
+
+def check_width_shapes(torch, ops) -> list[dict]:
+    """K2 and K3 at the widths of small.en, medium.en and large-v3 (12, 16
+    and 20 heads of 64), which the acceptance sweep of phase 14 gives them:
+    K2 on the encoder's (8, 1500, heads x 64), K3 on the (layers, 8, 1536, d)
+    int8 cross K/V; and K4 at small.en's encoder shape (phase 14's config 3
+    trains small.en). Each as ``check_bucket_shapes`` holds and times its
+    shapes."""
+    rng = np.random.default_rng(41)
+    rows = []
+    for name, (d, heads, layers) in WIDTHS.items():
+        print(f"{name} width (d {d}, {heads} heads, {layers} decoder layers):")
+        rows.append(check_flash_shape(torch, ops, rng, T_AUDIO, d, heads))
+        rows.append(check_quant_shape(torch, ops, rng, BATCH, T_PAD, T_AUDIO, d, heads, layers))
+        if name == "small.en":
+            rows.append(check_flash_bwd_shape(torch, ops, rng, T_AUDIO, d, heads))
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 12: the rest of serving
 # ---------------------------------------------------------------------------
@@ -2742,6 +2829,480 @@ def speculative_and_medusa(torch, Pipeline, ops, card, init_path, tmp):
     return {k: sum(c.get(k, 0) for c in runs) for k in set().union(*runs)}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training extensions and the last entry points
+# ---------------------------------------------------------------------------
+
+LORA_RANK = 8
+DISTILL_STEPS = 3
+ACCEPT_MAX_NEW = MAX_TOKENS
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def grads_agree(label, kl, pl, kg, pg) -> None:
+    """Phase 6's rule: loss within 1e-5 relative, |g_kernel - g_plain| within
+    1e-4 of |g_plain| over every gradient tensor."""
+    diff = sum(((k - p).double() ** 2).sum().item() for k, p in zip(kg, pg)) ** 0.5
+    ref = sum((p.double() ** 2).sum().item() for p in pg) ** 0.5
+    print(f"  f32 {label}, kernels vs plain versions: loss {kl:.7f} vs {pl:.7f} (rel "
+          f"{abs(kl - pl) / abs(pl):.2e}, limit 1e-5), |g_kernel - g_plain| / |g_plain| = "
+          f"{diff / ref:.2e} (limit 1e-4) over {len(pg)} tensors")
+    require(abs(kl - pl) <= 1e-5 * abs(pl), f"f32 {label} loss disagrees: {kl} vs {pl}")
+    require(diff <= 1e-4 * ref, f"f32 {label} gradients disagree: {diff / ref}")
+
+
+def phase14_datasets(corpus, phases=("train", "dev")):
+    from whisper_context_biasing_tpu_torch.data import PromptWhisperDataset
+    from whisper_context_biasing_tpu_torch.tokenizer import load_tokenizer
+
+    tok = load_tokenizer()
+    return tok, {phase: PromptWhisperDataset(str(corpus / "audio"), str(corpus / "jsonl"), phase,
+                                             tokenizer=tok, prompt=True, bias_list=True,
+                                             bias_nums=3)
+                 for phase in phases}
+
+
+def lora_runs(torch, ops, card, tmp):
+    """(a) ``train_and_evaluate`` with ``lora_rank=8`` and SpecAugment at
+    base.en over phase 10's corpus, unfused and with --fused_ln (2 steps of
+    batch 8 x accum 2, an eval and a save at step 2): the launches the steps
+    and the eval imply; the returned model is the base with checkpoint-2's
+    adapters merged, every other weight bit-equal to the base's; then the
+    LoRA step in f32 with every kernel (K1 for the features, flash, fused
+    LN+matmul) against the all-plain configuration (phase 6's rule)."""
+    import pathlib
+
+    from whisper_context_biasing_tpu_torch.audio import log_mel_spectrogram
+    from whisper_context_biasing_tpu_torch.data import SpeechSeq2SeqCollator
+    from whisper_context_biasing_tpu_torch.models import build_model, get_config, init_state_dict
+    from whisper_context_biasing_tpu_torch.train import SpecAugmentConfig, TrainingConfig
+    from whisper_context_biasing_tpu_torch.train import train_and_evaluate
+    from whisper_context_biasing_tpu_torch.train.augment import make_augment_fn
+    from whisper_context_biasing_tpu_torch.train.lora import (
+        init_lora_params,
+        load_lora_checkpoint,
+        lora_param_count,
+        lora_weights,
+        make_lora_grad_fn,
+    )
+
+    root = pathlib.Path(tmp)
+    tok, data = phase14_datasets(root / "corpus")
+    coll = SpeechSeq2SeqCollator(pad_token_id=tok.pad_token_id, decoder_start_token_id=tok.sot,
+                                 decoder_prev_token_id=tok.sop, pad_to_multiple=32)
+    longest = max(len(ds.build_label_sequence(i)) for ds in data.values()
+                  for i in range(len(ds)))
+    require(-(-longest // 32) * 32 < get_config("base.en").flash_decoder_min_seq,
+            f"labels of {longest} tokens take the decoder's flash path; the expected "
+            "launches assume they do not")
+    sd = init_state_dict(get_config("base.en"), 0)
+    total = {}
+    for fused in (False, True):
+        cfg = get_config("base.en", dtype="bfloat16", flash_attention=True, remat="full",
+                         **(FUSED_LN if fused else {}))
+        out = root / f"lora{'_fused' if fused else ''}"
+        tcfg = TrainingConfig(output_dir=str(out), per_device_train_batch_size=BATCH,
+                              gradient_accumulation_steps=ACCUM, num_train_epochs=2,
+                              eval_steps=2, save_steps=2, logging_steps=1, learning_rate=1e-3,
+                              per_device_eval_batch_size=BATCH, generation_max_length=EVAL_MAX_LEN,
+                              lora_rank=LORA_RANK, spec_augment=True)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, hist = train_and_evaluate(cfg, sd, tok, data["train"], data["dev"], coll, tcfg,
+                                         device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.launches)
+        evals = -(-ENTRY_ROWS["dev"] // BATCH)
+        want = expected_train_launches(cfg, 2, s=0, mel=False)
+        want["flash_attention"] += evals * cfg.n_audio_layers
+        if fused:
+            want["fused_ln_matmul"] += evals * 2 * cfg.n_audio_layers
+        adapters, _, meta = load_lora_checkpoint(str(out / "checkpoint-2"), device="cuda")
+        base = build_model(cfg, sd, device="cuda", train=True)
+        merged = lora_weights(base, adapters, tcfg.lora_alpha)
+        got = dict(model.named_parameters())
+        base_same = all(torch.equal(got[n], p) for n, p in base.named_parameters()
+                        if n not in merged)
+        merged_same = all(torch.equal(got[n], w) for n, w in merged.items())
+        moved = sum(not torch.equal(w, base.get_parameter(n)) for n, w in merged.items())
+        losses = [e["loss"] for e in hist if "loss" in e]
+        print(f"(a) LoRA rank {LORA_RANK} + SpecAugment, train_and_evaluate (base.en bf16, "
+              f"flash{', --fused_ln' if fused else ''}, batch {BATCH} x accum {ACCUM}, 2 steps, "
+              f"an eval) on {card}: {lora_param_count(adapters):,} adapter params; losses "
+              f"{[round(x, 4) for x in losses]}, eval_wer "
+              f"{[e['eval_wer'] for e in hist if 'eval_wer' in e]}; wall {wall:.2f} s  [{card}]")
+        print(f"  checkpoint-2 holds the adapters (lora_rank {meta.get('lora_rank')}); the "
+              f"returned model: the base bit-equal outside the {len(merged)} adapted "
+              f"projections: {base_same}, those equal to base + checkpoint-2's merge: "
+              f"{merged_same} ({moved} moved); launches {counts} (the run implies {want})")
+        require(len(losses) == 2 and all(np.isfinite(losses)), "no finite LoRA losses")
+        require(meta.get("lora_rank") == LORA_RANK, "checkpoint-2 lacks lora_rank")
+        require(base_same and merged_same and moved == len(merged),
+                "the returned model is not the base with the adapters merged")
+        require(counts == want, f"LoRA launches {counts} != {want}")
+        add_counts(total, counts)
+        del model, base, merged, got, adapters
+
+    # the f32 gate: one LoRA step's loss and adapter gradients
+    batch = {k: torch.from_numpy(v).cuda() for k, v in train_batch(
+        np.random.default_rng(7)).items()}
+    audio = batch.pop("audio")
+    augment = make_augment_fn(SpecAugmentConfig(), 0)
+    runs = []
+    for kernels in (True, False):
+        cfg = get_config("base.en", dtype="float32", flash_attention=kernels, remat="full",
+                         **(FUSED_LN if kernels else {}))
+        base = build_model(cfg, sd, device="cuda", train=True).requires_grad_(False)
+        adapters = init_lora_params(base, LORA_RANK, torch.Generator().manual_seed(1))
+        g = torch.Generator().manual_seed(2)
+        for top in adapters.values():  # b non-zero, so A gets a gradient too
+            for tgts in top.values():
+                for ab in tgts.values():
+                    ab["b"] = (0.01 * torch.randn(ab["b"].shape, generator=g)).cuda()
+        ops.reset_launch_counts()
+        flat = audio.flatten(0, 1)
+        feats = (ops.log_mel_spectrogram_fused(flat) if kernels else
+                 log_mel_spectrogram(flat)).view(*audio.shape[:2], N_MELS, -1)
+        b = augment(dict(batch, input_features=feats), 0)
+        loss, grads = make_lora_grad_fn(cfg, grad_accum=ACCUM)(adapters, base, b)
+        torch.cuda.synchronize()
+        counts = dict(ops.launches)
+        print(f"  f32 LoRA step {'kernel' if kernels else 'plain'} run launches: {counts}")
+        require(bool(counts) == kernels, f"f32 LoRA {'kernel' if kernels else 'plain'} run "
+                f"launches {counts}")
+        runs.append((float(loss), grads))
+        del base, adapters
+    grads_agree("LoRA step (adapter gradients)", runs[0][0], runs[1][0], runs[0][1], runs[1][1])
+    return total
+
+
+def count_forwards(torch, distill_mod, calls):
+    """Record each forward ``train/distill.py`` runs: (cfg, label length,
+    whether it records a graph), from which its flash launches follow."""
+    real = distill_mod.forward
+
+    def recorded(model, feats, ids):
+        calls.append((model.cfg, ids.shape[1], torch.is_grad_enabled()))
+        return real(model, feats, ids)
+
+    distill_mod.forward = recorded
+    return real
+
+
+def forward_launches(calls) -> dict:
+    """K2 and K4 for recorded forwards: per forward one K2 per encoder layer
+    and two per decoder layer at S >= flash_decoder_min_seq; a forward that
+    records a graph runs them again in its remat replay and runs K4 once a
+    flash use."""
+    k2 = k4 = 0
+    for cfg, s, grad in calls:
+        uses = cfg.n_audio_layers + (2 * cfg.n_text_layers if s >= cfg.flash_decoder_min_seq
+                                     else 0)
+        remat = grad and cfg.remat == "full"
+        k2 += uses * (2 if remat else 1)
+        k4 += uses if grad else 0
+    return {"flash_attention": k2, "flash_attention_bwd": k4}
+
+
+def distill_runs(torch, ops, card, init_path, tmp):
+    """(b) ``make_distill_step``: a base.en teacher, a tiny.en student, phase
+    5's batch (8 x accum 2, raw audio, labels of 449 tokens), bf16, 3 steps:
+    step ms and exactly the launches the step implies; the step in f32 with
+    every kernel against the all-plain configuration; ``cli.distill`` from
+    phase 10's model.safetensors over its corpus. (c) one raw-audio step of a
+    large-v3 teacher (128 mels, full width) and a tiny student with its
+    vocab (80 mels): K1 exactly twice, and the 128-mel features against the
+    plain version's."""
+    import json as _json
+    import pathlib
+
+    from whisper_context_biasing_tpu_torch.audio import log_mel_spectrogram
+    from whisper_context_biasing_tpu_torch.cli import distill as distill_cli
+    from whisper_context_biasing_tpu_torch.models import build_model, get_config, init_state_dict
+    from whisper_context_biasing_tpu_torch.train import (
+        init_train_state,
+        list_checkpoints,
+        make_distill_step,
+        make_optimizer,
+    )
+    from whisper_context_biasing_tpu_torch.train import distill as distill_mod
+
+    total = {}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in train_batch(
+        np.random.default_rng(7)).items() if k != "bias_spans"}
+    calls = []
+    real = count_forwards(torch, distill_mod, calls)
+    try:
+        # (b) bf16, 3 steps
+        kw = dict(dtype="bfloat16", flash_attention=True, remat="full")
+        cfg_t, cfg_d = get_config("base.en", **kw), get_config("tiny.en", **kw)
+        teacher = build_model(cfg_t, seed=0, device="cuda")
+        student = build_model(cfg_d, seed=1, device="cuda", train=True)
+        opt = make_optimizer(peak_lr=1e-4, warmup_steps=0, total_steps=100)
+        step = make_distill_step(cfg_d, cfg_t, opt, grad_accum=ACCUM)
+        state = init_train_state(student, opt)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        calls.clear()
+        walls, metrics = [], []
+        for _ in range(DISTILL_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, teacher, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            metrics.append({k: round(float(v), 4) for k, v in m.items()})
+        counts = dict(ops.launches)
+        want = dict(mel=DISTILL_STEPS * ACCUM, **forward_launches(calls))
+        print(f"(b) distillation step (base.en teacher, tiny.en student, bf16, flash, remat "
+              f"full, batch {BATCH} x accum {ACCUM}, labels {T_TEXT}, raw audio) on {card}:")
+        for i, (mt, w) in enumerate(zip(metrics, walls)):
+            print(f"  step {i + 1}: {mt}, wall {w * 1e3:.1f} ms  [{card}]")
+        print(f"  launches over {DISTILL_STEPS} steps: {counts} (the step implies {want}: per "
+              f"microbatch K1 1, K2 {cfg_t.n_audio_layers + 2 * cfg_t.n_text_layers} teacher + "
+              f"2 x {cfg_d.n_audio_layers + 2 * cfg_d.n_text_layers} student, K4 "
+              f"{cfg_d.n_audio_layers + 2 * cfg_d.n_text_layers})")
+        require(all(np.isfinite(v) for mt in metrics for v in mt.values()),
+                "non-finite distillation metrics")
+        require(counts == want, f"distillation launches {counts} != {want}")
+        add_counts(total, counts)
+        del teacher, student, state, step, opt
+
+        # the f32 gate
+        runs = []
+        for kernels in (True, False):
+            kw = dict(dtype="float32", flash_attention=kernels, remat="full")
+            cfg_t, cfg_d = get_config("base.en", **kw), get_config("tiny.en", **kw)
+            teacher = build_model(cfg_t, seed=0, device="cuda")
+            student = build_model(cfg_d, seed=1, device="cuda", train=True)
+            opt = make_optimizer(peak_lr=1e-4, warmup_steps=0, total_steps=100)
+            b = batch
+            if not kernels:  # the plain frontend, named outright
+                audio = batch["audio"]
+                feats = log_mel_spectrogram(audio.flatten(0, 1))
+                b = dict({k: v for k, v in batch.items() if k != "audio"},
+                         input_features=feats.view(*audio.shape[:2], *feats.shape[1:]))
+            ops.reset_launch_counts()
+            _, m = make_distill_step(cfg_d, cfg_t, opt, grad_accum=ACCUM)(
+                init_train_state(student, opt), teacher, b)
+            torch.cuda.synchronize()
+            counts = dict(ops.launches)
+            print(f"  f32 distillation {'kernel' if kernels else 'plain'} run launches: {counts}")
+            require(bool(counts) == kernels, f"f32 distillation run launches {counts}")
+            runs.append((float(m["loss"]), [p.grad for p in student.parameters()]))
+            del teacher, student, opt
+        grads_agree("distillation step (student gradients)", runs[0][0], runs[1][0],
+                    runs[0][1], runs[1][1])
+        del runs
+
+        # the CLI over phase 10's corpus, from its model.safetensors
+        root = pathlib.Path(tmp)
+        corpus, out = root / "corpus", root / "draft"
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        calls.clear()
+        t0 = time.perf_counter()
+        distill_cli.main(["--data_root", str(corpus), "--data_dir", "audio", "--jsonl_data",
+                          str(corpus / "jsonl"), "--model", "base.en", "--init_checkpoint",
+                          str(init_path), "--draft_model", "tiny.en", "--output", str(out),
+                          "--batch", str(BATCH), "--epoch", "1", "--warmup_steps", "0",
+                          "--logging_steps", "1", "--eval_batches", "1", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.launches)
+        want = forward_launches(calls)
+        summary = _json.loads((out / "distill_results.json").read_text())
+        ckpts = [os.path.basename(c) for c in list_checkpoints(str(out))]
+        print(f"  cli.distill (base.en -> tiny.en, phase 10's corpus): {summary}, {ckpts}, "
+              f"model.safetensors {(out / 'model.safetensors').stat().st_size / 1e6:.1f} MB, "
+              f"wall {wall:.2f} s; launches {counts} ({len(calls)} forwards imply {want})  "
+              f"[{card}]")
+        require(summary.get("total_steps") == ENTRY_ROWS["train"] // BATCH, "cli.distill steps")
+        require(ckpts and (out / "model.safetensors").is_file(), "cli.distill wrote no files")
+        require(counts == want, f"cli.distill launches {counts} != {want}")
+        add_counts(total, counts)
+
+        # (c) two mel frontends: large-v3 (128 mels) teaching an 80-mel tiny
+        cfg_t = get_config("large-v3", dtype="bfloat16", flash_attention=True)
+        cfg_d = get_config("tiny", n_vocab=cfg_t.n_vocab, dtype="bfloat16",
+                           flash_attention=True, remat="full")
+        t0 = time.perf_counter()
+        teacher = build_model(cfg_t, init_state_dict(cfg_t, 0, device="cuda"), device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        student = build_model(cfg_d, seed=1, device="cuda", train=True)
+        opt = make_optimizer(peak_lr=1e-4, warmup_steps=0, total_steps=10)
+        mb = {k: v[0] for k, v in batch.items()}
+        step = make_distill_step(cfg_d, cfg_t, opt)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        calls.clear()
+        t0 = time.perf_counter()
+        _, m = step(init_train_state(student, opt), teacher, mb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.launches)
+        want = dict(mel=2, **forward_launches(calls))
+        err = max_err(ops.log_mel_spectrogram_fused(mb["audio"], n_mels=128),
+                      log_mel_spectrogram(mb["audio"], n_mels=128))
+        print(f"(c) two mel frontends: large-v3 teacher (128 mels, d {cfg_t.d_model}, "
+              f"{cfg_t.n_audio_layers}+{cfg_t.n_text_layers} layers, drawn on the card in "
+              f"{init_s:.2f} s) and a tiny student (80 mels, vocab {cfg_d.n_vocab}), batch "
+              f"{BATCH}, labels {T_TEXT}, raw audio: one step {wall * 1e3:.1f} ms, loss "
+              f"{float(m['loss']):.4f}; launches {counts} (implied {want}); the teacher's "
+              f"128-mel features vs the plain version's: max |err| {err:.3e} (atol 1e-4)  "
+              f"[{card}]")
+        require(np.isfinite(float(m["loss"])), "non-finite two-frontend loss")
+        require(counts == want, f"two-frontend launches {counts} != {want}")
+        require(err <= 1e-4, f"128-mel features disagree: {err}")
+        add_counts(total, counts)
+        del teacher, student, opt, step
+    finally:
+        distill_mod.forward = real
+    torch.cuda.empty_cache()
+    return total
+
+
+ACCEPT_SKIPS = ["metric_parity:desc_only_dev", "metric_parity:baseline_test",
+                "model_parity:desc_only_dev", "model_parity:baseline_test"]
+
+
+def acceptance_run(torch, ops, card, tmp):
+    """(d) ``cli.acceptance`` on the five configs, offline, config 1 on the
+    CPU and 2-5 on the card at full width: ``ok``, the asserts JAX's offline
+    run skips skipped, each config's wall and exactly the launches it
+    implies: none for config 1; for a decode config K1 one an utterance (the
+    dataset's features), K2 one per encoder layer a decode call and K3 one
+    per decoder layer a decode step; for config 3's training K1 one a
+    training item, K2 twice and K4 once per encoder layer a step (its labels
+    stay under ``flash_decoder_min_seq``)."""
+    import pathlib
+
+    from whisper_context_biasing_tpu_torch.cli import acceptance
+    from whisper_context_biasing_tpu_torch.models import get_config
+    from whisper_context_biasing_tpu_torch.train import loop
+
+    steps, per_config = [], {}
+    real = {"greedy_decode": loop.greedy_decode, "beam_decode": loop.beam_decode,
+            "run_decode_config": acceptance.run_decode_config,
+            "run_train_config": acceptance.run_train_config}
+
+    def with_steps(fn):
+        def decode(*a, **kw):
+            t = {}
+            res = fn(*a, timings=t, **kw)
+            steps.append(t["steps"])
+            return res
+        return decode
+
+    def counted(fn):
+        def run(num, *a, **kw):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            steps.clear()
+            t0 = time.perf_counter()
+            row = fn(num, *a, **kw)
+            torch.cuda.synchronize()
+            per_config[num] = (dict(ops.launches), list(steps), time.perf_counter() - t0)
+            torch.cuda.empty_cache()
+            return row
+        return run
+
+    loop.greedy_decode = with_steps(real["greedy_decode"])
+    loop.beam_decode = with_steps(real["beam_decode"])
+    acceptance.run_decode_config = counted(real["run_decode_config"])
+    acceptance.run_train_config = counted(real["run_train_config"])
+    out = pathlib.Path(tmp) / "acceptance"
+    try:
+        t0 = time.perf_counter()
+        summary = acceptance.main(["--output", str(out), "--max_new", str(ACCEPT_MAX_NEW),
+                                   "--device", "cuda"])
+        wall = time.perf_counter() - t0
+    finally:
+        loop.greedy_decode, loop.beam_decode = real["greedy_decode"], real["beam_decode"]
+        acceptance.run_decode_config = real["run_decode_config"]
+        acceptance.run_train_config = real["run_train_config"]
+    total = {}
+    models = {1: "tiny.en", 2: "base.en", 3: "small.en", 4: "medium.en", 5: "large-v3"}
+    print(f"(d) cli.acceptance, five configs offline (--max_new {ACCEPT_MAX_NEW}), {wall:.1f} s "
+          f"on {card}:")
+    for row in summary["configs"]:
+        num = row["config"]
+        counts, st, w = per_config[num]
+        cfg = get_config(models[num])
+        if num == 1:
+            want = {}
+        elif row["mode"] == "weightce_train":
+            n = row["steps"]
+            want = {"mel": n, "flash_attention": 2 * n * cfg.n_audio_layers,
+                    "flash_attention_bwd": n * cfg.n_audio_layers}
+        else:
+            want = {"mel": row["n_utts"], "flash_attention": len(st) * cfg.n_audio_layers,
+                    "quant_cross_attention": sum(st) * cfg.n_text_layers}
+        want = {k: v for k, v in want.items() if v}
+        shown = {k: row[k] for k in ("mode", "n_utts", "wer", "bias_wer", "steps", "first_loss",
+                                     "last_loss", "wall_s") if k in row}
+        print(f"  config {num} {models[num]}: {shown}; decode calls {len(st)}, steps {st}; "
+              f"{w:.2f} s; launches {counts} (implied {want})  [{card}]")
+        require(counts == want, f"acceptance config {num} launches {counts} != {want}")
+        add_counts(total, counts)
+    skipped = sorted(a["assert"] for a in summary["asserts_skipped"])
+    print(f"  ok {summary['ok']}, asserts passed {summary['asserts_passed']}, failed "
+          f"{summary['asserts_failed']}, skipped {skipped}; probe: "
+          f"{summary['asset_probe']['outcome']}")
+    require(summary["ok"] and [r["config"] for r in summary["configs"]] == [1, 2, 3, 4, 5],
+            "the acceptance sweep failed")
+    require(skipped == sorted(ACCEPT_SKIPS), f"acceptance skipped {skipped}")
+    require((out / "acceptance.json").is_file(), "no acceptance.json")
+    return total
+
+
+def harnesses(tmp) -> None:
+    """(e) the three inspection harnesses, once each, on phase 10's corpus."""
+    import contextlib
+    import io
+    import pathlib
+
+    from whisper_context_biasing_tpu_torch.cli import (
+        check_data_collator,
+        check_data_loader,
+        check_weightce,
+    )
+
+    corpus = pathlib.Path(tmp) / "corpus"
+    data = ["--data_root", str(corpus), "--data_dir", "audio", "--jsonl_data",
+            str(corpus / "jsonl"), "--phase", "train"]
+    for name, run in (
+            ("check_weightce", lambda: check_weightce.main([])),
+            ("check_data_collator", lambda: check_data_collator.main(
+                [*data, "--prompt", "--bias_list", "--bias_nums", "3"])),
+            ("check_data_loader", lambda: check_data_loader.main(
+                [*data, "--prompt", "--bias_list", "--bias_nums", "3"]))):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            run()
+        lines = buf.getvalue().splitlines()
+        print(f"(e) cli.{name}: {len(lines)} lines, {time.perf_counter() - t0:.2f} s: "
+              f"{lines[-1]}")
+        require(lines[-1].startswith("OK:"), f"cli.{name} did not pass")
+
+
+def training_extensions(torch, ops, card, init_path, tmp):
+    """Phase 14; returns the launches of its runs, summed."""
+    start = time.perf_counter()
+    runs = [lora_runs(torch, ops, card, tmp), distill_runs(torch, ops, card, init_path, tmp),
+            acceptance_run(torch, ops, card, tmp)]
+    harnesses(tmp)
+    print(f"  phase 14 took {time.perf_counter() - start:.1f} s  [{card}]")
+    return {k: sum(c.get(k, 0) for c in runs) for k in set().union(*runs)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="TABLE_PATH",
@@ -2796,6 +3357,7 @@ def main() -> int:
               f"{k['bound_ms']:.4f} ms by {k['bound_by']}, library {k['library_ms']}) [{card}]")
     check_bucket_shapes(torch, ops)
     check_draft_shapes(torch, ops)
+    check_width_shapes(torch, ops)
     if tree:
         print(f"chip_smoke --kernels-only {os.path.abspath(tree)} took "
               f"{time.perf_counter() - start:.1f} s  [{card}]")
@@ -2829,12 +3391,16 @@ def main() -> int:
               "cli.medusa, the CLIs and the server with them, long-form, int8 decoder "
               "weights):")
         spec_counts = speculative_and_medusa(torch, Pipeline, ops, card, init_path, tmp)
-    # launches: the runs of the main-path phases (3, 5, 7, 9, 10, 11, 12 and 13)
+        print("phase 14, training extensions and the last entry points (LoRA, SpecAugment, "
+              "distillation, cli.distill, two mel frontends, cli.acceptance, the check "
+              "harnesses):")
+        ext_counts = training_extensions(torch, ops, card, init_path, tmp)
+    # launches: the runs of the main-path phases (3, 5, 7, 9, 10, 11, 12, 13 and 14)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in (serve_counts, train_counts,
                                                           fused_counts, entry_counts,
                                                           cli_counts, long_counts, rest_counts,
-                                                          spec_counts))
+                                                          spec_counts, ext_counts))
         require(k["launches"] > 0, f"the main path never launched {k['name']}")
     print(f"chip_smoke total {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -13,8 +13,11 @@ line, equal ``test_results.json``, ``bias_wer_results.json`` and
 offline Hub cases of ``--best_checkpoint``, ``cli/medusa.py`` against
 ``scripts/medusa.py`` (flags, the ``MedusaConfig`` a command line gives, and
 the heads it writes reaching ``evaluate_wer`` through ``cli/evaluation.py
---medusa`` as the JAX script's do), and ``NotImplementedError`` naming its
-ROADMAP item for each flag whose module is not ported."""
+--medusa`` as the JAX script's do), the three inspection harnesses
+(``cli/check_weightce.py``, ``cli/check_data_collator.py``,
+``cli/check_data_loader.py``) printing the JAX scripts' tables on the same
+inputs, and ``NotImplementedError`` naming its ROADMAP item for each flag
+whose module is not ported."""
 
 import dataclasses
 import functools
@@ -322,13 +325,13 @@ def test_best_checkpoint_without_hub_id_never_touches_hub(tmp_path, monkeypatch)
 # ---------------------------------------------------------------------------
 
 UNPORTED = {
-    "train_lora_rank": (train, ["--lora_rank", "4"], "A.8"),
-    "train_spec_augment": (train, ["--spec_augment"], "A.8"),
+    # ported since: accepted, and the run goes on to read the missing data
+    "train_lora_rank": (train, ["--lora_rank", "4"], None),
+    "train_spec_augment": (train, ["--spec_augment"], None),
     "train_model_parallelism": (train, ["--model_parallelism", "2"], "A.9"),
     "train_orbax": (train, ["--checkpoint_backend", "orbax"], "A.9"),
     "train_remat_dots": (train, ["--remat", "dots"], "A.5"),
     "train_remat_wide": (train, ["--remat", "wide"], "A.5"),
-    # ported since: accepted, and the run goes on to read the missing data
     "eval_num_beams": (evaluation, ["--num_beams", "4", "--medusa", "medusa.npz"], None),
     "eval_medusa": (evaluation, ["--medusa", "medusa.npz"], None),
     "eval_model_parallelism": (evaluation, ["--model_parallelism", "4"], "A.9"),
@@ -431,3 +434,58 @@ def test_medusa_cli_heads_reach_evaluation_like_jax(runs, narrow, monkeypatch, t
         np.testing.assert_array_equal(seen["port"][k], seen["jax"][k])
     assert int(seen["port"]["n_chains"]) == 3
     np.testing.assert_array_equal(seen["port"]["w"], heads["w"].numpy())
+
+
+# ---------------------------------------------------------------------------
+# the inspection harnesses
+# ---------------------------------------------------------------------------
+
+def _printed(capsys, fn):
+    capsys.readouterr()
+    fn()
+    return capsys.readouterr().out.splitlines()
+
+
+def test_check_weightce_rows_match_jax(capsys, monkeypatch):
+    """The same per-position table (token, decoded, weight, match) as
+    scripts/check_WeightCE.py, the same weights, and the loss within 1e-5."""
+    from whisper_context_biasing_tpu_torch.cli import check_weightce
+
+    monkeypatch.setattr(sys, "argv", ["check_WeightCE.py"])
+    want = _printed(capsys, jax_script("check_WeightCE").main)
+    got = _printed(capsys, lambda: check_weightce.main([]))
+    assert got[1:] == want[1:]
+    assert len(got) > 70 and got[-1].startswith("OK:")
+    loss = [float(lines[0].split(":")[1]) for lines in (got, want)]
+    assert loss[0] == pytest.approx(loss[1], rel=1e-5)
+
+
+@pytest.mark.parametrize("flags", [[], ["--prompt", "--bias_list", "--bias_nums", "2"]],
+                         ids=["plain", "prompted"])
+def test_check_data_collator_rows_match_jax(corpus, capsys, monkeypatch, flags):
+    from whisper_context_biasing_tpu_torch.cli import check_data_collator
+
+    root, _ = corpus
+    argv = [*data_args(root), "--phase", "train", "--batch", "3", *flags]
+    monkeypatch.setattr(sys, "argv", ["check_data_collator.py", *argv])
+    want = _printed(capsys, jax_script("check_data_collator").main)
+    got = _printed(capsys, lambda: check_data_collator.main(argv))
+    assert got == want
+    assert got[-1].startswith("OK:") and sum(line.startswith("=== Sample") for line in got) == 3
+
+
+@pytest.mark.parametrize("flags", [
+    ["--prompt", "--bias_list", "--bias_nums", "2"],
+    ["--bias_list", "--bias_nums", "3", "--no-random"],
+    ["--prompt", "--bias_desc", "--bias_list", "--bias_nums", "1"],
+], ids=["prompt_bias", "bias_only", "desc"])
+def test_check_data_loader_rows_match_jax(corpus, capsys, monkeypatch, flags):
+    from whisper_context_biasing_tpu_torch.cli import check_data_loader
+
+    root, _ = corpus
+    argv = [*data_args(root), "--phase", "train", "--samples", "4", *flags]
+    monkeypatch.setattr(sys, "argv", ["check_data_loader.py", *argv])
+    want = _printed(capsys, jax_script("check_data_loader").main)
+    got = _printed(capsys, lambda: check_data_loader.main(argv))
+    assert got == want
+    assert got[-1].startswith("OK:") and sum(line.startswith("=== Sample") for line in got) == 4

@@ -1,7 +1,8 @@
-"""Ground rules of the port: it imports neither JAX nor the JAX package, its
-entry points default to the card and refuse to run without one, options not
-ported yet raise (and misused ones raise as in JAX), and its kernel wrappers
-take the plain version only for CPU tensors."""
+"""Ground rules of the port: it imports neither JAX nor the JAX package
+(chip_smoke.py neither), it exports the JAX package's public names from the
+same places, its entry points default to the card and refuse to run without
+one, options not ported yet raise (and misused ones raise as in JAX), and
+its kernel wrappers take the plain version only for CPU tensors."""
 
 import pathlib
 import subprocess
@@ -40,6 +41,67 @@ def test_port_imports_no_jax():
                          cwd=PKG.parent, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 15
+    new = {f"whisper_context_biasing_tpu_torch.{m}" for m in (
+        "train.augment", "train.lora", "train.distill", "cli.distill", "cli.acceptance",
+        "cli.check_weightce", "cli.check_data_collator", "cli.check_data_loader")}
+    assert new <= set(mods)
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py imports neither JAX nor the JAX package, at its top or
+    inside a function."""
+    import ast
+
+    tree = ast.parse((PKG.parent / "chip_smoke.py").read_text())
+    roots = {(a.name if isinstance(n, ast.Import) else n.module or "").split(".")[0]
+             for n in ast.walk(tree) if isinstance(n, (ast.Import, ast.ImportFrom))
+             for a in (n.names if isinstance(n, ast.Import) else [n])}
+    assert not roots & {"jax", "jaxlib", "whisper_context_biasing_tpu"}, roots
+    assert "whisper_context_biasing_tpu_torch" in roots
+
+
+def _jax_all(rel: str) -> list[str]:
+    """The names of ``__all__`` in a JAX package file, read as text (no
+    import, so no jax)."""
+    import ast
+
+    src = (PKG.parent / "whisper_context_biasing_tpu" / rel).read_text()
+    for node in ast.parse(src).body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__"
+                                                for t in node.targets):
+            return list(ast.literal_eval(node.value))
+    # the package's __init__ has no __all__: its re-exports are the names
+    # its from-imports bind
+    return [a.asname or a.name for node in ast.parse(src).body
+            if isinstance(node, ast.ImportFrom) and node.level == 1
+            for a in node.names]
+
+
+# init_params: the port's seeded init is init_state_dict (a state dict, not
+# a params tree), a documented deviation
+_DEVIATIONS = {"init_params"}
+
+
+@pytest.mark.parametrize("sub", ["", "audio", "data", "models", "train"])
+def test_public_surface_matches_jax(sub):
+    """Every name the JAX package exports from the package, ``audio``,
+    ``data``, ``models`` and ``train`` imports from the same place in the
+    port."""
+    import importlib
+
+    rel = f"{sub}/__init__.py" if sub else "__init__.py"
+    names = set(_jax_all(rel)) - _DEVIATIONS - {"__version__"}
+    mod = importlib.import_module("whisper_context_biasing_tpu_torch" + (f".{sub}" if sub
+                                                                         else ""))
+    missing = sorted(n for n in names if not hasattr(mod, n))
+    assert not missing, missing
+    assert len(names) >= 5
+    if sub == "":  # C.3's example
+        from whisper_context_biasing_tpu_torch import (  # noqa: F401
+            compute_bias_wer,
+            evaluate_wer,
+            greedy_decode,
+        )
 
 
 def test_port_imports_no_hf_packages():
@@ -232,8 +294,8 @@ def _save_orbax(tmp_path):
     (lambda p: _evaluate(p, num_beams=2, mesh=object()), "A.9"),
     (lambda p: _evaluate(p, medusa=_heads()), None),
     (lambda p: _evaluate(p, mesh=object()), "A.9"),
-    (lambda p: _train(p, lora_rank=4), "A.8"),
-    (lambda p: _train(p, spec_augment=True), "A.8"),
+    (lambda p: _train(p, lora_rank=4), None),
+    (lambda p: _train(p, spec_augment=True), None),
     (lambda p: _train(p, checkpoint_backend="orbax"), "A.9"),
     (_save_orbax, "A.9"),
 ], ids=["num_beams", "medusa", "mesh", "lora_rank", "spec_augment",

@@ -327,8 +327,16 @@ def test_eval_loss_step_matches_the_loss():
 
 @pytest.mark.parametrize("option", ["spec_augment", "remat=dots", "remat=wide"])
 def test_unported_training_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A.[58]"):
-        if option == "spec_augment":
+    if option == "spec_augment":  # ported since: a bad config raises, a real one runs
+        from whisper_context_biasing_tpu_torch.train import SpecAugmentConfig
+
+        with pytest.raises(TypeError, match="SpecAugmentConfig"):
             make_train_step(tiny_test_config(), make_optimizer(), spec_augment=object())
-        else:
-            tiny_test_config(remat=option.split("=")[1])
+        cfg, model = _tiny_model()
+        opt = make_optimizer(peak_lr=LR, warmup_steps=0, total_steps=10)
+        step = make_train_step(cfg, opt, grad_accum=ACCUM, spec_augment=SpecAugmentConfig())
+        _, m = step(init_train_state(model, opt), _collated_batch(5))
+        assert np.isfinite(float(m["loss"]))
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A.5"):
+        tiny_test_config(remat=option.split("=")[1])

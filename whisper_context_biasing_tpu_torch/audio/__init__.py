@@ -6,6 +6,7 @@ from .mp3 import decode_mp3
 # the corpus audio is .mp3 (SURVEY.md §2.2); decode via libmpg123 when the
 # library is present (errors lazily with a pointer to WCB_MPG123_PATH if not)
 EXTRA_DECODERS.setdefault(".mp3", decode_mp3)
+from .vad import has_speech, next_onset, resolve_vad, speech_segments
 from .mel import (
     HOP_LENGTH,
     N_FFT,
@@ -25,6 +26,10 @@ __all__ = [
     "load_audio",
     "pcm_to_float32",
     "resample",
+    "speech_segments",
+    "has_speech",
+    "next_onset",
+    "resolve_vad",
     "log_mel_spectrogram",
     "log_mel_spectrogram_np",
     "mel_filter_bank",

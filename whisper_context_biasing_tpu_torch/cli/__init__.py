@@ -1,6 +1,8 @@
 """Command-line entry points with the JAX package's flag surface
 (``scripts/train.py``, ``scripts/evaluation.py``, ``scripts/export_hf.py``,
-``scripts/prepare_data.py``, ``scripts/transcribe.py``, ``scripts/serve.py``)::
+``scripts/prepare_data.py``, ``scripts/transcribe.py``, ``scripts/serve.py``,
+``scripts/medusa.py``, ``scripts/distill.py``, ``scripts/acceptance.py`` and
+the three ``scripts/check_*.py`` harnesses)::
 
     python -m whisper_context_biasing_tpu_torch.cli.train --model base.en ...
     python -m whisper_context_biasing_tpu_torch.cli.evaluation --best_checkpoint ...
@@ -8,14 +10,21 @@
     python -m whisper_context_biasing_tpu_torch.cli.prepare_data --source ... --out_dir ...
     python -m whisper_context_biasing_tpu_torch.cli.transcribe --audio a.wav --long ...
     python -m whisper_context_biasing_tpu_torch.cli.serve --model base.en --port 8080
+    python -m whisper_context_biasing_tpu_torch.cli.medusa --medusa_heads 4 ...
+    python -m whisper_context_biasing_tpu_torch.cli.distill --draft_model tiny.en ...
+    python -m whisper_context_biasing_tpu_torch.cli.acceptance --configs 1,2,3,4,5
+    python -m whisper_context_biasing_tpu_torch.cli.check_weightce
+    python -m whisper_context_biasing_tpu_torch.cli.check_data_collator --prompt ...
+    python -m whisper_context_biasing_tpu_torch.cli.check_data_loader --bias_list ...
 
 Each module has ``parse_args(argv=None)`` and ``main(argv=None)`` and runs
-nothing at import. Deviations from the JAX scripts: ``--device`` (train,
-evaluation, transcribe and serve; default ``cuda``, ``cpu`` for tests), one device whatever
-``--model_parallelism`` (0 or 1; a larger value raises until ROADMAP A.9),
-and the port's seeded init without a checkpoint (the JAX init's
-distributions, other numbers). Flags whose modules are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item before any data is read.
+nothing at import. Deviations from the JAX scripts: ``--device`` (every
+entry point that runs a model; default ``cuda``, ``cpu`` for tests), one
+device whatever ``--model_parallelism`` (0 or 1; a larger value raises
+until ROADMAP A.9), and the port's seeded init without a checkpoint (the JAX
+init's distributions, other numbers). Flags whose modules are not ported
+yet raise ``NotImplementedError`` naming their ROADMAP item before any data
+is read.
 """
 
 from __future__ import annotations

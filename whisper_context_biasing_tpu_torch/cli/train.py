@@ -14,7 +14,10 @@ decoding the whole test audio set::
 
 ``--flash_attention`` runs the flash forward and backward kernels, and
 ``--fused_ln`` the fused LayerNorm+matmul kernel, in the training step and
-the evaluations' encoder. ``--device`` (default ``cuda``) is the port's own
+the evaluations' encoder. ``--lora_rank N`` trains LoRA adapters over the
+frozen model (checkpoints hold the adapters; the test evaluation and the
+export see the merged weights), ``--spec_augment`` masks the features in
+the step. ``--device`` (default ``cuda``) is the port's own
 flag; see ``cli/__init__.py`` for the other deviations.
 """
 
@@ -92,14 +95,18 @@ def parse_args(argv=None):
     p.add_argument("--freeze_encoder", action="store_true",
                    help="train the decoder only (reference freeze_encoder())")
     p.add_argument("--lora_rank", type=int, default=0,
-                   help=">0: LoRA fine-tune (not ported yet)")
+                   help=">0: LoRA fine-tune — train rank-r adapters on the "
+                        "attention q/v projections instead of all weights "
+                        "(checkpoints hold the adapters; eval/export see merged "
+                        "weights)")
     p.add_argument("--lora_alpha", type=float, default=16.0)
     p.add_argument("--speed_perturb", type=float, nargs="*", default=None,
                    help="sox-style speed augmentation factors, e.g. "
                         "0.9 1.0 1.1 (train phase only; one drawn per "
                         "sample per epoch, deterministic)")
     p.add_argument("--spec_augment", action="store_true",
-                   help="SpecAugment mel masking in the train step (not ported yet)")
+                   help="SpecAugment mel masking in the train step (2 freq + 2 "
+                        "time masks, mean fill; train-time only)")
     p.add_argument("--checkpoint_backend", choices=["npz", "orbax"], default="npz",
                    help="orbax is not ported yet")
     p.add_argument("--seed", type=int, default=42)
@@ -111,10 +118,6 @@ def parse_args(argv=None):
 
 def check_ported(args) -> None:
     """Raise for a flag whose module is not ported yet, before any data is read."""
-    if args.lora_rank > 0:
-        not_ported("--lora_rank (LoRA training)", "A.8")
-    if args.spec_augment:
-        not_ported("--spec_augment", "A.8")
     if args.checkpoint_backend == "orbax":
         not_ported("--checkpoint_backend orbax", "A.9")
     if args.remat in ("dots", "wide"):

@@ -135,27 +135,31 @@ def state_dict_to_jax(sd: dict, cfg: WhisperConfig) -> dict:
     return tree
 
 
-def init_state_dict(cfg: WhisperConfig, seed: int = 0) -> dict[str, torch.Tensor]:
-    """Seeded random weights (f32, CPU) with the JAX package's init scheme:
+def init_state_dict(cfg: WhisperConfig, seed: int = 0,
+                    device=None) -> dict[str, torch.Tensor]:
+    """Seeded random weights (f32) with the JAX package's init scheme:
     normal / sqrt(fan_in) for linear and conv weights, 0.02 for the token and
     text-position embeddings, zero biases, unit layer-norm scales, sinusoidal
-    audio positions."""
-    g = torch.Generator().manual_seed(seed)
+    audio positions. Drawn on ``device`` (the CPU when None) by a generator
+    there: a card's draws are other numbers than the CPU's for one seed, and
+    save the copy of a large model's weights (large-v3: 6.2 GB)."""
+    g = torch.Generator(device=device or "cpu").manual_seed(seed)
+    dev = g.device
     with torch.device("meta"):
         shapes = {k: v.shape for k, v in Whisper(cfg).state_dict().items()}
     sd: dict[str, torch.Tensor] = {}
     for name, shape in shapes.items():
         if name == "encoder.pos_emb":
-            sd[name] = torch.from_numpy(sinusoids(cfg.n_audio_ctx, cfg.d_model))
+            sd[name] = torch.from_numpy(sinusoids(cfg.n_audio_ctx, cfg.d_model)).to(dev)
         elif name in ("decoder.token_emb", "decoder.pos_emb"):
-            sd[name] = torch.randn(shape, generator=g) * 0.02
+            sd[name] = torch.randn(shape, generator=g, device=dev) * 0.02
         elif "_ln." in name or name.split(".")[1] in ("ln", "ln_post"):
             fill = 1.0 if name.endswith("weight") else 0.0
-            sd[name] = torch.full(shape, fill)
+            sd[name] = torch.full(shape, fill, device=dev)
         elif name.endswith("bias"):
-            sd[name] = torch.zeros(shape)
+            sd[name] = torch.zeros(shape, device=dev)
         else:  # linear (out, in) or conv (O, I, W): JAX's fan_in is I
-            sd[name] = torch.randn(shape, generator=g) / math.sqrt(shape[1])
+            sd[name] = torch.randn(shape, generator=g, device=dev) / math.sqrt(shape[1])
     return sd
 
 

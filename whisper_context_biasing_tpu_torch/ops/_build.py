@@ -37,6 +37,16 @@ _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``; exact when several threads launch (a
+    loader's workers running the mel kernel, the autograd engine's)."""
+    with _count_lock:
+        launches[name] += 1
+
+
 def reset_launch_counts() -> None:
     launches.clear()
 

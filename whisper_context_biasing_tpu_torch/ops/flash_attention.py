@@ -173,7 +173,7 @@ def flash_attention_fwd(q, k, v, kv_len: int | None = None, causal: bool = False
         *(st for x in (q, k, v, o) for st in x.stride()[:3]),
         _build.stream_handle(q.device))
     _build.check(lib, err, "flash attention")
-    _build.launches["flash_attention"] += 1
+    _build.count_launch("flash_attention")
     return o, lse
 
 
@@ -212,7 +212,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, kv_len: int | None = None,
         dterm.data_ptr(), b, h, tq, tk, kv_len, 1.0 / math.sqrt(dh), int(causal),
         ctypes.cast(strides, _P), _build.stream_handle(q.device))
     _build.check(lib, err, "flash attention backward")
-    _build.launches["flash_attention_bwd"] += 1
+    _build.count_launch("flash_attention_bwd")
     return dq, dk, dv
 
 

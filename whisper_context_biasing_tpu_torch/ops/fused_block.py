@@ -192,7 +192,7 @@ def fused_ln_matmul_fwd(x2d, g, beta, w, b=None, act=None):
         None if b32 is None else b32.data_ptr(), out.data_ptr(), n, d, e, x2d.stride(0),
         wt.stride(0), _ACTS[act], tpg, _build.stream_handle(x2d.device))
     _build.check(lib, err, "fused_ln_matmul")
-    _build.launches["fused_ln_matmul"] += 1
+    _build.count_launch("fused_ln_matmul")
     return out
 
 

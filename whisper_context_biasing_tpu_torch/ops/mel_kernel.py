@@ -148,7 +148,7 @@ def mel_energies(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
                       weights.data_ptr(), n_mels, weights.numel(), out.data_ptr(),
                       _build.stream_handle(audio.device))
     _build.check(lib, err, "mel")
-    _build.launches["mel"] += 1
+    _build.count_launch("mel")
     return out
 
 

@@ -122,7 +122,7 @@ def quant_cross_attention_step_indexed(q, k_q, k_s, v_q, v_s, layer: int,
         v_q.data_ptr() + kv_off, v_s.data_ptr() + s_off, out.data_ptr(), b, t_pad, d,
         splits, math.sqrt(d // n_heads), _build.stream_handle(q.device))
     _build.check(lib, err, "quant cross attention")
-    _build.launches["quant_cross_attention"] += 1
+    _build.count_launch("quant_cross_attention")
     return out
 
 

@@ -1,8 +1,9 @@
 """Training layer: the WeightCE loss, clipped AdamW with a warmup-cosine
 schedule, the training step with microbatch accumulation, npz checkpoints in
-the JAX package's layout, the fine-tuning loop with WER evaluation, and
-Medusa head training."""
+the JAX package's layout, the fine-tuning loop with WER evaluation,
+SpecAugment, LoRA adapters, Medusa head training and draft distillation."""
 
+from .augment import SpecAugmentConfig, apply_spec_augment
 from .checkpoint import (
     find_best_checkpoint,
     is_native_checkpoint,
@@ -11,7 +12,21 @@ from .checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from .distill import (
+    DistillConfig,
+    distill_and_evaluate,
+    make_agreement_step,
+    make_distill_loss_fn,
+    make_distill_step,
+)
 from .loop import TrainingConfig, evaluate_wer, train_and_evaluate
+from .lora import (
+    init_lora_params,
+    init_lora_state,
+    lora_param_count,
+    make_lora_train_step,
+    merge_lora,
+)
 from .loss import bias_span_weights, weighted_ce_loss
 from .medusa import (
     MedusaConfig,
@@ -32,6 +47,18 @@ from .step import (
 )
 
 __all__ = [
+    "SpecAugmentConfig",
+    "apply_spec_augment",
+    "init_lora_params",
+    "init_lora_state",
+    "lora_param_count",
+    "make_lora_train_step",
+    "merge_lora",
+    "DistillConfig",
+    "distill_and_evaluate",
+    "make_agreement_step",
+    "make_distill_loss_fn",
+    "make_distill_step",
     "find_best_checkpoint",
     "is_native_checkpoint",
     "latest_checkpoint",

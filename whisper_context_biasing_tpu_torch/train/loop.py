@@ -22,9 +22,13 @@ each label's context prefix instead.
 The loop trains a ``Whisper`` model (f32 masters, ``build_model(...,
 train=True)``) in place through the port's ``TrainState``; with
 ``cfg.fused_ln_qkv`` / ``fused_ln_mlp`` (the ``--fused_ln`` switch) its
-steps and the eval's encoder run the fused LayerNorm+matmul kernel. Options
-whose modules are not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item: LoRA and SpecAugment (A.8),
+steps and the eval's encoder run the fused LayerNorm+matmul kernel. With
+``spec_augment`` the step masks the features (``train/augment.py``); with
+``lora_rank > 0`` it trains LoRA adapters over the frozen model
+(``train/lora.py``): checkpoints hold the adapter tree with ``lora_rank`` and
+``lora_alpha`` stamped in ``trainer_state.json``, evaluations and the
+returned model have the merged dense weights. Options whose modules are not
+ported yet raise ``NotImplementedError`` naming their ROADMAP item:
 meshes, shard functions and the Orbax backend (A.9). With ``hub_model_id``
 each save pushes the output dir to the Hub and a resume without a local
 checkpoint tries a Hub snapshot, as in JAX; offline both degrade to a
@@ -40,6 +44,7 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from .._device import resolve_device
 from ..data.collator import SpeechSeq2SeqCollator
@@ -61,6 +66,16 @@ from .checkpoint import (
     latest_checkpoint,
     load_checkpoint,
     write_checkpoint,
+)
+from .augment import SpecAugmentConfig
+from .lora import (
+    init_lora_params,
+    init_lora_state,
+    load_lora_checkpoint,
+    lora_host_arrays,
+    lora_param_count,
+    make_lora_train_step,
+    merge_lora,
 )
 from .optim import make_optimizer
 from .step import init_train_state, make_train_step
@@ -93,8 +108,9 @@ class TrainingConfig:
     load_best_model_at_end: bool = True
     dataloader_num_workers: int = 4
     mel_on_device: bool = False  # dataset must be built with return_audio=True
-    spec_augment: bool = False   # not ported (ROADMAP A.8)
-    lora_rank: int = 0           # >0 not ported (ROADMAP A.8)
+    spec_augment: bool = False   # mel masking in the step (train/augment.py)
+    lora_rank: int = 0           # >0: train rank-r LoRA adapters instead of
+                                 # the full weights (train/lora.py)
     lora_alpha: float = 16.0
     use_wandb: bool = False
     wandb_project: str | None = None
@@ -107,12 +123,8 @@ class TrainingConfig:
 
 
 def _check_ported(tcfg: TrainingConfig) -> None:
-    if tcfg.lora_rank > 0:
-        raise NotImplementedError("LoRA training is not ported yet (ROADMAP Queue A.8, "
-                                  "train/lora.py)")
-    if tcfg.spec_augment:
-        raise NotImplementedError("SpecAugment is not ported yet (ROADMAP Queue A.8, "
-                                  "train/augment.py)")
+    if tcfg.lora_rank > 0 and tcfg.mel_on_device:
+        raise ValueError("lora_rank with mel_on_device is not supported")
     if tcfg.checkpoint_backend == "orbax":
         raise NotImplementedError("the Orbax checkpoint backend is not ported yet "
                                   "(ROADMAP Queue A.9)")
@@ -240,7 +252,8 @@ def train_and_evaluate(
     ``params_from_jax``, ``load_checkpoint``, or None for the seeded init).
     Returns (the trained ``Whisper`` model, log_history); with
     ``load_best_model_at_end`` the model holds the best checkpoint's
-    weights."""
+    weights. Under ``lora_rank > 0`` the model from ``params`` stays frozen
+    and the returned one has the adapters merged into it."""
     _check_ported(tcfg)
     if shard_fn is not None or mesh is not None:
         raise NotImplementedError("sharded training is not ported yet (ROADMAP Queue A.9)")
@@ -259,14 +272,22 @@ def train_and_evaluate(
         total_steps=total_steps, weight_decay=tcfg.weight_decay,
         max_grad_norm=tcfg.max_grad_norm,
     )
-    step_fn = make_train_step(
-        model_cfg, optimizer, bias_weight=tcfg.bias_weight, grad_accum=accum,
-        freeze_encoder=tcfg.freeze_encoder, mel_on_device=tcfg.mel_on_device,
-    )
+    sa_cfg = SpecAugmentConfig() if tcfg.spec_augment else None
+    lora = tcfg.lora_rank > 0
+    if lora:
+        lora_step = make_lora_train_step(
+            model_cfg, optimizer, alpha=tcfg.lora_alpha, bias_weight=tcfg.bias_weight,
+            grad_accum=accum, spec_augment=sa_cfg, augment_seed=tcfg.seed)
+    else:
+        step_fn = make_train_step(
+            model_cfg, optimizer, bias_weight=tcfg.bias_weight, grad_accum=accum,
+            freeze_encoder=tcfg.freeze_encoder, mel_on_device=tcfg.mel_on_device,
+            spec_augment=sa_cfg, augment_seed=tcfg.seed,
+        )
 
     log_history: list[dict] = []
     start_step = 0
-    resumed_opt_state = None
+    resumed = resumed_opt_state = None
     if resume:
         ckpt = latest_checkpoint(tcfg.output_dir)
         if ckpt is None and tcfg.hub_model_id:
@@ -278,15 +299,35 @@ def train_and_evaluate(
         if ckpt:
             # restore optimizer moments + schedule count too: re-initializing
             # them would silently re-warm the LR and zero the Adam moments
-            params, resumed_opt_state, meta = load_checkpoint(ckpt, model_cfg,
-                                                              load_opt_state=True)
+            if lora:  # the checkpoint holds the adapters; the base stays params
+                resumed, resumed_opt_state, meta = load_lora_checkpoint(
+                    ckpt, load_opt_state=True, device=device)
+            else:
+                params, resumed_opt_state, meta = load_checkpoint(ckpt, model_cfg,
+                                                                  load_opt_state=True)
             start_step = meta.get("step", 0)
             log_history = meta.get("log_history", [])
             print(f"resumed from {ckpt} at step {start_step} "
                   f"(opt_state {'restored' if resumed_opt_state is not None else 'reset'})")
 
     model = build_model(model_cfg, params, device=device, train=True)
-    state = init_train_state(model, optimizer)
+    if lora:
+        base = model.requires_grad_(False)
+        adapters = resumed if resumed is not None else init_lora_params(
+            base, tcfg.lora_rank, torch.Generator().manual_seed(tcfg.seed),
+            include_encoder=not tcfg.freeze_encoder)
+        print(f"LoRA rank {tcfg.lora_rank}: {lora_param_count(adapters):,} trainable adapter "
+              "params")
+        state = init_lora_state(adapters, optimizer)
+        step_fn = lambda st, b: lora_step(st, base, b)  # noqa: E731
+
+        def current_model():  # evaluations see the merged dense weights
+            return merge_lora(base, state.model, tcfg.lora_alpha)
+    else:
+        state = init_train_state(model, optimizer)
+
+        def current_model():
+            return model
     if resumed_opt_state is not None:
         resumed_opt_state.mu = [m.to(device) for m in resumed_opt_state.mu]
         resumed_opt_state.nu = [v.to(device) for v in resumed_opt_state.nu]
@@ -355,7 +396,7 @@ def train_and_evaluate(
 
             if step % tcfg.eval_steps == 0:
                 last_wer = evaluate_wer(
-                    model, tokenizer, data_eval, collator,
+                    current_model(), tokenizer, data_eval, collator,
                     tcfg.per_device_eval_batch_size,
                     tcfg.generation_max_length - 1,
                     refs_pred_file=os.path.join(tcfg.output_dir, "refs_and_pred.txt"),
@@ -388,7 +429,12 @@ def train_and_evaluate(
                     meta["eval_step"] = last_eval_step
                 if save_thread is not None:
                     save_thread.join()
-                host_params, host_opt = host_arrays(model, state.opt_state)
+                if lora:
+                    meta["lora_rank"] = tcfg.lora_rank
+                    meta["lora_alpha"] = tcfg.lora_alpha
+                    host_params, host_opt = lora_host_arrays(state.model, state.opt_state)
+                else:
+                    host_params, host_opt = host_arrays(model, state.opt_state)
 
                 def _save_and_push(step=step, params=host_params, opt=host_opt, meta=meta):
                     write_checkpoint(tcfg.output_dir, step, params, opt, meta,
@@ -406,8 +452,13 @@ def train_and_evaluate(
         save_thread.join()
     if tcfg.load_best_model_at_end:
         best = find_best_checkpoint(tcfg.output_dir)
-        if best:
+        if best and lora:
+            state.model, _, _ = load_lora_checkpoint(best, device=device)
+        elif best:
             best_params, _, _ = load_checkpoint(best, model_cfg)
             model.load_state_dict(best_params)
+        if best:
             print(f"loaded best checkpoint: {best} (eval_wer {best_wer:.3f})")
-    return model, log_history
+    # downstream consumers (test-set eval, safetensors export, serving) get
+    # ordinary dense weights
+    return current_model(), log_history

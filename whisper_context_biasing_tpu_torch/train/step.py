@@ -1,6 +1,7 @@
 """The WeightCE training step: forward and backward with microbatch gradient
 accumulation, then clipped AdamW; optional encoder freezing and log-mel from
-raw audio inside the step.
+raw audio inside the step, and SpecAugment of the features inside the
+step.
 
 The counterpart of the JAX package's ``train/step.py``. The model holds f32
 master weights (``build_model(..., train=True)``) and computes in
@@ -21,6 +22,7 @@ import torch
 from ..models.config import WhisperConfig
 from ..models.whisper import Whisper, decode_tokens, encode_audio, forward
 from ..ops.mel_kernel import log_mel_spectrogram_fused
+from .augment import SpecAugmentConfig, make_augment_fn
 from .loss import weighted_ce_loss
 from .optim import AdamW, OptState, global_norm
 
@@ -94,6 +96,16 @@ def accumulate_microbatch_grads(loss_fn, model: Whisper, batch: dict, grad_accum
     return loss, [p.grad for p in model.parameters()]
 
 
+def _check_augment(spec_augment, augment_seed: int, mel_on_device: bool):
+    """The step's SpecAugment function, or None; shared with the LoRA step."""
+    if spec_augment is None:
+        return None
+    if mel_on_device:
+        raise ValueError("spec_augment needs precomputed input_features "
+                         "(mel_on_device computes mel inside the loss)")
+    return make_augment_fn(spec_augment, augment_seed)
+
+
 def make_train_step(
     cfg: WhisperConfig,
     optimizer: AdamW,
@@ -102,22 +114,28 @@ def make_train_step(
     freeze_encoder: bool = False,
     use_bias_spans: bool = True,
     mel_on_device: bool = False,
-    spec_augment=None,
+    spec_augment: SpecAugmentConfig | None = None,
+    augment_seed: int = 0,
 ):
     """Returns ``step(state, batch) -> (state, {"loss", "grad_norm"})``:
     the model and optimizer state update in place; ``grad_norm`` is the
     global norm of the unclipped gradients. Both metrics are 0-d device
     tensors (reading them syncs). With ``grad_accum > 1`` every tensor in
     ``batch`` carries a leading microbatch axis (A, ...). numpy arrays in
-    ``batch`` move to the model's device."""
-    if spec_augment is not None:
-        raise NotImplementedError("SpecAugment in the training step is not ported yet "
-                                  "(ROADMAP Queue A.8, train/augment.py)")
+    ``batch`` move to the model's device.
+
+    ``spec_augment`` masks the mel features inside the step (train time
+    only; the masks come from ``(augment_seed, state.step)``, so a resume
+    draws the same ones). It needs precomputed ``input_features``: with
+    ``mel_on_device`` it raises ``ValueError``, as in the JAX package."""
+    augment = _check_augment(spec_augment, augment_seed, mel_on_device)
     loss_fn = make_loss_fn(cfg, bias_weight, use_bias_spans, mel_on_device, freeze_encoder)
 
     def step(state: TrainState, batch: dict):
         model = state.model
         batch = _on_device(batch, next(model.parameters()).device)
+        if augment is not None:
+            batch = augment(batch, state.step)
         loss, grads = accumulate_microbatch_grads(loss_fn, model, batch, grad_accum)
         gnorm = global_norm(grads)
         frozen = ()
