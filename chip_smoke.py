@@ -185,10 +185,12 @@ N_HEADS = 8
 N_LAYERS = 6
 T_PAD = 1536
 
-# NVIDIA H100 SXM peaks (data sheet, dense, at the 700 W limit)
+# NVIDIA H100 SXM peaks (data sheet, dense, at the 700 W limit); the bf16
+# peak is the port's (utils/flops.py H100_BF16_FLOPS, set in main once the
+# package is importable)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12     # CUDA cores, no tensor cores
-PEAK_BF16_FLOP_S = 989e12   # tensor cores
+PEAK_BF16_FLOP_S = None     # tensor cores
 
 REPS = 20  # CUDA-event-timed bursts per kernel
 BURST = 5  # calls per burst
@@ -918,6 +920,7 @@ def f32_agreement(torch, Pipeline, ops):
             require(pm[i, s] < 1e-4, f"f32 kernels vs plain diverge at row {i} step {s}")
     print(f"f32 main path, kernels vs plain versions: tokens identical up to near-ties "
           f"({int((kt == pt).all(axis=1).sum())}/{BATCH} rows identical)")
+    return runs[0]  # the kernel run's tokens and top-2 gaps: phase 15's reference
 
 
 # ---------------------------------------------------------------------------
@@ -1999,6 +2002,7 @@ class PathRecorder:
                                    margins=None if res.margins is None
                                    else res.margins.cpu().numpy()))
             return res
+        recorded.cache_size = self.fn.cache_size  # evaluate_wer's signature diagnostic
 
         self.patched = [m for n, m in list(sys.modules.items())
                         if n.startswith("whisper_context_biasing_tpu_torch")
@@ -3198,6 +3202,7 @@ def acceptance_run(torch, ops, card, tmp):
             res = fn(*a, timings=t, **kw)
             steps.append(t["steps"])
             return res
+        decode.cache_size = fn.cache_size  # evaluate_wer's signature diagnostic
         return decode
 
     def counted(fn):
@@ -3303,6 +3308,476 @@ def training_extensions(torch, ops, card, init_path, tmp):
     return {k: sum(c.get(k, 0) for c in runs) for k in set().union(*runs)}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: data and tensor parallelism, and the remat policies
+# ---------------------------------------------------------------------------
+
+TP = 2                # (b)'s model axis over the two ranks
+RANK_TIMEOUT_S = 600  # a rank that runs longer fails the phase
+REMAT_POLICIES = ("none", "full", "dots", "wide")
+
+
+def check_fused_shape(torch, ops, rng, label, n, e, act) -> dict:
+    """K5 at one (n, 512) -> e site, f32 and bf16, against its plain version
+    with phase 2's limits, timed beside its bound."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g, beta, w, b = fused_inputs(torch, rng, n, e, dtype)
+        want = ops.fused_ln_matmul_plain(x, g, beta, w, b, act=act)
+        err = max_err(ops.fused_ln_matmul(x, g, beta, w, b, act=act), want)
+        limit = 2e-5 if dtype == torch.float32 else 1e-2 * want.float().abs().max().item()
+        require(err <= limit, f"fused LN+matmul {dtype} {label} ({n} -> {e}) disagrees: {err}")
+    n_ops = 2 * n * D_MODEL * e
+    b_ms, b_by = bound((n * D_MODEL + D_MODEL * e + n * e) * 2, n_ops, PEAK_BF16_FLOP_S)
+    ms = median_ms(torch, lambda: ops.fused_ln_matmul(x, g, beta, w, b, act=act))
+    plain_ms = median_ms(torch, lambda: ops.fused_ln_matmul_plain(x, g, beta, w, b, act=act))
+    print(f"K5 fused LN+matmul {label} ({n} x {D_MODEL} -> {e}): bf16 max |err| {err:.3e} "
+          f"(1% of max |out|); {ms:.4f} ms = {n_ops / ms / 1e9:.1f} TFLOP/s (plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by})")
+    return dict(kernel="fused_ln_matmul", shape=f"{n}x{D_MODEL}->{e}", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms)
+
+
+def check_tp_shapes(torch, ops) -> list[dict]:
+    """K2, K3, K4 and K5 at the shapes a rank of base.en's tensor-parallel
+    mesh (model axis 2, phase 15 (b)) gives them: 4 heads of 64 (D / 2 =
+    256): K2 and K4 on the encoder's (8, 1500, 4 x 64), K3 on the (6, 8,
+    1536, 256) int8 cross K/V; K5 at E / 2: 768 (QKV), 1024 (MLP) and 256
+    (the decoder's cross q). Each as ``check_bucket_shapes`` holds and times
+    its shapes."""
+    rng = np.random.default_rng(51)
+    d, heads = D_MODEL // TP, N_HEADS // TP
+    print(f"tensor-parallel shapes (model axis {TP}: d {d}, {heads} heads a rank):")
+    rows = [check_flash_shape(torch, ops, rng, T_AUDIO, d, heads),
+            check_quant_shape(torch, ops, rng, BATCH, T_PAD, T_AUDIO, d, heads),
+            check_flash_bwd_shape(torch, ops, rng, T_AUDIO, d, heads)]
+    for label, (n, e, act) in {
+            "encoder QKV / 2": (BATCH * T_AUDIO, 3 * D_MODEL // TP, None),
+            "encoder MLP gelu / 2": (BATCH * T_AUDIO, 4 * D_MODEL // TP, "gelu"),
+            "decoder cross q / 2": (BATCH * T_TEXT, D_MODEL // TP, None)}.items():
+        rows.append(check_fused_shape(torch, ops, rng, label, n, e, act))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def f32_step(torch, ops, mesh=None, batch=None):
+    """One f32 step of phase 5's configuration (flash, remat full, mel in the
+    step): (loss, {name: whole gradient}, launches). Under ``mesh`` the
+    model and the batch are this rank's shards and the gradients gathered
+    whole."""
+    from whisper_context_biasing_tpu_torch.models import build_model, get_config
+    from whisper_context_biasing_tpu_torch.parallel import shard_batch, shard_params
+    from whisper_context_biasing_tpu_torch.parallel.sharding import gather_tensor
+    from whisper_context_biasing_tpu_torch.train import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    if batch is None:
+        batch = {k: torch.from_numpy(v).cuda() for k, v in train_batch(
+            np.random.default_rng(7)).items()}
+    cfg = get_config("base.en", dtype="float32", flash_attention=True, remat="full")
+    model = build_model(cfg, seed=0, device="cuda", train=True)
+    if mesh is not None:
+        model = shard_params(model, mesh)
+        batch = shard_batch(batch, mesh, extra_leading_axes=1)
+    opt = make_optimizer(peak_lr=1e-5, warmup_steps=50, total_steps=1000)
+    step = make_train_step(cfg, opt, bias_weight=1.5, grad_accum=ACCUM, mel_on_device=True,
+                           mesh=mesh)
+    ops.reset_launch_counts()
+    _, m = step(init_train_state(model, opt), batch)
+    torch.cuda.synchronize()
+    counts = dict(ops.launches)
+    grads = {n: gather_tensor(model, n, p.grad) for n, p in model.named_parameters()}
+    return float(m["loss"]), grads, counts
+
+
+def grads_within(label, grads, ref) -> float:
+    """|g - g_ref| / |g_ref| over every tensor (phase 6's rule: 1e-4)."""
+    diff = sum(((grads[n] - ref[n].to(grads[n].device)).double() ** 2).sum().item()
+               for n in ref) ** 0.5
+    norm = sum((ref[n].double() ** 2).sum().item() for n in ref) ** 0.5
+    require(diff <= 1e-4 * norm, f"{label}: gradients disagree, |g - g_ref| / |g_ref| = "
+            f"{diff / norm:.2e} > 1e-4")
+    return diff / norm
+
+
+def serving_inputs(pipe):
+    """Phase 4's decode inputs for ``pipe``: phase 3's requests through the
+    mel kernel, the prompted prefixes and the bias spans."""
+    from whisper_context_biasing_tpu_torch.audio import pad_or_trim
+    from whisper_context_biasing_tpu_torch.decode import pack_prefixes
+
+    tok = pipe.tokenizer
+    ctx = tok.encode(CONTEXT.lower(), add_special_tokens=False)
+    ids, mask = pack_prefixes([[tok.sop] + ctx + [tok.sot]] * BATCH, tok.eot, 32)
+    audio = np.stack([pad_or_trim(c, pipe.window_samples)
+                      for c in requests(np.random.default_rng(4))])
+    return pipe.mel(audio), ids, mask, pipe._spans(BIAS_WORDS, BATCH)
+
+
+def f32_decodes(torch, pipe, mesh=None):
+    """Phase 4's greedy decode and a 5-beam decode of the same inputs, in
+    f32 on ``pipe``'s model: (greedy tokens, beam best tokens)."""
+    from whisper_context_biasing_tpu_torch.decode import beam_decode, greedy_decode
+
+    mel, ids, mask, spans = serving_inputs(pipe)
+    eot = pipe.tokenizer.eot
+    kw = dict(max_new=MAX_TOKENS, eot_id=eot, bias_spans=spans, bias_boost=2.0,
+              span_pad_id=eot, device="cuda", mesh=mesh)
+    g = greedy_decode(pipe.model, mel, ids, mask, **kw)
+    b = beam_decode(pipe.model, mel, ids, mask, num_beams=BEAMS, **kw)
+    return g.tokens.cpu().numpy(), b.best.cpu().numpy()
+
+
+def parallel_rank(rank: int, workdir: str) -> int:
+    """Phase 15 (b), one of two ranks that share the card over gloo: at mesh
+    (1, 2) and then (2, 1) (``auto_mesh(2)``, ``auto_mesh(1)``), the f32
+    greedy and 5-beam tokens, an f32 training step's loss and gathered
+    gradients against the unsharded references the parent wrote, and the
+    bf16 launches of a serving batch, a training step and a fused training
+    step. Writes ``rank{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rendezvous",
+                            world_size=2, rank=rank)
+    from whisper_context_biasing_tpu_torch import Pipeline, ops
+    from whisper_context_biasing_tpu_torch.models import build_model, get_config
+    from whisper_context_biasing_tpu_torch.parallel import (
+        DATA_AXIS,
+        MODEL_AXIS,
+        auto_mesh,
+        axis_size,
+        shard_batch,
+        shard_params,
+    )
+    from whisper_context_biasing_tpu_torch.train import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    ref = np.load(os.path.join(workdir, "ref_tokens.npz"))
+    ref_grads = torch.load(os.path.join(workdir, "ref_grads.pt"))
+    spec = json.loads(open(os.path.join(workdir, "spec.json")).read())
+    batch = {k: torch.from_numpy(v).cuda() for k, v in train_batch(
+        np.random.default_rng(7)).items()}
+    out = {}
+    for label, mp in (("tp", TP), ("dp", 1)):
+        mesh = auto_mesh(mp)
+        shape = (axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS))
+        res = {"mesh": shape}
+        walls = {}
+        t0 = time.perf_counter()
+        pipe = Pipeline("base.en", device="cuda", seed=0, dtype="float32", model_parallelism=mp)
+        greedy, beam = f32_decodes(torch, pipe, pipe.mesh)
+        walls["f32 greedy + 5 beams"] = time.perf_counter() - t0
+        kt, km = ref["greedy"], ref["margins"]
+        rows = []
+        for i in range(BATCH):  # phase 4's rule: identical, or a near-tie
+            diff = np.nonzero(greedy[i] != kt[i])[0]
+            if diff.size:
+                rows.append((i, int(diff[0]), float(km[i, diff[0]])))
+        require(all(gap < 1e-4 for _, _, gap in rows),
+                f"rank {rank} mesh {shape}: f32 greedy tokens diverge from phase 4's {rows}")
+        require(np.array_equal(beam, ref["beam"]),
+                f"rank {rank} mesh {shape}: f32 5-beam tokens differ from the unsharded run's")
+        res["greedy_divergences"] = rows
+        del pipe
+        t0 = time.perf_counter()
+        loss, grads, _ = f32_step(torch, ops, mesh, batch)
+        walls["f32 training step"] = time.perf_counter() - t0
+        rel = abs(loss - spec["loss"]) / abs(spec["loss"])
+        require(rel <= 1e-5, f"rank {rank} mesh {shape}: f32 loss {loss} vs {spec['loss']}")
+        res.update(loss=loss, loss_rel=rel,
+                   grad_rel=grads_within(f"rank {rank} mesh {shape}", grads, ref_grads))
+        del grads
+        # bf16: the launches of a serving batch and of the training steps
+        pipe = Pipeline("base.en", device="cuda", seed=0, model_parallelism=mp)
+        kwargs = dict(context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0,
+                      max_tokens=MAX_TOKENS)
+        clips = requests(np.random.default_rng(4))
+        pipe.transcribe(clips, **kwargs)  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        pipe.transcribe(clips, **kwargs)
+        torch.cuda.synchronize()
+        walls["bf16 serving batch"] = time.perf_counter() - t0
+        steps = pipe.last_timings["steps"]
+        counts = dict(ops.launches)
+        want = {"mel": 1, "flash_attention": N_LAYERS,
+                "quant_cross_attention": N_LAYERS * steps}
+        require(counts == want, f"rank {rank} mesh {shape}: serving launches {counts} != "
+                f"{want}")
+        res["serve"] = dict(counts, steps=steps)
+        del pipe
+        for name, fused in (("train", False), ("fused", True)):
+            cfg = get_config("base.en", dtype="bfloat16", flash_attention=True, remat="full",
+                             **(FUSED_LN if fused else {}))
+            model = shard_params(build_model(cfg, seed=0, device="cuda", train=True), mesh)
+            opt = make_optimizer(peak_lr=1e-5, warmup_steps=50, total_steps=1000)
+            step = make_train_step(cfg, opt, bias_weight=1.5, grad_accum=ACCUM,
+                                   mel_on_device=True, mesh=mesh)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, m = step(init_train_state(model, opt), shard_batch(batch, mesh,
+                                                                 extra_leading_axes=1))
+            torch.cuda.synchronize()
+            walls[f"bf16 {name} step"] = time.perf_counter() - t0
+            counts = dict(ops.launches)
+            want = expected_train_launches(cfg, 1)
+            require(np.isfinite(float(m["loss"])), f"rank {rank}: non-finite bf16 loss")
+            require(counts == want, f"rank {rank} mesh {shape}: bf16 {name} step launches "
+                    f"{counts} != {want}")
+            res[name] = counts
+            del model, opt, step
+        res["walls_s"] = walls
+        out[label] = res
+        torch.cuda.empty_cache()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def two_ranks(torch, ops, card, f32_tokens, tmp) -> dict:
+    """Phase 15 (b): the unsharded f32 references written to ``tmp``, the
+    two ranks spawned (this script with ``--parallel-rank``, a ``file://``
+    rendezvous in ``tmp``), each waited for with a timeout and killed on
+    failure. Returns both ranks' bf16 launches, summed."""
+    from whisper_context_biasing_tpu_torch import Pipeline
+
+    workdir = os.path.join(tmp, "parallel")
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    pipe = Pipeline("base.en", device="cuda", seed=0, dtype="float32")
+    greedy, beam = f32_decodes(torch, pipe)
+    del pipe
+    kt, km = f32_tokens
+    require(np.array_equal(greedy, kt), "the f32 greedy decode no longer gives phase 4's tokens")
+    loss, grads, _ = f32_step(torch, ops)
+    np.savez(os.path.join(workdir, "ref_tokens.npz"), greedy=kt, margins=km, beam=beam)
+    torch.save({n: g.cpu() for n, g in grads.items()}, os.path.join(workdir, "ref_grads.pt"))
+    del grads
+    torch.cuda.empty_cache()
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump({"loss": loss}, f)
+    print(f"  (b) unsharded f32 references (greedy = phase 4's, 5 beams, one training step, "
+          f"loss {loss:.7f}) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(workdir, f"rank{r}.log"), "w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                               str(r), workdir], stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            # a rank that fails ends the phase: its peer would wait for it
+            require(all(p.returncode in (None, 0) for p in procs), "a rank failed")
+            require(time.monotonic() < deadline, f"a rank ran past {RANK_TIMEOUT_S} s")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        for r in range(2):
+            text = open(os.path.join(workdir, f"rank{r}.log")).read()
+            if procs[r].returncode != 0:
+                print(f"  rank {r} exited {procs[r].returncode}:\n{text[-4000:]}")
+    require(all(p.returncode == 0 for p in procs), "phase 15 (b): a rank failed")
+    wall = time.perf_counter() - t0
+    total = {}
+    for r in range(2):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            res = json.load(f)
+        for label in ("tp", "dp"):
+            x = res[label]
+            print(f"  (b) rank {r}, mesh (data, model) = {tuple(x['mesh'])}: f32 greedy tokens "
+                  f"= phase 4's ({len(x['greedy_divergences'])} near-tie divergences "
+                  f"{x['greedy_divergences']}), 5 beams = the unsharded run's; f32 step loss "
+                  f"{x['loss']:.7f} (rel {x['loss_rel']:.2e}, limit 1e-5), gradients "
+                  f"|g - g_ref| / |g_ref| = {x['grad_rel']:.2e} (limit 1e-4); bf16 launches: "
+                  f"serving {x['serve']}, training step {x['train']}, fused step "
+                  f"{x['fused']}")
+            print(f"      walls (two ranks time-slicing one card, gloo through the host: "
+                  f"no dp or tp figure): "
+                  + ", ".join(f"{k} {v:.2f} s" for k, v in x["walls_s"].items()))
+            for c in (x["serve"], x["train"], x["fused"]):
+                add_counts(total, {k: v for k, v in c.items() if k != "steps"})
+    print(f"  (b) two ranks took {wall:.1f} s (spawn to exit)  [{card}]")
+    return total
+
+
+def remat_policies(torch, ops, card) -> dict:
+    """Phase 15 (c): phase 5's bf16 base.en 8 x 2 step with the --fused_ln
+    config under each remat policy: step ms, peak device memory, exact
+    launches; then the f32 gradients of each policy against "none"'s."""
+    from whisper_context_biasing_tpu_torch.models import build_model, get_config
+    from whisper_context_biasing_tpu_torch.train import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from whisper_context_biasing_tpu_torch.train.step import (
+        accumulate_microbatch_grads,
+        make_loss_fn,
+    )
+
+    batch = {k: torch.from_numpy(v).cuda() for k, v in train_batch(
+        np.random.default_rng(7)).items()}
+    layers = N_LAYERS + N_LAYERS
+    uses = N_LAYERS + 2 * N_LAYERS           # flash sites a microbatch
+    sites = 2 * N_LAYERS + 3 * N_LAYERS      # fused sites a microbatch
+    rerun = {"none": (0, 0), "full": (uses, sites), "dots": (uses, sites),
+             "wide": (0, layers)}            # the MLP sites' K5 alone
+    peaks, total = {}, {}
+    for policy in REMAT_POLICIES:
+        cfg = get_config("base.en", dtype="bfloat16", flash_attention=True, remat=policy,
+                         **FUSED_LN)
+        model = build_model(cfg, seed=0, device="cuda", train=True)
+        opt = make_optimizer(peak_lr=1e-5, warmup_steps=50, total_steps=1000)
+        step = make_train_step(cfg, opt, bias_weight=1.5, grad_accum=ACCUM, mel_on_device=True)
+        state = init_train_state(model, opt)
+        state, _ = step(state, batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peaks[policy] = torch.cuda.max_memory_allocated()
+        counts = dict(ops.launches)
+        f, u = rerun[policy]
+        want = {"mel": ACCUM, "flash_attention": ACCUM * (uses + f),
+                "flash_attention_bwd": ACCUM * uses, "fused_ln_matmul": ACCUM * (sites + u)}
+        print(f"  (c) remat={policy}: step {ms:.1f} ms, peak device memory "
+              f"{peaks[policy] / 2**30:.3f} GiB, loss {float(m['loss']):.4f}, launches "
+              f"{counts}  [{card}]")
+        require(np.isfinite(float(m["loss"])), f"remat={policy}: non-finite loss")
+        require(counts == want, f"remat={policy}: launches {counts} != {want}")
+        add_counts(total, counts)
+        del model, opt, step, state
+        torch.cuda.empty_cache()
+    require(peaks["full"] <= peaks["dots"] <= peaks["none"]
+            and peaks["full"] <= peaks["wide"] <= peaks["none"],
+            f"remat peaks out of order: {peaks}")
+    grads = {}
+    for policy in REMAT_POLICIES:
+        cfg = get_config("base.en", dtype="float32", flash_attention=True, remat=policy,
+                         **FUSED_LN)
+        model = build_model(cfg, seed=0, device="cuda", train=True)
+        accumulate_microbatch_grads(make_loss_fn(cfg, 1.5, mel_on_device=True), model, batch,
+                                    ACCUM)
+        grads[policy] = {n: p.grad for n, p in model.named_parameters()}
+        del model
+    rels = {p: grads_within(f"f32 remat={p} vs none", grads[p], grads["none"])
+            for p in REMAT_POLICIES[1:]}
+    print(f"  (c) f32 gradients against remat=none's, |g - g_none| / |g_none|: "
+          + ", ".join(f"{p} {r:.2e}" for p, r in rels.items()) + " (limit 1e-4)")
+    return total
+
+
+def world_of_one(torch, ops, Pipeline, card, serve_tokens, init_path, tmp) -> dict:
+    """Phase 15 (a): a world of one over NCCL with ``make_mesh(1)``: phase
+    5's f32 step gives the unsharded loss (1e-6), phase 3's requests phase
+    3's tokens and launches, ``cli.train`` under ``torchrun
+    --nproc_per_node 1`` runs one step, and ``--model_parallelism 2`` on
+    that world raises JAX's ValueError."""
+    import torch.distributed as dist
+
+    from whisper_context_biasing_tpu_torch.cli import train as train_cli
+    from whisper_context_biasing_tpu_torch.parallel import make_mesh
+
+    total = {}
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous1", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh(1)
+        require(tuple(mesh.shape) == (1, 1), f"make_mesh(1) gave {mesh.shape}")
+        plain, _, _ = f32_step(torch, ops)
+        meshed, _, counts = f32_step(torch, ops, mesh)
+        print(f"  (a) world of one (NCCL), mesh (1, 1): f32 step loss {meshed:.7f} vs "
+              f"{plain:.7f} without the mesh (limit rel 1e-6)")
+        require(abs(meshed - plain) <= 1e-6 * abs(plain), "world-of-one f32 loss differs")
+        add_counts(total, counts)
+        pipe = Pipeline("base.en", device="cuda", seed=0)
+        pipe.mesh = mesh
+        kwargs = dict(context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0,
+                      max_tokens=MAX_TOKENS)
+        clips = requests(np.random.default_rng(4))
+        ops.reset_launch_counts()
+        res = pipe.transcribe(clips, **kwargs)
+        torch.cuda.synchronize()
+        counts = dict(ops.launches)
+        same = [r.tokens for r in res] == serve_tokens
+        print(f"  (a) phase 3's requests on the mesh: tokens identical to phase 3: {same}; "
+              f"launches {counts}")
+        require(same, "world-of-one serving tokens differ from phase 3's")
+        add_counts(total, counts)
+        del pipe
+        corpus, out = os.path.join(tmp, "corpus"), os.path.join(tmp, "torchrun_run")
+        argv = ["--model", "base.en", "--data_root", corpus, "--data_dir", "audio",
+                "--jsonl_data", os.path.join(corpus, "jsonl"), "--output", out,
+                "--init_checkpoint", str(init_path), "--batch", str(BATCH),
+                "--grad_accum", "1", "--epoch", "0.5", "--eval_steps", "100",
+                "--save_steps", "100", "--logging_steps", "1", "--eval_batch", str(BATCH)]
+        try:
+            train_cli.main([*argv, "--model_parallelism", "2"])
+            err = None
+        except ValueError as e:
+            err = str(e)
+        print(f"  (a) cli.train --model_parallelism 2 on the world of one: ValueError "
+              f"'{err}'")
+        require(err == "1 devices not divisible by model_parallelism=2",
+                f"--model_parallelism 2 on a world of one: {err!r}")
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc_per_node", "1", "-m",
+                          "whisper_context_biasing_tpu_torch.cli.train", *argv],
+                         capture_output=True, text=True, timeout=RANK_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    log = [json.loads(line) for line in open(os.path.join(out, "train_log.jsonl"))] \
+        if run.returncode == 0 else []
+    print(f"  (a) torchrun --nproc_per_node 1 cli.train: exit {run.returncode}, log {log}, "
+          f"{wall:.1f} s wall")
+    if run.returncode != 0:
+        print(run.stdout[-3000:], run.stderr[-3000:])
+    require(run.returncode == 0, "cli.train under torchrun failed")
+    require([e["step"] for e in log if "loss" in e] == [1]
+            and os.path.isfile(os.path.join(out, "test_results.json")),
+            "cli.train under torchrun did not run one step and its test eval")
+    return total
+
+
+def parallelism_and_remat(torch, Pipeline, ops, card, serve_tokens, f32_tokens, init_path,
+                          tmp) -> dict:
+    """Phase 15: (a) a world of one, (b) two ranks on the card, (c) the
+    remat policies. Returns the launches of (a), (b) (both ranks) and (c)."""
+    start = time.perf_counter()
+    total = world_of_one(torch, ops, Pipeline, card, serve_tokens, init_path, tmp)
+    t = time.perf_counter()
+    print(f"  (a) took {t - start:.1f} s")
+    add_counts(total, two_ranks(torch, ops, card, f32_tokens, tmp))
+    print(f"  (b) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    add_counts(total, remat_policies(torch, ops, card))
+    print(f"  (c) took {time.perf_counter() - t:.1f} s")
+    print(f"  phase 15 took {time.perf_counter() - start:.1f} s  [{card}]")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="TABLE_PATH",
@@ -3317,6 +3792,8 @@ def main() -> int:
                          "time two versions in turns on one card")
     ap.add_argument("--flash-only", metavar="TREE", nargs="?", const=".",
                     help="as --kernels-only, for the flash kernels (K2, K4) alone")
+    ap.add_argument("--parallel-rank", nargs=2, metavar=("RANK", "WORKDIR"),
+                    help=argparse.SUPPRESS)  # phase 15 (b) spawns its ranks this way
     args = ap.parse_args()
     tree = args.kernels_only or args.flash_only
 
@@ -3325,11 +3802,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.parallel_rank:
+        return parallel_rank(int(args.parallel_rank[0]), args.parallel_rank[1])
     if tree:
         sys.path.insert(0, os.path.abspath(tree))
     from whisper_context_biasing_tpu_torch import Pipeline, ops
     from whisper_context_biasing_tpu_torch.ops import _build
+    from whisper_context_biasing_tpu_torch.utils.flops import H100_BF16_FLOPS
 
+    global PEAK_BF16_FLOP_S
+    PEAK_BF16_FLOP_S = H100_BF16_FLOPS
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -3358,6 +3840,7 @@ def main() -> int:
     check_bucket_shapes(torch, ops)
     check_draft_shapes(torch, ops)
     check_width_shapes(torch, ops)
+    check_tp_shapes(torch, ops)
     if tree:
         print(f"chip_smoke --kernels-only {os.path.abspath(tree)} took "
               f"{time.perf_counter() - start:.1f} s  [{card}]")
@@ -3365,7 +3848,7 @@ def main() -> int:
     phase = time.perf_counter()
     print(f"phases 1-2 took {phase - start:.1f} s")
     serve_counts, serve_tokens = serve(torch, Pipeline, ops, card, args.profile)
-    f32_agreement(torch, Pipeline, ops)
+    f32_tokens = f32_agreement(torch, Pipeline, ops)
     train_counts, walls = train(torch, ops, card, args.profile and args.profile + ".train")
     train_f32_agreement(torch, ops)
     print(f"phases 3-6 took {time.perf_counter() - phase:.1f} s")
@@ -3395,12 +3878,17 @@ def main() -> int:
               "distillation, cli.distill, two mel frontends, cli.acceptance, the check "
               "harnesses):")
         ext_counts = training_extensions(torch, ops, card, init_path, tmp)
-    # launches: the runs of the main-path phases (3, 5, 7, 9, 10, 11, 12, 13 and 14)
+        print("phase 15, data and tensor parallelism (a world of one over NCCL, two ranks "
+              "on the card over gloo at mesh (1, 2) and (2, 1), torchrun) and the remat "
+              "policies:")
+        par_counts = parallelism_and_remat(torch, Pipeline, ops, card, serve_tokens,
+                                           f32_tokens, init_path, tmp)
+    # launches: the runs of the main-path phases (3, 5, 7, 9, 10, 11, 12, 13, 14, 15)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in (serve_counts, train_counts,
                                                           fused_counts, entry_counts,
                                                           cli_counts, long_counts, rest_counts,
-                                                          spec_counts, ext_counts))
+                                                          spec_counts, ext_counts, par_counts))
         require(k["launches"] > 0, f"the main path never launched {k['name']}")
     print(f"chip_smoke total {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -16,8 +16,9 @@ the heads it writes reaching ``evaluate_wer`` through ``cli/evaluation.py
 --medusa`` as the JAX script's do), the three inspection harnesses
 (``cli/check_weightce.py``, ``cli/check_data_collator.py``,
 ``cli/check_data_loader.py``) printing the JAX scripts' tables on the same
-inputs, and ``NotImplementedError`` naming its ROADMAP item for each flag
-whose module is not ported."""
+inputs, ``NotImplementedError`` naming its ROADMAP item for each flag
+whose module is not ported, and the JAX scripts' ``ValueError`` for a
+``--model_parallelism`` the world does not divide."""
 
 import dataclasses
 import functools
@@ -328,13 +329,15 @@ UNPORTED = {
     # ported since: accepted, and the run goes on to read the missing data
     "train_lora_rank": (train, ["--lora_rank", "4"], None),
     "train_spec_augment": (train, ["--spec_augment"], None),
-    "train_model_parallelism": (train, ["--model_parallelism", "2"], "A.9"),
+    # ported since: a tensor-parallel degree the world (one process here)
+    # does not divide raises the JAX scripts' ValueError (parallel.auto_mesh)
+    "train_model_parallelism": (train, ["--model_parallelism", "2"], ValueError),
     "train_orbax": (train, ["--checkpoint_backend", "orbax"], "A.9"),
-    "train_remat_dots": (train, ["--remat", "dots"], "A.5"),
-    "train_remat_wide": (train, ["--remat", "wide"], "A.5"),
+    "train_remat_dots": (train, ["--remat", "dots"], None),
+    "train_remat_wide": (train, ["--remat", "wide"], None),
     "eval_num_beams": (evaluation, ["--num_beams", "4", "--medusa", "medusa.npz"], None),
     "eval_medusa": (evaluation, ["--medusa", "medusa.npz"], None),
-    "eval_model_parallelism": (evaluation, ["--model_parallelism", "4"], "A.9"),
+    "eval_model_parallelism": (evaluation, ["--model_parallelism", "4"], ValueError),
 }
 
 
@@ -345,6 +348,19 @@ def test_unported_flags_raise_before_reading_data(case, tmp_path):
         with pytest.raises(FileNotFoundError, match="none"):
             mod.main(["--jsonl_data", str(tmp_path / "none"), "--output", str(tmp_path),
                       "--device", "cpu", *argv])
+        return
+    if item is ValueError:
+        import jax
+
+        from whisper_context_biasing_tpu.parallel import auto_mesh as jax_auto_mesh
+
+        with pytest.raises(ValueError) as ref:
+            jax_auto_mesh(int(argv[1]), devices=jax.devices("cpu")[:1])
+        with pytest.raises(ValueError) as got:
+            mod.main(["--jsonl_data", str(tmp_path / "none"), "--output", str(tmp_path),
+                      "--device", "cpu", *argv])
+        assert str(got.value) == str(ref.value) == \
+            f"1 devices not divisible by model_parallelism={argv[1]}"
         return
     # the data paths do not exist: the flag is refused before they are read
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue {item}"):

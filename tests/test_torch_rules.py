@@ -78,15 +78,17 @@ def _jax_all(rel: str) -> list[str]:
 
 
 # init_params: the port's seeded init is init_state_dict (a state dict, not
-# a params tree), a documented deviation
-_DEVIATIONS = {"init_params"}
+# a params tree), a documented deviation; setup_jax and effective_platform
+# (utils) configure and name JAX's backend: _device.resolve_device is their
+# counterpart
+_DEVIATIONS = {"init_params", "setup_jax", "effective_platform"}
 
 
-@pytest.mark.parametrize("sub", ["", "audio", "data", "models", "train"])
+@pytest.mark.parametrize("sub", ["", "audio", "data", "models", "train", "parallel", "utils"])
 def test_public_surface_matches_jax(sub):
     """Every name the JAX package exports from the package, ``audio``,
-    ``data``, ``models`` and ``train`` imports from the same place in the
-    port."""
+    ``data``, ``models``, ``train``, ``parallel`` and ``utils`` imports from
+    the same place in the port."""
     import importlib
 
     rel = f"{sub}/__init__.py" if sub else "__init__.py"
@@ -290,10 +292,23 @@ def _save_orbax(tmp_path):
                     backend="orbax")
 
 
+def _world_of_one(tmp_path):
+    """A (1, 1) mesh over a gloo group of this process alone (destroyed by
+    the test)."""
+    import torch.distributed as dist
+
+    from whisper_context_biasing_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous",
+                            world_size=1, rank=0)
+    return make_mesh(1)
+
+
 @pytest.mark.parametrize("call,item", [
-    (lambda p: _evaluate(p, num_beams=2, mesh=object()), "A.9"),
+    # ported since: evaluations take a mesh
+    (lambda p: _evaluate(p, num_beams=2, mesh=_world_of_one(p)), None),
     (lambda p: _evaluate(p, medusa=_heads()), None),
-    (lambda p: _evaluate(p, mesh=object()), "A.9"),
+    (lambda p: _evaluate(p, mesh=_world_of_one(p)), None),
     (lambda p: _train(p, lora_rank=4), None),
     (lambda p: _train(p, spec_augment=True), None),
     (lambda p: _train(p, checkpoint_backend="orbax"), "A.9"),
@@ -301,8 +316,14 @@ def _save_orbax(tmp_path):
 ], ids=["num_beams", "medusa", "mesh", "lora_rank", "spec_augment",
         "orbax_loop", "orbax_save"])
 def test_unported_loop_options_raise(tmp_path, call, item):
+    import torch.distributed as dist
+
     if item is None:  # ported since: the call runs
-        call(tmp_path)
+        try:
+            call(tmp_path)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue {item}"):
         call(tmp_path)

@@ -338,5 +338,12 @@ def test_unported_training_options_raise(option):
         _, m = step(init_train_state(model, opt), _collated_batch(5))
         assert np.isfinite(float(m["loss"]))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A.5"):
-        tiny_test_config(remat=option.split("=")[1])
+    # ported since: the policy runs a step, with remat="none"'s gradients
+    batch = {k: torch.from_numpy(v) for k, v in _collated_batch(3).items()}
+    out = []
+    for remat in (option.split("=")[1], "none"):
+        cfg, model = _tiny_model(remat=remat)
+        out.append(accumulate_microbatch_grads(make_loss_fn(cfg, 1.5), model, batch, ACCUM))
+    assert float(out[0][0]) == pytest.approx(float(out[1][0]), rel=1e-6)
+    for a, b in zip(out[0][1], out[1][1]):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)

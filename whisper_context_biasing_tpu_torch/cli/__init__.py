@@ -18,13 +18,24 @@ the three ``scripts/check_*.py`` harnesses)::
     python -m whisper_context_biasing_tpu_torch.cli.check_data_loader --bias_list ...
 
 Each module has ``parse_args(argv=None)`` and ``main(argv=None)`` and runs
-nothing at import. Deviations from the JAX scripts: ``--device`` (every
-entry point that runs a model; default ``cuda``, ``cpu`` for tests), one
-device whatever ``--model_parallelism`` (0 or 1; a larger value raises
-until ROADMAP A.9), and the port's seeded init without a checkpoint (the JAX
-init's distributions, other numbers). Flags whose modules are not ported
-yet raise ``NotImplementedError`` naming their ROADMAP item before any data
-is read.
+nothing at import. ``train``, ``evaluation`` and ``transcribe`` run data
+and tensor parallelism with one process per card, launched by ``torchrun``
+(``parallel.initialize_multihost`` reads its variables)::
+
+    torchrun --nproc_per_node 4 -m whisper_context_biasing_tpu_torch.cli.train \
+        --model_parallelism 2 ...   # data 2 x model 2
+
+``--model_parallelism`` has the JAX scripts' semantics
+(``parallel.auto_mesh``): 1 is data parallelism over every process, N > 1
+tensor parallelism over groups of N, 0 none; ``transcribe`` meshes as
+``Pipeline``'s default (1). Rank 0 alone writes files. Deviations from the
+JAX scripts: ``--device`` (every entry point that runs a model; default
+``cuda``, ``cpu`` for tests), a data axis that does not divide ``--batch``
+raises (JAX shrinks it, leaving chips idle), ``distill`` and ``serve`` run on
+one device (``--model_parallelism`` > 1 raises until ROADMAP A.9), and the
+port's seeded init without a checkpoint (the JAX init's distributions,
+other numbers). Flags whose modules are not ported yet raise
+``NotImplementedError`` naming their ROADMAP item before any data is read.
 """
 
 from __future__ import annotations
@@ -35,16 +46,23 @@ def not_ported(what: str, item: str):
 
 
 def check_model_parallelism(model_parallelism: int) -> None:
-    """``--model_parallelism``: 0 and 1 run on one device (what JAX's 1 does
-    with one visible card); a tensor-parallel degree raises."""
+    """``--model_parallelism`` of ``distill`` and ``serve``: 0 and 1 run on
+    one device (what JAX's 1 does with one visible card); a tensor-parallel
+    degree raises."""
     if model_parallelism > 1:
         not_ported(f"--model_parallelism {model_parallelism} (tensor parallelism)", "A.9")
 
 
-def report_devices(device) -> None:
-    """Say so when more cards are visible than the one the run uses."""
+def report_devices(device, mesh=None) -> None:
+    """Say what the run uses: the mesh, or one card when more are
+    visible."""
     import torch
 
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
+    from ..parallel import DATA_AXIS, MODEL_AXIS, axis_size
+
+    if mesh is not None:
+        print(f"mesh: data={axis_size(mesh, DATA_AXIS)} x model={axis_size(mesh, MODEL_AXIS)} "
+              f"(this process on {device})")
+    elif device.type == "cuda" and torch.cuda.device_count() > 1:
         print(f"{torch.cuda.device_count()} CUDA devices visible; running on {device} alone "
-              "(data parallelism is not ported yet, ROADMAP Queue A.9)")
+              "(launch one process per card with torchrun for data parallelism)")

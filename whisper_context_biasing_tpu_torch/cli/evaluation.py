@@ -15,6 +15,9 @@ kernel switches, and decodes up to 224 tokens::
         --data_root corpus --data_dir audio --jsonl_data corpus/jsonl \\
         --output results --best_checkpoint
 
+Under ``torchrun`` the decode batches shard over "data" and the weights over
+"model" by ``--model_parallelism`` (``cli/__init__.py``); rank 0 writes.
+
 Fixed deviation (documented): the reference's ``save_refs_and_preds`` writes
 "ref: … | pred: …" lines that its own B-WER parser cannot read (it expects
 "Ref :/Pred:"), which breaks --only_eval_bias_wer; we always write the
@@ -38,10 +41,12 @@ from ..models import (
     load_checkpoint_or_safetensors,
     load_medusa,
 )
+from ..parallel import auto_mesh, initialize_multihost, shard_params
+from ..parallel.multihost import process_index
 from ..tokenizer import load_tokenizer
 from ..train import evaluate_wer, find_best_checkpoint, load_checkpoint
 from ..utils import hub, warn_missing_assets
-from . import check_model_parallelism, report_devices
+from . import report_devices
 
 
 def parse_args(argv=None):
@@ -77,17 +82,12 @@ def parse_args(argv=None):
                    help="Medusa tree chains: branch on head 1's top-N (default: the value "
                         "saved in medusa.npz, else 1)")
     p.add_argument("--model_parallelism", type=int, default=1,
-                   help="0 or 1: one device (a tensor-parallel degree > 1 is "
-                        "not ported yet)")
+                   help="1: data parallel over every process (torchrun); N > 1: "
+                        "data x model mesh; 0: no mesh")
     # the port's own
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to evaluate on (cpu for tests)")
     return p.parse_args(argv)
-
-
-def check_ported(args) -> None:
-    """Raise for a flag whose module is not ported yet, before any data is read."""
-    check_model_parallelism(args.model_parallelism)
 
 
 def load_model(args, model_cfg, path):
@@ -100,16 +100,20 @@ def load_model(args, model_cfg, path):
 
 
 def run_eval(args, state_dict, model_cfg, tokenizer, data_test, collator, bias_spans,
-             model_name):
+             model_name, mesh=None):
     refs_pred_file = args.refs_pred_file or os.path.join(args.output, "refs_and_pred.txt")
     model = build_model(model_cfg, state_dict, device=args.device)
+    if mesh is not None:
+        model = shard_params(model, mesh)
     medusa = load_medusa(args.medusa, n_chains=args.medusa_chains) if args.medusa else None
     result = evaluate_wer(
         model, tokenizer, data_test, collator, args.batch, 224,
         refs_pred_file=refs_pred_file,
         prompt_generation=args.prompt_generation, bias_boost=args.bias_boost,
-        num_beams=args.num_beams, medusa=medusa,
+        num_beams=args.num_beams, medusa=medusa, mesh=mesh,
     )
+    if process_index() != 0:  # rank 0 alone writes
+        return
     if not args.only_eval_bias_wer:
         print(f"{model_name} Test set evaluation results:", result)
         with open(os.path.join(args.output, f"{model_name}_test_results.json"), "w") as f:
@@ -137,9 +141,12 @@ def locate_best_checkpoint(output: str, hub_model_id: str | None,
 
 def main(argv=None):
     args = parse_args(argv)
-    check_ported(args)
+    initialize_multihost(device=args.device)
     args.device = resolve_device(args.device)
-    report_devices(args.device)
+    # the JAX script's auto-mesh (data parallel by default, data x model
+    # with --model_parallelism > 1, none with 0)
+    mesh = auto_mesh(args.model_parallelism)
+    report_devices(args.device, mesh)
     tokenizer = load_tokenizer(args.vocab, args.merges,
                                multilingual=not args.model.endswith(".en"))
     model_cfg = get_config(args.model)
@@ -176,7 +183,7 @@ def main(argv=None):
     if args.final_model:
         state_dict, model_cfg2 = load_model(args, model_cfg, args.model_path)
         run_eval(args, state_dict, model_cfg2, tokenizer, data_test, collator,
-                 bias_spans, "refs_and_pred")
+                 bias_spans, "refs_and_pred", mesh)
 
     if args.best_checkpoint:
         best = locate_best_checkpoint(args.output, args.hub_model_id, args.hf_token)
@@ -186,7 +193,7 @@ def main(argv=None):
         print(f"Loading best checkpoint from: {best}")
         state_dict, _, _ = load_checkpoint(best, model_cfg)
         run_eval(args, state_dict, model_cfg, tokenizer, data_test, collator,
-                 bias_spans, "refs_and_pred")
+                 bias_spans, "refs_and_pred", mesh)
 
 
 if __name__ == "__main__":

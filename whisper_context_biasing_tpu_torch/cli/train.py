@@ -17,8 +17,11 @@ decoding the whole test audio set::
 the evaluations' encoder. ``--lora_rank N`` trains LoRA adapters over the
 frozen model (checkpoints hold the adapters; the test evaluation and the
 export see the merged weights), ``--spec_augment`` masks the features in
-the step. ``--device`` (default ``cuda``) is the port's own
-flag; see ``cli/__init__.py`` for the other deviations.
+the step. ``--remat`` takes the JAX policies (full, dots, wide, none).
+Under ``torchrun`` the run is data / tensor parallel by
+``--model_parallelism`` (``cli/__init__.py``). ``--device`` (default
+``cuda``) is the port's own flag; see ``cli/__init__.py`` for the other
+deviations.
 """
 
 from __future__ import annotations
@@ -37,10 +40,12 @@ from ..models import (
     load_checkpoint_or_safetensors,
     save_safetensors,
 )
+from ..parallel import auto_mesh, gather_params, initialize_multihost, shard_batch
+from ..parallel.multihost import process_index
 from ..tokenizer import load_tokenizer
 from ..train import TrainingConfig, evaluate_wer, latest_checkpoint, train_and_evaluate
 from ..utils import push_to_hub_if_exists, upload_results_to_hub, warn_missing_assets
-from . import check_model_parallelism, not_ported, report_devices
+from . import not_ported, report_devices
 
 
 def parse_args(argv=None):
@@ -71,8 +76,8 @@ def parse_args(argv=None):
     p.add_argument("--init_checkpoint", type=str, default=None,
                    help="HF model.safetensors or native checkpoint-N dir")
     p.add_argument("--model_parallelism", type=int, default=1,
-                   help="0 or 1: one device (a tensor-parallel degree > 1 is "
-                        "not ported yet)")
+                   help="1: data parallel over every process (torchrun); N > 1: "
+                        "data x model mesh; 0: no mesh")
     p.add_argument("--eval_steps", type=int, default=135)
     p.add_argument("--save_steps", type=int, default=135)
     p.add_argument("--logging_steps", type=int, default=50)
@@ -120,9 +125,6 @@ def check_ported(args) -> None:
     """Raise for a flag whose module is not ported yet, before any data is read."""
     if args.checkpoint_backend == "orbax":
         not_ported("--checkpoint_backend orbax", "A.9")
-    if args.remat in ("dots", "wide"):
-        not_ported(f"--remat {args.remat} (selective checkpointing)", "A.5")
-    check_model_parallelism(args.model_parallelism)
 
 
 def training_config(args) -> TrainingConfig:
@@ -161,8 +163,13 @@ def main(argv=None):
     args = parse_args(argv)
     print(f"Arguments: {vars(args)}")
     check_ported(args)
+    initialize_multihost(device=args.device)
     device = resolve_device(args.device)
-    report_devices(device)
+    # the JAX script's auto-mesh: data parallel over every process by
+    # default, data x model with --model_parallelism > 1, none with 0
+    mesh = auto_mesh(args.model_parallelism, batch_divisor=args.batch)
+    report_devices(device, mesh)
+    lead = process_index() == 0
     # --resume with an existing checkpoint restores real weights; don't
     # tell the operator the run is random-init in that case
     resumable = args.resume and latest_checkpoint(args.output)
@@ -216,10 +223,14 @@ def main(argv=None):
         params = init_state_dict(model_cfg, args.seed)
 
     tcfg = training_config(args)
+    shard_fn = None
+    if mesh is not None:
+        def shard_fn(b):
+            return shard_batch(b, mesh, extra_leading_axes=1 if args.grad_accum > 1 else 0)
     print("Starting training...")
     model, log_history = train_and_evaluate(
         model_cfg, params, tokenizer, data_train, data_eval, collator, tcfg,
-        resume=args.resume, device=device,
+        resume=args.resume, shard_fn=shard_fn, mesh=mesh, device=device,
     )
 
     print("Starting final evaluation on test set...")
@@ -228,8 +239,11 @@ def main(argv=None):
         model, tokenizer, data_test, collator,
         tcfg.per_device_eval_batch_size, tcfg.generation_max_length - 1,
         refs_pred_file=refs_pred_file,
-        prompt_generation=args.prompt_generation, bias_boost=args.bias_boost,
+        prompt_generation=args.prompt_generation, bias_boost=args.bias_boost, mesh=mesh,
     )
+    full = gather_params(model) if args.hub_model_id and args.hf_token else None
+    if not lead:
+        return model, log_history
     print("Test set evaluation results:", result)
     with open(os.path.join(args.output, "test_results.json"), "w") as f:
         json.dump(result, f, indent=4)
@@ -246,7 +260,7 @@ def main(argv=None):
         # the reference's hub artifacts are HF checkpoints: export the final
         # weights in transformers-loadable form alongside the native ones
         try:
-            save_safetensors(dict(model.named_parameters()), model_cfg, args.output)
+            save_safetensors(full, model_cfg, args.output)
         except Exception as e:  # noqa: BLE001 — sync must not fail training
             print(f"HF export skipped: {e}")
 

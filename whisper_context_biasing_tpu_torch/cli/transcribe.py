@@ -21,6 +21,8 @@ Greedy decoding runs speculatively with the same output: ``--draft_model``
 (with ``--draft_checkpoint`` and ``--spec_k``) proposes with a draft model,
 ``--medusa medusa.npz`` (from ``cli.medusa``; ``--medusa_chains``) with
 Medusa heads, which win over a draft; in long-form they drive the t=0 rung.
+Under ``torchrun`` the short-form batch shards over "data" as ``Pipeline``'s
+default mesh does (the JAX script runs one device); rank 0 writes.
 """
 
 from __future__ import annotations
@@ -58,9 +60,12 @@ from ..models import (
     load_checkpoint_or_safetensors,
     load_medusa,
 )
+from ..parallel import auto_mesh, initialize_multihost, shard_params
+from ..parallel.multihost import process_index
 from ..tokenizer import load_tokenizer
 from ..utils import warn_missing_assets
 from ..utils.subtitles import close_open_segments, format_srt, format_vtt, words_to_segments
+from . import not_ported
 
 
 def parse_args(argv=None):
@@ -251,7 +256,12 @@ def write_outputs(args, fmt, rendered) -> None:
 def main(argv=None):
     args = parse_args(argv)
     fmt = output_format(args)
+    initialize_multihost(device=args.device)
     device = resolve_device(args.device)
+    # Pipeline's default mesh: data parallel over a multi-process launch
+    mesh = auto_mesh(1)
+    if mesh is not None and (args.long or args.draft_model or args.medusa):
+        not_ported("--long, --draft_model and --medusa under a mesh", "A.9")
     tokenizer = load_tokenizer(args.vocab, args.merges,
                                multilingual=not args.model.endswith(".en"))
     fast = device.type == "cuda" and not args.exact
@@ -261,6 +271,8 @@ def main(argv=None):
     if args.init_checkpoint:
         state, cfg = load_checkpoint_or_safetensors(args.init_checkpoint, cfg)
     model = build_model(cfg, state, seed=0, device=device)
+    if mesh is not None:
+        model = shard_params(model, mesh)
     frontend = select_mel_frontend()
 
     def make_mel(chunk, n_mels=None):
@@ -365,13 +377,15 @@ def main(argv=None):
         starts, langs = build_starts(args, tokenizer, model, n, lambda: mel)
         kwargs = dict(contexts=contexts, max_new=args.max_tokens, bias_spans=spans,
                       bias_boost=args.bias_boost, starts=starts, device=device)
+
         if args.num_beams > 1:
             for flag in ("draft_model", "medusa"):
                 if getattr(args, flag):
                     print(f"warning: --{flag} is greedy-only; ignored with --num_beams > 1",
                           file=sys.stderr)
             hyps = beam_decode_batch(model, tokenizer, mel, num_beams=args.num_beams,
-                                     early_stopping=args.beam_early_stopping, **kwargs)
+                                     early_stopping=args.beam_early_stopping, mesh=mesh,
+                                     **kwargs)
         elif args.medusa:
             hyps = medusa_decode_batch(model, load_medusa(args.medusa,
                                                           n_chains=args.medusa_chains),
@@ -382,7 +396,7 @@ def main(argv=None):
             hyps = speculative_decode_batch(dmodel, model, tokenizer, mel, k=args.spec_k,
                                             input_features_draft=mel_d, **kwargs)
         else:
-            hyps = decode_batch(model, tokenizer, mel, **kwargs)
+            hyps = decode_batch(model, tokenizer, mel, mesh=mesh, **kwargs)
         audio_seconds = sum(true_lengths) / 16000
         winfo = None
         segs = words = [None] * n
@@ -398,6 +412,8 @@ def main(argv=None):
         text = tokenizer.decode(h, skip_special_tokens=True).strip()
         rendered.append(emit(args, fmt, path, text, segs[i], words[i], language=langs[i],
                              windows=winfo[i] if winfo else None))
+    if process_index() != 0:  # rank 0 alone writes
+        return hyps
     write_outputs(args, fmt, rendered)
     print(f"[{n} files, {audio_seconds:.1f}s audio in {wall:.2f}s "
           f"= {audio_seconds / max(wall, 1e-9):.1f}x realtime]", file=sys.stderr)

@@ -13,6 +13,9 @@ rules apply per beam before the log-softmax.
 ``early_stopping="off"`` is the frozen-pool scorer; ``"true"``, ``"false"``
 and ``"never"`` follow HF ``BeamSearchScorer`` (``_hf_beam_loop``). Top-k
 breaks ties as ``jax.lax.top_k`` does, the lower index first (``top_k``).
+Under a mesh the rows shard over "data" as in ``greedy_decode``
+(``decode_on_mesh``): the model group's ranks expand beams from the same
+gathered logits, so they take the same steps.
 """
 
 from __future__ import annotations
@@ -27,9 +30,11 @@ from ..models.whisper import (
     decode_tokens,
     encode_audio,
     init_kv_cache,
+    kv_width,
     precompute_cross_kv,
     quantize_cross_kv,
 )
+from ..utils.compile_count import counted_jit
 from .bias_processor import (
     BiasTrieState,
     advance_bias_state,
@@ -43,6 +48,7 @@ from .greedy import (
     _as_tensor,
     apply_timestamp_rules,
     build_prefixes,
+    decode_on_mesh,
     pack_prefixes,
     sot_offsets,
 )
@@ -108,8 +114,42 @@ class _Beams:
         return sum(self.clock.ms(f"reorder{i}", f"reordered{i}") for i in range(self.reorders))
 
 
-@torch.no_grad()
+@counted_jit
 def beam_decode(
+    model: Whisper,
+    input_features,
+    prefix_ids,
+    prefix_mask,
+    num_beams: int = 5,
+    max_new: int = 224,
+    eot_id: int = 50256,
+    bias_spans=None,
+    bias_boost: float = 0.0,
+    length_penalty: float = 1.0,
+    span_pad_id: int = 50256,
+    early_stopping: str = "off",
+    no_speech_id: int | None = None,
+    sot_offset=1,
+    timestamp_begin: int | None = None,
+    max_initial_timestamp_index: int | None = 50,
+    device="cuda",
+    timings: dict | None = None,
+    mesh=None,
+) -> BeamResult:
+    """Beam search (``_beam_decode`` has the arguments). ``mesh``: the rows
+    shard over its "data" axis and ``model`` is this rank's shard; the
+    result is the whole batch's on every rank. The call signatures are
+    counted (``beam_decode.cache_size()``)."""
+    kw = {k: v for k, v in locals().items()
+          if k not in ("model", "input_features", "prefix_ids", "prefix_mask", "mesh")}
+    if mesh is not None:
+        return decode_on_mesh(_beam_decode, mesh, model, input_features, prefix_ids,
+                              prefix_mask, kw)
+    return _beam_decode(model, input_features, prefix_ids, prefix_mask, **kw)
+
+
+@torch.no_grad()
+def _beam_decode(
     model: Whisper,
     input_features,              # (B, n_mels, frames)
     prefix_ids,                  # (B, P) int, left-padded
@@ -161,12 +201,13 @@ def beam_decode(
     ck, cv = precompute_cross_kv(model, enc_out)
     if cfg.quantize_cross_kv:
         cross_kv = {n: t.repeat_interleave(k, dim=1)
-                    for n, t in quantize_cross_kv((ck, cv)).items()}
+                    for n, t in quantize_cross_kv((ck, cv), tp=model.tp).items()}
     else:
         cross_kv = (ck.repeat_interleave(k, dim=1), cv.repeat_interleave(k, dim=1))
     ids_t = ids.repeat_interleave(k, dim=0)
     mask_t = mask.repeat_interleave(k, dim=0)
-    beams = _Beams(b, k, init_kv_cache(cfg, b * k, p + max_new, device), clock)
+    beams = _Beams(b, k, init_kv_cache(cfg, b * k, p + max_new, device, width=kv_width(model)),
+                   clock)
     prefix_pos = torch.clamp(torch.cumsum(mask_t.to(torch.int64), dim=1) - 1, min=0)
     key_mask = torch.cat([mask_t, torch.ones((b * k, max_new), dtype=torch.bool,
                                              device=device)], 1)
@@ -399,9 +440,11 @@ def beam_decode_batch(
     max_new: int = 224, bias_spans=None, bias_boost: float = 0.0,
     length_penalty: float = 1.0, starts=None, early_stopping: str = "off",
     timestamp_begin: int | None = None, device="cuda", timings: dict | None = None,
+    mesh=None,
 ) -> list[list[int]]:
     """Host-side convenience mirroring ``decode_batch``: the best beam's
-    tokens per row, without the prefix and up to (excluding) <|eot|>."""
+    tokens per row, without the prefix and up to (excluding) <|eot|>.
+    ``mesh`` shards the rows over "data" (``beam_decode``)."""
     prefixes = build_prefixes(tokenizer, input_features.shape[0], contexts, starts)
     ids, mask = pack_prefixes(prefixes, tokenizer.eot)
     res = beam_decode(
@@ -409,7 +452,7 @@ def beam_decode_batch(
         eot_id=tokenizer.eot, bias_spans=sanitize_bias_spans(bias_spans),
         bias_boost=bias_boost, length_penalty=length_penalty, span_pad_id=tokenizer.eot,
         early_stopping=early_stopping, timestamp_begin=timestamp_begin, device=device,
-        timings=timings)
+        timings=timings, mesh=mesh)
     outs = []
     for row in res.best.cpu().tolist():
         outs.append(row[: row.index(tokenizer.eot)] if tokenizer.eot in row else row)

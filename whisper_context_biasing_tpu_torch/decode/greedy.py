@@ -13,6 +13,13 @@ Each step's logits go through JAX's filter order: suppressed tokens, the
 bias bonus, OpenAI's timestamp rules (``apply_timestamp_rules``), then the
 pick, then the log-softmax of the filtered logits for ``sum_logprob``.
 ``no_speech_prob`` comes from the prefill logits at the ``<|sot|>`` position.
+
+Under a (data, model) mesh the rows shard over "data" and the decode runs on
+each rank's rows with its shard of the model (``decode_on_mesh``). The
+collectives inside the loop are over "model" only: every rank of a model
+group picks from the same gathered logits, so they agree on ``finished`` and
+take the same steps. Ranks of "data" hold other rows and may stop at other
+steps, so the gather over "data" comes once, after the loop.
 """
 
 from __future__ import annotations
@@ -29,9 +36,12 @@ from ..models.whisper import (
     decode_tokens,
     encode_audio,
     init_kv_cache,
+    kv_width,
     precompute_cross_kv,
     quantize_cross_kv,
 )
+from ..parallel.sharding import gather_rows, shard_decode_inputs
+from ..utils.compile_count import counted_jit
 from .bias_processor import (
     advance_bias_state,
     bias_bonus,
@@ -163,8 +173,61 @@ def _as_tensor(x, device, dtype=None):
     return torch.as_tensor(np.asarray(x), device=device, dtype=dtype)
 
 
-@torch.no_grad()
+def decode_on_mesh(decode, mesh, model, input_features, prefix_ids, prefix_mask, kw: dict):
+    """``decode(model, feats, ids, mask, **kw)`` on this rank's rows: the
+    batch (and every per-row argument of ``kw``: bias spans, forced-eot
+    caps, per-row sot offsets) padded to a multiple of "data" by repeating
+    its first row and split (``shard_decode_inputs``); each tensor of the
+    result gathered over "data" on every rank and the padding stripped."""
+    rows = {k: kw[k] for k in ("bias_spans", "forced_eot_at", "sot_offset")
+            if kw.get(k) is not None and np.ndim(kw[k]) >= 1}
+    (feats, ids, mask, *local), b = shard_decode_inputs(
+        mesh, input_features, prefix_ids, prefix_mask, *rows.values())
+    res = decode(model, feats, ids, mask, **{**kw, **dict(zip(rows, local))})
+    return type(res)(*(gather_rows(f, mesh, b) if isinstance(f, torch.Tensor) else f
+                       for f in res))
+
+
+@counted_jit
 def greedy_decode(
+    model: Whisper,
+    input_features,
+    prefix_ids,
+    prefix_mask,
+    max_new: int = 224,
+    eot_id: int = 50256,
+    bias_spans=None,
+    bias_boost: float = 0.0,
+    span_pad_id: int = 50256,
+    forced_eot_at=None,
+    temperature: float = 0.0,
+    suppress_tokens: tuple[int, ...] = (),
+    generator: torch.Generator | None = None,
+    no_speech_id: int | None = None,
+    sot_offset=1,
+    timestamp_begin: int | None = None,
+    max_initial_timestamp_index: int | None = 50,
+    device="cuda",
+    timings: dict | None = None,
+    return_margins: bool = False,
+    mesh=None,
+) -> GreedyResult:
+    """Batched greedy decode (``_greedy_decode`` has the arguments).
+    ``mesh``: the rows shard over its "data" axis and ``model`` is this
+    rank's shard (``parallel.shard_params``); the result is the whole
+    batch's on every rank. The call signatures are counted
+    (``greedy_decode.cache_size()``), as the JAX package counts its
+    programs."""
+    kw = {k: v for k, v in locals().items()
+          if k not in ("model", "input_features", "prefix_ids", "prefix_mask", "mesh")}
+    if mesh is not None:
+        return decode_on_mesh(_greedy_decode, mesh, model, input_features, prefix_ids,
+                              prefix_mask, kw)
+    return _greedy_decode(model, input_features, prefix_ids, prefix_mask, **kw)
+
+
+@torch.no_grad()
+def _greedy_decode(
     model: Whisper,
     input_features,              # (B, n_mels, 2*n_audio_ctx) f32
     prefix_ids,                  # (B, P) int, left-padded
@@ -221,8 +284,8 @@ def greedy_decode(
         clock.mark("encoded")
     cross_kv = precompute_cross_kv(model, enc_out)
     if cfg.quantize_cross_kv:
-        cross_kv = quantize_cross_kv(cross_kv)
-    cache = init_kv_cache(cfg, b, p + max_new, device)
+        cross_kv = quantize_cross_kv(cross_kv, tp=model.tp)
+    cache = init_kv_cache(cfg, b, p + max_new, device, width=kv_width(model))
 
     # positions: pads don't advance the position counter (left-pad support)
     prefix_pos = torch.clamp(torch.cumsum(mask.to(torch.int64), dim=1) - 1, min=0)
@@ -349,19 +412,21 @@ def decode_batch(
     device="cuda",
     timings: dict | None = None,
     starts: list[list[int]] | None = None,
+    mesh=None,
 ) -> list[list[int]]:
     """Host-side convenience: build prefixes (``[<|sot|>]`` start, with
     ``<|sop|> + context`` conditioning where a row has a context), run the
     greedy loop, and strip to finished token lists (without the prefix).
     ``starts``: per-row start sequences in place of the default (e.g.
-    ``[sot, <|fr|>, <|transcribe|>]`` after language detection)."""
+    ``[sot, <|fr|>, <|transcribe|>]`` after language detection). ``mesh``
+    shards the rows over "data" (``greedy_decode``)."""
     b = input_features.shape[0]
     prefixes = build_prefixes(tokenizer, b, contexts, starts, include_notimestamps)
     ids, mask = pack_prefixes(prefixes, tokenizer.eot, pad_to_multiple=pad_to_multiple)
     res = greedy_decode(
         model, input_features, ids, mask, max_new=max_new, eot_id=tokenizer.eot,
         bias_spans=sanitize_bias_spans(bias_spans), bias_boost=bias_boost,
-        span_pad_id=tokenizer.eot, device=device, timings=timings)
+        span_pad_id=tokenizer.eot, device=device, timings=timings, mesh=mesh)
     toks = res.tokens.cpu().numpy()
     lens = res.lengths.cpu().numpy()
     return [toks[i, : lens[i]].tolist() for i in range(b)]

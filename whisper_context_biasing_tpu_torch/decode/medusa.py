@@ -28,12 +28,14 @@ import torch
 from .._device import resolve_device
 from ..models.medusa import medusa_logits, split_medusa
 from ..models.whisper import Whisper, decode_tokens
+from ..utils.compile_count import counted_jit
 from .beam import top_k
 from .bias_processor import BiasTrieState, sanitize_bias_spans
 from .greedy import Clock, GreedyResult, _as_tensor, build_prefixes, pack_prefixes
 from .speculative import _Bias, _no_speech, _pick, _Prefill, _Rounds, accept_run
 
 
+@counted_jit
 @torch.no_grad()
 def medusa_greedy_decode(
     params: Whisper,

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .._device import acc_dtype as _acc
+from ..parallel.tp import reduce_from_model
 from .config import _FAMILY, WhisperConfig
 from .whisper import (
     Whisper,
@@ -178,8 +179,13 @@ def alignment_matrix(
     dev = enc_out.device
     tokens = tokens.to(device=dev, dtype=torch.int64)
     b, s = tokens.shape
-    nh, dh = cfg.n_heads, cfg.head_dim
+    # a tensor-parallel rank holds heads [h0, h0 + nh); its sum over them is
+    # summed over "model" at the end
+    dh = cfg.head_dim
+    nh = dec.blocks[0].cross_attn.query.weight.shape[0] // dh
+    h0 = 0 if model.tp is None else model.tp.rank * nh
     head_mask = head_mask.to(device=dev, dtype=torch.float32)
+    local_mask = head_mask[:, h0:h0 + nh]
 
     x = embed_tokens(dec, tokens, dt) + dec.pos_emb[torch.arange(s, device=dev)][None].to(dt)
     cross_k, cross_v = precompute_cross_kv(model, enc_out)
@@ -213,9 +219,12 @@ def alignment_matrix(
         var = ((ww - mean).square() * tm).sum(dim=-2, keepdim=True) / n_valid
         wn = (ww - mean) * torch.rsqrt(var + 1e-8)
         wn = median_filter_time(wn, medfilt_width)
-        contribs.append(torch.einsum("bhsf,h->bsf", wn, head_mask[li]))
+        contribs.append(torch.einsum("bhsf,h->bsf", wn, local_mask[li]))
 
-    matrix = torch.stack(contribs).sum(dim=0) / torch.clamp(head_mask.sum(), min=1.0)
+    total = torch.stack(contribs).sum(dim=0)
+    if model.tp is not None:
+        total = reduce_from_model(total, model.tp)
+    matrix = total / torch.clamp(head_mask.sum(), min=1.0)
     if not with_probs:
         return matrix
     # P(tokens[t + 1] | tokens[<= t]) from the final states, 16 positions at

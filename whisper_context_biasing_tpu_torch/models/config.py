@@ -36,10 +36,14 @@ class WhisperConfig:
     # label length below which the full-sequence decoder keeps the plain
     # attention even with flash_decoder (tests set 0 to reach the kernels)
     flash_decoder_min_seq: int = 256
-    # rematerialization of transformer blocks in training:
+    # rematerialization of transformer blocks in training (the JAX
+    # package's policies):
     #   "full" - torch.utils.checkpoint per block, recompute it in backward
+    #   "dots" - selective checkpointing: keep the outputs of products
+    #            without batch dims, recompute the rest
+    #   "wide" - keep everything but the 4*d-wide MLP tensors (fc1 + gelu
+    #            rerun)
     #   "none" - keep every activation
-    # (the JAX package's selective "dots" and "wide" are not ported yet)
     remat: str = "full"
     # int8 cross-attention K/V for decode (models/whisper.py:quantize_cross_kv)
     quantize_cross_kv: bool = False
@@ -59,10 +63,7 @@ class WhisperConfig:
     fused_ln_mlp: bool = False
 
     def __post_init__(self):
-        if self.remat in ("dots", "wide"):
-            raise NotImplementedError(f"remat={self.remat!r} (selective checkpointing) is not "
-                                      "ported yet (ROADMAP Queue A.5); use 'full' or 'none'")
-        if self.remat not in ("full", "none"):
+        if self.remat not in ("full", "dots", "wide", "none"):
             raise ValueError(f"unknown remat policy {self.remat!r}")
 
     @property

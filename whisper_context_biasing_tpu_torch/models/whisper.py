@@ -28,7 +28,9 @@ The decoder has two modes: cached (prefill and single-token steps over a
 preallocated KV cache, written in place) and full-sequence (training:
 causal self-attention over the labels, the flash kernels at label lengths
 of at least ``flash_decoder_min_seq``). In training, each block runs under
-``cfg.remat`` (``torch.utils.checkpoint`` for "full"). The cached mode also
+``cfg.remat`` (``_run_block``, ``_mlp_remat``): "full" recomputes the block
+in the backward, "dots" saves only the outputs of products without batch
+dims, "wide" saves everything but the 4*d-wide MLP tensors. The cached mode also
 takes per-row cache offsets (speculative decoding, where rows advance at
 different rates) and a per-query (B, S, T) mask (Medusa's chain trees).
 
@@ -38,6 +40,15 @@ products (``Linear.weight`` int8 and a ``scale`` buffer), per-row scales for
 the token embedding and an untied ``proj_out`` (``*_scale`` buffers). Their
 products run as the JAX package's: the int8 values widened, an f32 product,
 times the scale, rounded to the compute dtype.
+
+A model from ``parallel.shard_params`` holds its rank's Megatron shard
+(``model.tp``): column-parallel q, k, v and fc1 (``Linear.tp_col``),
+row-parallel attention outputs and fc2 (``Linear.tp_row``, their partial
+products summed over "model" in f32 before the one rounding and the
+replicated bias), a vocab-parallel embedding and logits (gathered whole
+before any logits processor). Head counts are local: a product's width over
+``cfg.head_dim``. The code paths are the unsharded ones with the
+collectives of ``parallel/tp.py`` at the places GSPMD puts them.
 """
 
 from __future__ import annotations
@@ -49,7 +60,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from .._device import acc_dtype as _acc
 from ..ops.flash_attention import flash_attention
@@ -57,6 +72,13 @@ from ..ops.fused_block import fused_ln_matmul
 from ..ops.quant_cross_attention import (
     quant_cross_attention_plain,
     quant_cross_attention_step_indexed,
+)
+from ..parallel.tp import (
+    copy_to_model,
+    gather_vocab,
+    max_over_model,
+    reduce_from_model,
+    vocab_embedding,
 )
 from .config import WhisperConfig
 
@@ -90,14 +112,37 @@ def _proj(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """x @ W^T + b with W and b cast to x's dtype: the product accumulates
     in f32 and rounds to x's dtype, then the bias adds in that dtype. An int8
     weight (``quantize_decoder_weights``) is widened, its f32 product scaled
-    per output column, then rounded to x's dtype."""
+    per output column, then rounded to x's dtype. A column-parallel product
+    takes x through ``copy_to_model``; a row-parallel one sums its f32
+    partial products over "model" before the rounding and the bias."""
+    col, row = getattr(lin, "tp_col", None), getattr(lin, "tp_row", None)
+    if col is not None:
+        x = copy_to_model(x, col)
     if _is_int8(lin):
-        y = (F.linear(x.float(), lin.weight.float()) * lin.scale).to(x.dtype)
+        y = F.linear(x.float(), lin.weight.float()) * lin.scale
+        y = (y if row is None else reduce_from_model(y, row)).to(x.dtype)
+    elif row is not None:
+        ft = _acc(x)
+        y = reduce_from_model(F.linear(x.to(ft), lin.weight.to(x.dtype).to(ft)), row).to(x.dtype)
     else:
         y = F.linear(x, lin.weight.to(x.dtype))
     if lin.bias is not None:
         y = y + lin.bias.to(x.dtype)
     return y
+
+
+def _heads(x: torch.Tensor, cfg: WhisperConfig) -> int:
+    """Heads in a merged-head tensor: all of them, or a tensor-parallel
+    rank's share."""
+    return x.shape[-1] // cfg.head_dim
+
+
+def _fused_inputs(lin: nn.Linear, *xs):
+    """The replicated inputs of a fused LayerNorm + column-parallel product
+    (x, the LayerNorm's scale and bias) through ``copy_to_model``, so their
+    gradients sum over "model"; as they are without tensor parallelism."""
+    tp = getattr(lin, "tp_col", None)
+    return xs if tp is None else tuple(copy_to_model(x, tp) for x in xs)
 
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -139,10 +184,10 @@ def _ln_qkv(h, ln: nn.LayerNorm, attn: "Attention", cfg: WhisperConfig):
     bias [bq, 0, bv] (Whisper's key has no bias); q, k and v are views of
     its output."""
     if cfg.fused_ln_qkv and not _is_int8(attn.query):
-        d = h.shape[-1]
+        d = attn.query.weight.shape[0]  # a tensor-parallel rank's d / tp
         w = torch.cat([attn.query.weight, attn.key.weight, attn.value.weight]).to(h.dtype)
         b = torch.cat([attn.query.bias, attn.query.bias.new_zeros(d), attn.value.bias])
-        qkv = fused_ln_matmul(h, ln.weight, ln.bias, w.t(), b)
+        qkv = fused_ln_matmul(*_fused_inputs(attn.query, h, ln.weight, ln.bias), w.t(), b)
         return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     a = layer_norm(h, ln)
     return _proj(a, attn.query), _proj(a, attn.key), _proj(a, attn.value)
@@ -152,7 +197,8 @@ def _ln_proj(h, ln: nn.LayerNorm, lin: nn.Linear, cfg: WhisperConfig):
     """LayerNorm + one projection (the cross-attention query), fused under
     ``cfg.fused_ln_qkv``."""
     if cfg.fused_ln_qkv and not _is_int8(lin):
-        return fused_ln_matmul(h, ln.weight, ln.bias, lin.weight.to(h.dtype).t(), lin.bias)
+        return fused_ln_matmul(*_fused_inputs(lin, h, ln.weight, ln.bias),
+                               lin.weight.to(h.dtype).t(), lin.bias)
     return _proj(layer_norm(h, ln), lin)
 
 
@@ -160,10 +206,26 @@ def _ln_mlp(h, ln: nn.LayerNorm, mlp: "MLP", cfg: WhisperConfig):
     """Pre-MLP LayerNorm + MLP. With ``cfg.fused_ln_mlp`` the LayerNorm, the
     first product, its bias and the gelu are one fused pass."""
     if cfg.fused_ln_mlp and not _is_int8(mlp.fc1):
-        wide = fused_ln_matmul(h, ln.weight, ln.bias, mlp.fc1.weight.to(h.dtype).t(),
-                               mlp.fc1.bias, act="gelu_tanh" if cfg.gelu_approx else "gelu")
-        return _proj(wide, mlp.fc2)
-    return mlp(layer_norm(h, ln), cfg)
+        def fused(h):
+            wide = fused_ln_matmul(*_fused_inputs(mlp.fc1, h, ln.weight, ln.bias),
+                                   mlp.fc1.weight.to(h.dtype).t(), mlp.fc1.bias,
+                                   act="gelu_tanh" if cfg.gelu_approx else "gelu")
+            return _proj(wide, mlp.fc2)
+
+        return _mlp_remat(fused, cfg, h)
+    return _mlp_remat(functools.partial(mlp, cfg=cfg), cfg, layer_norm(h, ln))
+
+
+def _mlp_remat(fn, cfg: WhisperConfig, x):
+    """An MLP from its input through fc2: under ``remat="wide"``, while
+    autograd records, a checkpoint whose recompute stops (early stop) once
+    fc2's input exists, so only fc1 and the gelu rerun (the fused kernel at
+    that site, under ``fused_ln_mlp``): the JAX package's
+    ``save_anything_except_these_names("mlp_wide")``. A plain call
+    otherwise."""
+    if cfg.remat == "wide" and torch.is_grad_enabled():
+        return checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
 
 
 # ---------------------------------------------------------------------------
@@ -200,9 +262,9 @@ class EncoderBlock(nn.Module):
     def forward(self, h, cfg: WhisperConfig):
         q, k, v = _ln_qkv(h, self.attn_ln, self.attn, cfg)
         if cfg.flash_attention:
-            att = flash_attention(q, k, v, cfg.n_heads)
+            att = flash_attention(q, k, v, _heads(q, cfg))
         else:
-            att = attention(q, k, v, cfg.n_heads)
+            att = attention(q, k, v, _heads(q, cfg))
         h = h + _proj(att, self.attn.out)
         return h + _ln_mlp(h, self.mlp_ln, self.mlp, cfg)
 
@@ -239,6 +301,8 @@ class TextDecoder(nn.Module):
         self.pos_emb = nn.Parameter(torch.empty(cfg.n_text_ctx, d, dtype=dt))
         self.blocks = nn.ModuleList(DecoderBlock(d, dt) for _ in range(cfg.n_text_layers))
         self.ln = nn.LayerNorm(d)
+        self.n_vocab = cfg.n_vocab
+        self.tp = None  # parallel.tp.TensorParallel of a vocab-parallel shard
         self._vocab_acc = None
         self._vocab_key = None
 
@@ -276,15 +340,32 @@ class Whisper(nn.Module):
         self.decoder = TextDecoder(cfg, dt)
         self.proj_out = (nn.Parameter(torch.empty(cfg.n_vocab, cfg.d_model, dtype=dt))
                          if untied_head else None)
+        self.tp = None  # parallel.tp.TensorParallel of a parallel.shard_params shard
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of products
+    without batch dims (``mm``, ``addmm``, and the ``out_dtype`` overload of
+    ``mm``); recompute the rest, batched attention products included. The
+    kernels' ``ctypes`` launches are no aten ops, so they rerun, as a
+    ``pallas_call`` (no dot) reruns in JAX."""
+    if op.overloadpacket in (torch.ops.aten.mm, torch.ops.aten.addmm):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _run_block(fn, cfg: WhisperConfig, *args):
-    """One transformer block, recomputed in the backward under
-    ``remat="full"`` while autograd records (the JAX package's ``_remat``);
-    a plain call otherwise."""
-    if cfg.remat == "full" and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    """One transformer block under ``cfg.remat`` while autograd records (the
+    JAX package's ``_remat``): "full" recomputes it in the backward, "dots"
+    recomputes all but ``_dots_policy``'s saved products (selective
+    checkpointing); "none" and "wide" (whose checkpoint sits in the MLP,
+    ``_mlp_remat``) call it plainly."""
+    if cfg.remat in ("none", "wide") or not torch.is_grad_enabled():
+        return fn(*args)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -316,20 +397,24 @@ def precompute_cross_kv(model: Whisper, enc_out: torch.Tensor):
     return k, v
 
 
-def quantize_cross_kv(cross_kv, pad_to: int = 128) -> dict:
+def quantize_cross_kv(cross_kv, pad_to: int = 128, tp=None) -> dict:
     """Per-position int8 quantization of the cross-attention K/V.
 
     scale = max|x| / 127 (at least 1e-8) per (layer, row, position), values
     rounded half to even; scales stored (L, B, 1, T). T is padded to a
     multiple of ``pad_to`` with ZERO scales: a zero k-scale marks a padded
-    position, and both attention paths mask on it."""
+    position, and both attention paths mask on it. Under tensor parallelism
+    (``tp``, the model's) each rank holds D / tp of every position, so the
+    max is taken over "model" too: the scales, and so the int8 values, are
+    the unsharded ones."""
     k, v = cross_kv
     t = k.shape[2]
     t_pad = ((t + pad_to - 1) // pad_to) * pad_to if pad_to else t
 
     def q(x):
         xf = x.float()
-        scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+        scale = (amax if tp is None else max_over_model(amax, tp)) / 127.0
         scale = torch.clamp(scale, min=1e-8)
         xq = torch.round(xf / scale).to(torch.int8)
         l, b, _, d = x.shape
@@ -414,8 +499,17 @@ def quantize_decoder_weights(model: Whisper) -> Whisper:
     return build_model(model.cfg, sd, device=next(model.parameters()).device)
 
 
-def init_kv_cache(cfg: WhisperConfig, batch: int, max_len: int, device) -> dict:
-    shape = (cfg.n_text_layers, batch, max_len, cfg.d_model)
+def kv_width(model: Whisper) -> int:
+    """Width of the decoder's K/V: d_model, or a tensor-parallel rank's
+    d_model / tp."""
+    return model.decoder.blocks[0].self_attn.key.weight.shape[0]
+
+
+def init_kv_cache(cfg: WhisperConfig, batch: int, max_len: int, device,
+                  width: int | None = None) -> dict:
+    """Zeroed self-attention caches (L, B, max_len, width) in the compute
+    dtype; ``width`` (``kv_width``) defaults to d_model."""
+    shape = (cfg.n_text_layers, batch, max_len, width or cfg.d_model)
     dt = cfg.compute_dtype
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -426,26 +520,34 @@ def _decoder_block_full(blk: DecoderBlock, h, ck, cv, cfg: WhisperConfig, use_fl
     """One decoder block in full-sequence mode: causal self-attention over
     the whole sequence, cross-attention over one layer's (B, T, D) K/V."""
     q, k, v = _ln_qkv(h, blk.self_attn_ln, blk.self_attn, cfg)
+    nh = _heads(q, cfg)
     if use_flash:
-        att = flash_attention(q, k, v, cfg.n_heads, causal=True)
+        att = flash_attention(q, k, v, nh, causal=True)
     else:
-        att = attention(q, k, v, cfg.n_heads, causal_mask)
+        att = attention(q, k, v, nh, causal_mask)
     h = h + _proj(att, blk.self_attn.out)
     cq = _ln_proj(h, blk.cross_attn_ln, blk.cross_attn.query, cfg)
     if use_flash:
-        catt = flash_attention(cq, ck, cv, cfg.n_heads)
+        catt = flash_attention(cq, ck, cv, nh)
     else:
-        catt = attention(cq, ck, cv, cfg.n_heads)
+        catt = attention(cq, ck, cv, nh)
     h = h + _proj(catt, blk.cross_attn.out)
     return h + _ln_mlp(h, blk.mlp_ln, blk.mlp, cfg)
 
 
 def embed_tokens(dec: TextDecoder, tokens: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """Token embeddings in ``dt``; an int8 table (``quantize_decoder_weights``)
-    is widened and scaled per row in f32 first."""
+    is widened and scaled per row in f32 first. A vocab-parallel table looks
+    up its own ids and sums over "model"."""
     if dec.token_emb.dtype == torch.int8:
-        return (dec.token_emb[tokens].float() * dec.token_emb_scale[tokens]).to(dt)
-    return dec.token_emb[tokens].to(dt)
+        def rows(i):
+            return (dec.token_emb[i].float() * dec.token_emb_scale[i]).to(dt)
+    else:
+        def rows(i):
+            return dec.token_emb[i].to(dt)
+    if dec.tp is not None:
+        return vocab_embedding(dec.token_emb, tokens, dec.tp, dec.n_vocab, rows)
+    return rows(tokens)
 
 
 def _write_cache(c: torch.Tensor, new: torch.Tensor, pos_offset, per_row: bool) -> None:
@@ -538,18 +640,19 @@ def decode_tokens(
         ck, cv = cache["k"][li], cache["v"][li]
         _write_cache(ck, _proj(a, blk.self_attn.key), pos_offset, per_row)
         _write_cache(cv, _proj(a, blk.self_attn.value), pos_offset, per_row)
-        x = x + _proj(attention(q, ck, cv, cfg.n_heads, attn_mask), blk.self_attn.out)
+        nh = _heads(q, cfg)
+        x = x + _proj(attention(q, ck, cv, nh, attn_mask), blk.self_attn.out)
 
         cq = _proj(layer_norm(x, blk.cross_attn_ln), blk.cross_attn.query)
         if quantized and s == 1 and cfg.fused_quant_cross:
             catt = quant_cross_attention_step_indexed(
                 cq, cross_kv["k_q"], cross_kv["k_s"], cross_kv["v_q"], cross_kv["v_s"],
-                li, cfg.n_heads)
+                li, nh)
         elif quantized:
             catt = _attention_quant_cross(
-                cq, {name: t[li] for name, t in cross_kv.items()}, cfg.n_heads)
+                cq, {name: t[li] for name, t in cross_kv.items()}, nh)
         else:
-            catt = attention(cq, cross_kv[0][li], cross_kv[1][li], cfg.n_heads)
+            catt = attention(cq, cross_kv[0][li], cross_kv[1][li], nh)
         x = x + _proj(catt, blk.cross_attn.out)
         x = x + blk.mlp(layer_norm(x, blk.mlp_ln), cfg)
 
@@ -564,17 +667,22 @@ def project_vocab(model: Whisper, x: torch.Tensor) -> torch.Tensor:
     when the model has an untied head, else the token embedding (tied); an
     int8 one is scaled per vocab row after the product. While autograd
     records a trainable weight, the cast stays in the graph, so the weight
-    gets the projection's share of its gradient."""
+    gets the projection's share of its gradient. A vocab-parallel shard
+    computes its columns, gathered whole over "model"."""
     head = model.proj_out
     w = model.decoder.token_emb if head is None else head
     ft = _acc(x)
+    tp = model.tp
+    if tp is not None:
+        x = copy_to_model(x, tp)
     if torch.is_grad_enabled() and w.requires_grad:
-        return F.linear(x.to(ft), w.to(x.dtype).to(ft))
-    logits = F.linear(x.to(ft), model.decoder.vocab_weight_acc(x.dtype, head))
-    if w.dtype == torch.int8:
-        scale = model.decoder.token_emb_scale if head is None else model.proj_out_scale
-        logits = logits * scale[:, 0]
-    return logits
+        logits = F.linear(x.to(ft), w.to(x.dtype).to(ft))
+    else:
+        logits = F.linear(x.to(ft), model.decoder.vocab_weight_acc(x.dtype, head))
+        if w.dtype == torch.int8:
+            scale = model.decoder.token_emb_scale if head is None else model.proj_out_scale
+            logits = logits * scale[:, 0]
+    return logits if tp is None else gather_vocab(logits, tp, model.cfg.n_vocab)
 
 
 def forward(model: Whisper, input_features: torch.Tensor,

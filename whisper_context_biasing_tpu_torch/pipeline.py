@@ -20,6 +20,13 @@ or Medusa heads on the model itself do (``Pipeline("base.en",
 medusa="medusa.npz")``, from ``cli.medusa``; they win over a draft). Both
 drive the short-form route and the t=0 rung of the long-form, chunked and
 streaming routes.
+
+Under a process group of several cards (``parallel.initialize_multihost``,
+or ``torchrun``), ``model_parallelism`` meshes the pipeline as the JAX
+package's does (``parallel.auto_mesh``): 1 (the default) is data parallelism
+over every rank, N > 1 tensor parallelism over groups of N, 0 none. The
+short-form route's rows then shard over "data" and the weights over
+"model"; every rank gets every result.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from .models import (
 )
 from .models.medusa import load_medusa
 from .models.whisper import Whisper, encode_audio
+from .parallel import auto_mesh, shard_params
 from .tokenizer import load_tokenizer
 from .utils.subtitles import close_open_segments, format_srt, format_vtt, words_to_segments
 
@@ -105,7 +113,11 @@ class Pipeline:
     is, e.g. the pipeline's own for a self-draft) or from the seeded init
     with a warning. It inherits the target's kernel switches. ``medusa`` (a
     ``medusa.npz`` path or a head dict) turns on Medusa decoding and wins
-    over a draft; ``medusa_chains`` overrides its chain width."""
+    over a draft; ``medusa_chains`` overrides its chain width.
+
+    ``model_parallelism``: the mesh (see the module's docstring); a draft,
+    Medusa heads and the long-form routes under a mesh are not ported yet
+    (ROADMAP Queue A.9)."""
 
     def __init__(
         self,
@@ -131,6 +143,7 @@ class Pipeline:
         draft_params=None,
         medusa: str | dict | None = None,
         medusa_chains: int | None = None,
+        model_parallelism: int = 1,
     ):
         self.device = resolve_device(device)
         self.tokenizer = tokenizer or load_tokenizer(
@@ -148,6 +161,12 @@ class Pipeline:
         elif checkpoint:
             state, self.cfg = load_checkpoint_or_safetensors(checkpoint, self.cfg)
         self.model = build_model(self.cfg, state, seed=seed, device=self.device)
+        self.mesh = auto_mesh(model_parallelism)
+        if self.mesh is not None:
+            if draft_model or draft_config is not None or medusa is not None:
+                raise NotImplementedError("speculative and Medusa decoding under a mesh are "
+                                          "not ported yet (ROADMAP Queue A.9)")
+            self.model = shard_params(self.model, self.mesh)
         self.medusa = None
         if medusa is not None:
             self.medusa = (load_medusa(medusa, n_chains=medusa_chains)
@@ -287,7 +306,8 @@ class Pipeline:
                       timings=timings)
         if num_beams > 1:
             hyps = beam_decode_batch(self.model, self.tokenizer, mel, num_beams=num_beams,
-                                     early_stopping=beam_early_stopping, **kwargs)
+                                     early_stopping=beam_early_stopping, mesh=self.mesh,
+                                     **kwargs)
         elif self.medusa is not None:
             hyps = medusa_decode_batch(self.model, self.medusa, self.tokenizer, mel,
                                        pad_to_multiple=32, **kwargs)
@@ -299,7 +319,8 @@ class Pipeline:
                                             k=self.speculative_k, pad_to_multiple=32,
                                             input_features_draft=mel_d, **kwargs)
         else:
-            hyps = decode_batch(self.model, self.tokenizer, mel, pad_to_multiple=32, **kwargs)
+            hyps = decode_batch(self.model, self.tokenizer, mel, pad_to_multiple=32,
+                                mesh=self.mesh, **kwargs)
         words = None
         if word_timestamps:
             clock.mark("decoded")
@@ -392,7 +413,7 @@ class Pipeline:
                 beam_early_stopping=beam_early_stopping, return_window_info=window_info,
                 medusa=self.medusa, draft=self._long_form_draft("chunked" if chunked
                                                                 else "long-form"),
-                device=self.device)
+                mesh=self.mesh, device=self.device)
             if chunked:
                 # every window batch padded to chunked_batch rows
                 out = transcribe_chunked(self.model, self.tokenizer, clips,

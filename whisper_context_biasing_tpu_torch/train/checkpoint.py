@@ -35,6 +35,7 @@ import torch
 from ..models.config import WhisperConfig
 from ..models.convert import params_from_jax, state_dict_to_jax
 from ..models.whisper import Whisper
+from ..parallel.sharding import gather_tensor
 from .optim import OptState
 
 _CKPT_RE = re.compile(r"^checkpoint-(\d+)$")
@@ -95,14 +96,18 @@ def host_arrays(model: Whisper, opt_state: OptState | None = None):
     """(params tree, optimizer leaves or None): host numpy copies of the
     model's parameters in the JAX params layout, and of ``opt_state`` in
     the JAX optimizer's leaf order. Taken on the step's thread, so a
-    background save writes the values of this step."""
+    background save writes the values of this step. A tensor-parallel
+    shard's tensors are gathered whole first (collective over "model": every
+    rank of the group calls it), so the files are an unsharded run's."""
     cfg = model.cfg
-    names = [n for n, _ in model.named_parameters()]
-    params = state_dict_to_jax(dict(model.named_parameters()), cfg)
+    named = dict(model.named_parameters())
+    params = state_dict_to_jax({n: gather_tensor(model, n, p.detach()) for n, p in named.items()},
+                               cfg)
     if opt_state is None:
         return params, None
     count = np.asarray(opt_state.count, np.int32)
-    mu, nu = (_flatten(state_dict_to_jax(dict(zip(names, m)), cfg))
+    mu, nu = (_flatten(state_dict_to_jax({n: gather_tensor(model, n, t)
+                                          for n, t in zip(named, m)}, cfg))
               for m in (opt_state.mu, opt_state.nu))
     return params, [count, *mu.values(), *nu.values(), count]
 

@@ -27,9 +27,14 @@ steps and the eval's encoder run the fused LayerNorm+matmul kernel. With
 ``lora_rank > 0`` it trains LoRA adapters over the frozen model
 (``train/lora.py``): checkpoints hold the adapter tree with ``lora_rank`` and
 ``lora_alpha`` stamped in ``trainer_state.json``, evaluations and the
-returned model have the merged dense weights. Options whose modules are not
-ported yet raise ``NotImplementedError`` naming their ROADMAP item:
-meshes, shard functions and the Orbax backend (A.9). With ``hub_model_id``
+returned model have the merged dense weights. Under a (data, model) mesh
+(``parallel/``; one process per card) the model is sharded, each rank keeps
+its rows of every global batch, evaluations decode their rows and gather
+the tokens, and checkpoints hold the whole gathered npz (either package
+loads it, on any mesh; a resume re-shards it). Rank 0 alone logs and writes
+files. Options whose modules are not ported yet raise
+``NotImplementedError`` naming their ROADMAP item: the Orbax backend and
+LoRA under a mesh (A.9). With ``hub_model_id``
 each save pushes the output dir to the Hub and a resume without a local
 checkpoint tries a Hub snapshot, as in JAX; offline both degrade to a
 warning (``utils/hub.py``).
@@ -58,6 +63,8 @@ from ..models.config import WhisperConfig
 from ..models.convert import build_model
 from ..models.medusa import split_medusa
 from ..models.whisper import Whisper
+from ..parallel.multihost import process_count, process_index
+from ..parallel.sharding import load_params, shard_batch, shard_opt_state, shard_params
 from ..utils import hub
 from ..utils.logging import RunLogger
 from .checkpoint import (
@@ -157,9 +164,13 @@ def evaluate_wer(
     multiples of 4, as in the JAX package (there for its compiled shapes;
     here they keep the batches, and so the results, the same). ``medusa``
     (a head dict) decodes greedily through ``medusa_greedy_decode``: the same
-    tokens, fewer model passes with trained heads."""
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded evaluation is not ported yet "
+    tokens, fewer model passes with trained heads.
+
+    ``mesh``: each decode batch's rows shard over its "data" axis, with
+    ``model`` this rank's shard (``parallel.shard_params``); every rank gets
+    the whole result, and rank 0 alone writes ``refs_pred_file``."""
+    if mesh is not None and medusa is not None:
+        raise NotImplementedError("Medusa decoding under a mesh is not ported yet "
                                   "(ROADMAP Queue A.9)")
     # shallow-copy the collator: mid-training evals run while the training
     # BatchLoader threads still collate with the shared instance — mutating
@@ -184,11 +195,27 @@ def evaluate_wer(
 
     if collator.max_spans is None and collator.span_pad_multiple is None:
         collator.span_pad_multiple = 4
+    if num_beams > 1:
+        decode_fn = beam_decode
+    elif medusa is not None:
+        decode_fn = medusa_greedy_decode
+    else:
+        decode_fn = greedy_decode
+    # the call-signature diagnostic (utils.compile_count.CountedJit)
+    programs_before = decode_fn.cache_size()
     loader = BatchLoader(dataset, collate, batch_size, num_workers=num_workers)
     for batch in loader:
         _eval_decode_batch(batch, all_preds, all_labels, model, tokenizer, collator,
-                           batch_size, max_new, bias_boost, num_beams, medusa)
-    return score_predictions(all_preds, all_labels, tokenizer, refs_pred_file)
+                           batch_size, max_new, bias_boost, num_beams, medusa, mesh)
+    result = score_predictions(all_preds, all_labels, tokenizer,
+                               refs_pred_file if process_index() == 0 else None)
+    # static-shape discipline, as in JAX: one eval pass should need only a
+    # handful of decode signatures (prefix-length buckets). Logged, not
+    # returned: the result dict is the test_results.json artifact
+    new_programs = decode_fn.cache_size() - programs_before
+    if new_programs:
+        print(f"evaluate_wer: compiled {new_programs} decode program(s)")
+    return result
 
 
 def _pad_rows(a: np.ndarray, b_full: int) -> np.ndarray:
@@ -200,7 +227,7 @@ def _pad_rows(a: np.ndarray, b_full: int) -> np.ndarray:
 
 
 def _eval_decode_batch(batch, all_preds, all_labels, model: Whisper, tokenizer, collator,
-                       batch_size, max_new, bias_boost, num_beams, medusa=None):
+                       batch_size, max_new, bias_boost, num_beams, medusa=None, mesh=None):
     prefixes = batch.pop("_prefixes")
     b = len(prefixes)
     ids, mask = pack_prefixes(prefixes, tokenizer.eot, pad_to_multiple=32)
@@ -219,14 +246,15 @@ def _eval_decode_batch(batch, all_preds, all_labels, model: Whisper, tokenizer, 
     kw = dict(max_new=max_new, eot_id=tokenizer.eot, bias_spans=spans, bias_boost=bias_boost,
               span_pad_id=collator.bias_span_pad_id, device=next(model.parameters()).device)
     if num_beams > 1:
-        toks = beam_decode(model, feats, ids, mask, num_beams=num_beams, **kw).best.cpu().numpy()
+        toks = beam_decode(model, feats, ids, mask, num_beams=num_beams, mesh=mesh,
+                           **kw).best.cpu().numpy()
         lens = np.cumprod(toks != tokenizer.eot, axis=1).sum(axis=1)
     else:
         if medusa is not None:
             heads, n_chains = split_medusa(medusa)
             res = medusa_greedy_decode(model, heads, feats, ids, mask, n_chains=n_chains, **kw)
         else:
-            res = greedy_decode(model, feats, ids, mask, **kw)
+            res = greedy_decode(model, feats, ids, mask, mesh=mesh, **kw)
         toks = res.tokens.cpu().numpy()
         lens = res.lengths.cpu().numpy()
     for i in range(b):
@@ -253,16 +281,26 @@ def train_and_evaluate(
     Returns (the trained ``Whisper`` model, log_history); with
     ``load_best_model_at_end`` the model holds the best checkpoint's
     weights. Under ``lora_rank > 0`` the model from ``params`` stays frozen
-    and the returned one has the adapters merged into it."""
+    and the returned one has the adapters merged into it.
+
+    ``mesh`` (``parallel.auto_mesh``): the model is sharded
+    (``shard_params``) and the returned one is this rank's shard
+    (``parallel.gather_params`` gives the whole); evaluations decode over
+    "data". ``shard_fn`` maps each (global) batch to this rank's part;
+    under a mesh it defaults to ``shard_batch`` over "data"."""
     _check_ported(tcfg)
-    if shard_fn is not None or mesh is not None:
-        raise NotImplementedError("sharded training is not ported yet (ROADMAP Queue A.9)")
+    if mesh is not None and tcfg.lora_rank > 0:
+        raise NotImplementedError("LoRA under a mesh is not ported yet (ROADMAP Queue A.9)")
     device = resolve_device(device)
+    accum = tcfg.gradient_accumulation_steps
+    if shard_fn is None and mesh is not None:
+        def shard_fn(b):
+            return shard_batch(b, mesh, extra_leading_axes=1 if accum > 1 else 0)
+    lead = process_index() == 0
     os.makedirs(tcfg.output_dir, exist_ok=True)
-    if logger is None:
+    if logger is None and lead:
         logger = RunLogger(tcfg.output_dir, use_wandb=tcfg.use_wandb,
                            wandb_project=tcfg.wandb_project)
-    accum = tcfg.gradient_accumulation_steps
     chunk = tcfg.per_device_train_batch_size * accum
     steps_per_epoch = max(1, len(data_train) // chunk)
     total_steps = int(steps_per_epoch * tcfg.num_train_epochs)
@@ -282,7 +320,7 @@ def train_and_evaluate(
         step_fn = make_train_step(
             model_cfg, optimizer, bias_weight=tcfg.bias_weight, grad_accum=accum,
             freeze_encoder=tcfg.freeze_encoder, mel_on_device=tcfg.mel_on_device,
-            spec_augment=sa_cfg, augment_seed=tcfg.seed,
+            spec_augment=sa_cfg, augment_seed=tcfg.seed, mesh=mesh,
         )
 
     log_history: list[dict] = []
@@ -311,6 +349,8 @@ def train_and_evaluate(
                   f"(opt_state {'restored' if resumed_opt_state is not None else 'reset'})")
 
     model = build_model(model_cfg, params, device=device, train=True)
+    if mesh is not None:
+        model = shard_params(model, mesh)
     if lora:
         base = model.requires_grad_(False)
         adapters = resumed if resumed is not None else init_lora_params(
@@ -329,6 +369,8 @@ def train_and_evaluate(
         def current_model():
             return model
     if resumed_opt_state is not None:
+        if mesh is not None:
+            resumed_opt_state = shard_opt_state(resumed_opt_state, model, mesh)
         resumed_opt_state.mu = [m.to(device) for m in resumed_opt_state.mu]
         resumed_opt_state.nu = [v.to(device) for v in resumed_opt_state.nu]
         state.opt_state = resumed_opt_state
@@ -360,7 +402,8 @@ def train_and_evaluate(
                 k: v.reshape((accum, tcfg.per_device_train_batch_size) + v.shape[1:])
                 for k, v in batch.items()
             }
-        return batch
+        # this rank's rows, cut on the host before the device copy
+        return batch if shard_fn is None else shard_fn(batch)
 
     # threaded item prep (audio decode + mel + tokenize) + double-buffered
     # device copies: the card never waits on host-side batch building
@@ -392,7 +435,8 @@ def train_and_evaluate(
                 }
                 loss_window.clear()
                 log_history.append(entry)
-                logger.log(entry)
+                if logger is not None:
+                    logger.log(entry)
 
             if step % tcfg.eval_steps == 0:
                 last_wer = evaluate_wer(
@@ -401,12 +445,13 @@ def train_and_evaluate(
                     tcfg.generation_max_length - 1,
                     refs_pred_file=os.path.join(tcfg.output_dir, "refs_and_pred.txt"),
                     prompt_generation=tcfg.prompt_generation,
-                    bias_boost=tcfg.bias_boost,
+                    bias_boost=tcfg.bias_boost, mesh=mesh,
                 )["wer"]
                 entry = {"step": step, "eval_wer": last_wer}
                 last_eval_step = step
                 log_history.append(entry)
-                logger.log(entry)
+                if logger is not None:
+                    logger.log(entry)
                 if last_wer < best_wer:
                     best_wer, bad_evals = last_wer, 0
                 else:
@@ -433,8 +478,10 @@ def train_and_evaluate(
                     meta["lora_rank"] = tcfg.lora_rank
                     meta["lora_alpha"] = tcfg.lora_alpha
                     host_params, host_opt = lora_host_arrays(state.model, state.opt_state)
-                else:
+                else:  # gathered over "model" on every rank
                     host_params, host_opt = host_arrays(model, state.opt_state)
+                if not lead:
+                    continue
 
                 def _save_and_push(step=step, params=host_params, opt=host_opt, meta=meta):
                     write_checkpoint(tcfg.output_dir, step, params, opt, meta,
@@ -450,13 +497,15 @@ def train_and_evaluate(
 
     if save_thread is not None:
         save_thread.join()
+    if process_count() > 1:  # rank 0's files are written before anyone reads them
+        torch.distributed.barrier()
     if tcfg.load_best_model_at_end:
         best = find_best_checkpoint(tcfg.output_dir)
         if best and lora:
             state.model, _, _ = load_lora_checkpoint(best, device=device)
         elif best:
             best_params, _, _ = load_checkpoint(best, model_cfg)
-            model.load_state_dict(best_params)
+            load_params(model, best_params)
         if best:
             print(f"loaded best checkpoint: {best} (eval_wer {best_wer:.3f})")
     # downstream consumers (test-set eval, safetensors export, serving) get

@@ -11,6 +11,9 @@ The counterpart of the JAX package's ``train/loss.py``, with its semantics:
   * loss = sum(weight * nll * valid) / (count(valid) + 1e-8): the denominator
     is the count of valid tokens, not the weight sum
   * without spans it is plain mean CE over the valid positions
+  * under data parallelism (``group``) the count is summed over the group
+    first, so each rank's loss is its share of the global batch's and the
+    shares (and their gradients) sum over the group to the global ones
 
 Matching compares every (span, start, offset) triple at once; there is no
 loop over windows and no host sync.
@@ -19,6 +22,7 @@ loop over windows and no host sync.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..data.collator import BIAS_SPAN_PAD_ID, IGNORE_INDEX
@@ -69,17 +73,23 @@ def weighted_ce_loss(
     skip_special_tokens: bool = True,
     span_pad_id: int = BIAS_SPAN_PAD_ID,
     special_id_threshold: int = SPECIAL_ID_THRESHOLD,
+    group=None,
 ) -> torch.Tensor:
     """Scalar loss. With spans: sum(w * nll * valid) / count(valid); without:
-    plain mean CE over the valid positions."""
+    plain mean CE over the valid positions. ``group`` (a data-parallel
+    process group): count(valid) is the group's, and the result this rank's
+    share of the loss."""
     labels = labels.long()
     valid = labels != IGNORE_INDEX
     safe = torch.where(valid, labels, 0)
     nll = F.cross_entropy(logits.float().flatten(0, 1), safe.flatten(),
                           reduction="none").view(labels.shape)
     nll = nll * valid
+    count = valid.sum()
+    if group is not None:
+        dist.all_reduce(count, group=group)
     if bias_spans is None:
-        return nll.sum() / valid.sum().clamp(min=1)
+        return nll.sum() / count.clamp(min=1)
     weights = bias_span_weights(labels, bias_spans, bias_weight, skip_special_tokens,
                                 span_pad_id, special_id_threshold) * valid
-    return (nll * weights).sum() / (valid.sum().float() + 1e-8)
+    return (nll * weights).sum() / (count.float() + 1e-8)

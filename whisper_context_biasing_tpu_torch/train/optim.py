@@ -20,6 +20,7 @@ import math
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 
 
 def warmup_cosine_schedule(peak_lr: float, warmup_steps: int, total_steps: int,
@@ -47,10 +48,21 @@ class OptState:
     nu: list = field(default_factory=list)          # second moments
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares over every gradient (None counts as 0)."""
-    sq = [g.float().pow(2).sum() for g in grads if g is not None]
-    return torch.stack(sq).sum().sqrt() if sq else torch.zeros(())
+def global_norm(grads, sharded=None, group=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every gradient (None counts as 0).
+    Under tensor parallelism ``sharded[i]`` marks a gradient that is this
+    rank's shard of a tensor split over ``group`` (the "model" axis): their
+    squares sum over the group, the replicated ones count once."""
+    if group is None:
+        sq = [g.float().pow(2).sum() for g in grads if g is not None]
+        return torch.stack(sq).sum().sqrt() if sq else torch.zeros(())
+    parts = [[], []]
+    for g, s in zip(grads, sharded):
+        if g is not None:
+            parts[bool(s)].append(g.float().pow(2).sum())
+    rep, shard = (torch.stack(p).sum() if p else torch.zeros(()) for p in parts)
+    dist.all_reduce(shard, group=group)
+    return (rep + shard).sqrt()
 
 
 class AdamW:

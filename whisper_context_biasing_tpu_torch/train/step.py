@@ -10,6 +10,13 @@ label lengths of at least ``cfg.flash_decoder_min_seq``, run the flash
 forward and backward kernels, and every block runs under ``cfg.remat``.
 The step updates the model in place and leaves the averaged gradients in
 each parameter's ``.grad``.
+
+Under a (data, model) mesh (``parallel/``) the batch holds this rank's rows
+and the model its shard (``shard_batch``, ``shard_params``): the loss's
+denominator is the global batch's, the gradients sum over "data" once a
+step (after the microbatches), the clip's norm sums the sharded squares
+over "model", and AdamW runs on the local shards. The metrics are the
+global ones on every rank.
 """
 
 from __future__ import annotations
@@ -18,10 +25,13 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.config import WhisperConfig
 from ..models.whisper import Whisper, decode_tokens, encode_audio, forward
 from ..ops.mel_kernel import log_mel_spectrogram_fused
+from ..parallel.mesh import DATA_AXIS, axis_group
+from ..parallel.sharding import sharded_dims
 from .augment import SpecAugmentConfig, make_augment_fn
 from .loss import weighted_ce_loss
 from .optim import AdamW, OptState, global_norm
@@ -44,12 +54,15 @@ def _on_device(batch: dict, device) -> dict:
 
 
 def make_loss_fn(cfg: WhisperConfig, bias_weight: float, use_bias_spans: bool = True,
-                 mel_on_device: bool = False, freeze_encoder: bool = False):
+                 mel_on_device: bool = False, freeze_encoder: bool = False, mesh=None):
     """``loss_fn(model, batch) -> scalar loss``. With ``mel_on_device`` the
     batch carries raw ``audio`` (B, samples) and the mel kernel runs inside
     the step; otherwise it carries ``input_features``. ``freeze_encoder``
-    runs the encoder without a graph, so no encoder backward is built."""
+    runs the encoder without a graph, so no encoder backward is built. Under
+    a ``mesh`` the loss is this rank's share of the global batch's (its sum
+    over "data" is the loss)."""
     pad_id = cfg.pad_token_id  # span pad and special-id threshold
+    group = axis_group(mesh, DATA_AXIS)
 
     def loss_fn(model: Whisper, batch: dict) -> torch.Tensor:
         if mel_on_device:
@@ -64,18 +77,33 @@ def make_loss_fn(cfg: WhisperConfig, bias_weight: float, use_bias_spans: bool = 
             logits = forward(model, feats, batch["decoder_input_ids"])
         spans = batch.get("bias_spans") if use_bias_spans else None
         return weighted_ce_loss(logits, batch["labels"], spans, bias_weight,
-                                span_pad_id=pad_id, special_id_threshold=pad_id)
+                                span_pad_id=pad_id, special_id_threshold=pad_id, group=group)
 
     return loss_fn
 
 
-def accumulate_microbatch_grads(loss_fn, model: Whisper, batch: dict, grad_accum: int):
+def _sum_over_data(loss: torch.Tensor, grads: list, group) -> torch.Tensor:
+    """The loss shares and the gradients summed over "data", in place, in
+    one all-reduce."""
+    live = [g for g in grads if g is not None]
+    flat = torch.cat([loss.reshape(1).float(), *(g.reshape(-1) for g in live)])
+    dist.all_reduce(flat, group=group)
+    off = 1
+    for g in live:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+    return flat[0]
+
+
+def accumulate_microbatch_grads(loss_fn, model: Whisper, batch: dict, grad_accum: int,
+                                mesh=None):
     """Mean loss and mean gradients over ``grad_accum`` microbatches: every
     tensor in ``batch`` carries a leading (A, ...) axis (none when
     ``grad_accum`` is 1). Gradients sum in each parameter's ``.grad`` (f32,
     like the masters) and are scaled by 1/A at the end; peak memory is one
-    microbatch. Returns (loss, grads aligned with ``model.parameters()``,
-    None where a parameter got no gradient)."""
+    microbatch. Under a ``mesh`` (a ``loss_fn`` of the same mesh) the loss
+    and gradients are then summed over "data". Returns (loss, grads aligned
+    with ``model.parameters()``, None where a parameter got no gradient)."""
     model.zero_grad(set_to_none=True)
     if grad_accum == 1:
         loss = loss_fn(model, batch)
@@ -93,7 +121,11 @@ def accumulate_microbatch_grads(loss_fn, model: Whisper, batch: dict, grad_accum
         for p in model.parameters():
             if p.grad is not None:
                 p.grad.mul_(scale)
-    return loss, [p.grad for p in model.parameters()]
+    grads = [p.grad for p in model.parameters()]
+    group = axis_group(mesh, DATA_AXIS)
+    if group is not None:
+        loss = _sum_over_data(loss, grads, group)
+    return loss, grads
 
 
 def _check_augment(spec_augment, augment_seed: int, mel_on_device: bool):
@@ -116,6 +148,7 @@ def make_train_step(
     mel_on_device: bool = False,
     spec_augment: SpecAugmentConfig | None = None,
     augment_seed: int = 0,
+    mesh=None,
 ):
     """Returns ``step(state, batch) -> (state, {"loss", "grad_norm"})``:
     the model and optimizer state update in place; ``grad_norm`` is the
@@ -127,17 +160,23 @@ def make_train_step(
     ``spec_augment`` masks the mel features inside the step (train time
     only; the masks come from ``(augment_seed, state.step)``, so a resume
     draws the same ones). It needs precomputed ``input_features``: with
-    ``mel_on_device`` it raises ``ValueError``, as in the JAX package."""
+    ``mel_on_device`` it raises ``ValueError``, as in the JAX package.
+
+    ``mesh``: the batch holds this rank's rows (``shard_batch``) and the
+    model its shard (``shard_params``); see the module's docstring."""
     augment = _check_augment(spec_augment, augment_seed, mel_on_device)
-    loss_fn = make_loss_fn(cfg, bias_weight, use_bias_spans, mel_on_device, freeze_encoder)
+    loss_fn = make_loss_fn(cfg, bias_weight, use_bias_spans, mel_on_device, freeze_encoder,
+                           mesh)
 
     def step(state: TrainState, batch: dict):
         model = state.model
         batch = _on_device(batch, next(model.parameters()).device)
         if augment is not None:
             batch = augment(batch, state.step)
-        loss, grads = accumulate_microbatch_grads(loss_fn, model, batch, grad_accum)
-        gnorm = global_norm(grads)
+        loss, grads = accumulate_microbatch_grads(loss_fn, model, batch, grad_accum, mesh)
+        tp = model.tp
+        gnorm = (global_norm(grads) if tp is None else
+                 global_norm(grads, [d is not None for d in sharded_dims(model)], tp.group))
         frozen = ()
         if freeze_encoder:  # weight decay must not move the encoder either
             enc = {id(p) for p in model.encoder.parameters()}
@@ -151,12 +190,17 @@ def make_train_step(
 
 
 def make_eval_loss_step(cfg: WhisperConfig, bias_weight: float = 1.5,
-                        use_bias_spans: bool = True):
-    """``eval_step(model, batch) -> scalar loss`` without a graph."""
-    loss_fn = make_loss_fn(cfg, bias_weight, use_bias_spans)
+                        use_bias_spans: bool = True, mesh=None):
+    """``eval_step(model, batch) -> scalar loss`` without a graph; under a
+    ``mesh``, of the global batch whose rows the ranks hold."""
+    loss_fn = make_loss_fn(cfg, bias_weight, use_bias_spans, mesh=mesh)
+    group = axis_group(mesh, DATA_AXIS)
 
     @torch.no_grad()
     def eval_step(model: Whisper, batch: dict) -> torch.Tensor:
-        return loss_fn(model, _on_device(batch, next(model.parameters()).device))
+        loss = loss_fn(model, _on_device(batch, next(model.parameters()).device))
+        if group is not None:
+            dist.all_reduce(loss, group=group)
+        return loss
 
     return eval_step

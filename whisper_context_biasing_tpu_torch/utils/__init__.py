@@ -1,14 +1,20 @@
 """Utilities: structured run logging (a copy of the JAX package's
 ``utils/logging.py``), the gated Hub sync (``utils/hub.py``), the SRT/WebVTT
-writers (``utils/subtitles.py``), the serving real-time-factor meter
-(``utils/profiling.py``) and the missing-assets warning of the entry
-points."""
+writers (``utils/subtitles.py``), the profiler trace, step timer and
+real-time-factor meter (``utils/profiling.py``), the decoders' call-signature
+counts (``utils/compile_count.py``), the finite and shape checks
+(``utils/debug.py``), the FLOPs model (``utils/flops.py``) and the
+missing-assets warning of the entry points. The JAX package's
+``setup_jax`` and ``effective_platform`` have no counterpart:
+``_device.resolve_device`` picks the device."""
 
 import sys
 
+from .compile_count import CountedJit, counted_jit
+from .debug import assert_shape, debug_assert_finite, finite_check
 from .hub import push_to_hub_if_exists, sync_from_hub, upload_results_to_hub
 from .logging import RunLogger
-from .profiling import RtfMeter
+from .profiling import RtfMeter, StepTimer, profile_trace
 
 
 def warn_missing_assets(vocab_path, weights_path, entry: str = "") -> bool:
@@ -28,8 +34,15 @@ def warn_missing_assets(vocab_path, weights_path, entry: str = "") -> bool:
 
 
 __all__ = [
+    "CountedJit",
+    "counted_jit",
     "RunLogger",
     "RtfMeter",
+    "StepTimer",
+    "profile_trace",
+    "finite_check",
+    "debug_assert_finite",
+    "assert_shape",
     "warn_missing_assets",
     "sync_from_hub",
     "upload_results_to_hub",
