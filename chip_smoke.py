@@ -128,6 +128,21 @@ on failure:
    the asserts JAX's offline run skips skipped, each config's wall and
    exactly its launches; (e) ``cli.check_weightce``,
    ``cli.check_data_collator`` and ``cli.check_data_loader`` once each.
+15. data and tensor parallelism: (a) a world of one over NCCL against the
+   unsharded step and phase 3's requests, ``torchrun --nproc_per_node 1
+   cli.train``; (b) two ranks this script spawns, sharing the card over
+   gloo at mesh (1, 2) and (2, 1): f32 tokens, beams, loss and gradients
+   against the unsharded run, bf16 launches exact; (c) the four remat
+   policies; (d) on the same two ranks, in f32 at both meshes, every
+   serving route against the unsharded run with exact launches (a random
+   tiny.en draft, a self-draft, 2 Medusa heads at 1 and 3 chains, phase
+   11's clips with words, phase 12's chunked batch in both window modes);
+   (e) at (2, 1) a 0.2 rung on CUDA generators: the unsharded tokens, each
+   rank's uniforms the unsharded run's at its rows; (f) ``cli.serve
+   --dtype float32`` under ``torchrun``, one rank over NCCL and two over
+   gloo at ``--model_parallelism`` 2 and 1, started while (b)-(e) run:
+   phase 12 (f)'s posts and a stream session give the one-device server's
+   replies, and every rank exits 0 after SIGTERM to its rank 0.
 
 Phase 2 also holds the mel kernel against its plain version at 80 and 128
 mels, a 3 s window and batch 1, and against the float64 numpy frontend on a
@@ -148,9 +163,11 @@ batches of 8 and 32 and at T_pad = 1536 for the chunked batch of 32, and K2
 and K3 at the tiny.en draft's width (d 384, 6 heads; 4 decoder layers), K2
 and K3 at the widths of small.en, medium.en and large-v3 (12, 16 and 20
 heads; 12, 24 and 32 decoder layers) and K4 at small.en's encoder shape,
-each with its bound and, for K2 and K4, SDPA's time beside it. The line
-before the last is the kernel table as JSON, with each kernel's launches
-summed over the main-path phases (3, 5, 7, 9, 10, 11, 12, 13 and 14);
+K2-K5 at a rank's share of base.en on a model axis of 2 and K2 and K3 at
+the draft's (3 heads, d 192), each with its bound and, for K2 and K4,
+SDPA's time beside it. The line before the last is the kernel table as
+JSON, with each kernel's launches
+summed over the main-path phases (3, 5, 7, 9, 10, 11, 12, 13, 14 and 15);
 the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -164,6 +181,7 @@ kernels (K2, K4) alone.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import os
@@ -3342,14 +3360,21 @@ def check_tp_shapes(torch, ops) -> list[dict]:
     mesh (model axis 2, phase 15 (b)) gives them: 4 heads of 64 (D / 2 =
     256): K2 and K4 on the encoder's (8, 1500, 4 x 64), K3 on the (6, 8,
     1536, 256) int8 cross K/V; K5 at E / 2: 768 (QKV), 1024 (MLP) and 256
-    (the decoder's cross q). Each as ``check_bucket_shapes`` holds and times
-    its shapes."""
+    (the decoder's cross q); and K2 and K3 at the tiny.en draft's shapes on
+    that axis (phase 15 (d)): 3 heads of 64, K2 on (8, 1500, 3 x 64), K3 on
+    the (4, 8, 1536, 192) int8 cross K/V. Each as ``check_bucket_shapes``
+    holds and times its shapes."""
     rng = np.random.default_rng(51)
     d, heads = D_MODEL // TP, N_HEADS // TP
     print(f"tensor-parallel shapes (model axis {TP}: d {d}, {heads} heads a rank):")
     rows = [check_flash_shape(torch, ops, rng, T_AUDIO, d, heads),
             check_quant_shape(torch, ops, rng, BATCH, T_PAD, T_AUDIO, d, heads),
             check_flash_bwd_shape(torch, ops, rng, T_AUDIO, d, heads)]
+    # phase 15 (d)'s tiny.en draft at the same model axis: 3 heads of 64
+    dd, dh = DRAFT_D // TP, DRAFT_HEADS // TP
+    print(f"  the {DRAFT} draft at model axis {TP}: d {dd}, {dh} heads a rank:")
+    rows += [check_flash_shape(torch, ops, rng, T_AUDIO, dd, dh),
+             check_quant_shape(torch, ops, rng, BATCH, T_PAD, T_AUDIO, dd, dh, DRAFT_LAYERS)]
     for label, (n, e, act) in {
             "encoder QKV / 2": (BATCH * T_AUDIO, 3 * D_MODEL // TP, None),
             "encoder MLP gelu / 2": (BATCH * T_AUDIO, 4 * D_MODEL // TP, "gelu"),
@@ -3436,7 +3461,9 @@ def parallel_rank(rank: int, workdir: str) -> int:
     greedy and 5-beam tokens, an f32 training step's loss and gathered
     gradients against the unsharded references the parent wrote, and the
     bf16 launches of a serving batch, a training step and a fused training
-    step. Writes ``rank{rank}.json``."""
+    step; then (d) and (e), the serving routes at each mesh held to the
+    parent's unsharded run (``serving_routes``, ``hold_routes``). Writes
+    ``rank{rank}.json``."""
     import torch
     import torch.distributed as dist
 
@@ -3539,6 +3566,20 @@ def parallel_rank(rank: int, workdir: str) -> int:
         res["walls_s"] = walls
         out[label] = res
         torch.cuda.empty_cache()
+    # (d)-(e): the serving routes at each mesh, held to the parent's
+    # unsharded run (which it computes while the ranks run (b))
+    path = os.path.join(workdir, "serving_ref.json")
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    while not os.path.exists(path):
+        require(time.monotonic() < deadline, f"rank {rank}: no serving references")
+        time.sleep(0.2)
+    with open(path) as f:
+        ref = json.load(f)
+    out["serving"] = {}
+    for label, mp in (("tp", TP), ("dp", 1)):
+        got = serving_routes(torch, ops, mp, host_windows=mp == 1, sampled=mp == 1)
+        hold_routes(f"rank {rank} mesh {label}", got, ref, tp=mp > 1)
+        out["serving"][label] = got
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -3550,7 +3591,8 @@ def two_ranks(torch, ops, card, f32_tokens, tmp) -> dict:
     """Phase 15 (b): the unsharded f32 references written to ``tmp``, the
     two ranks spawned (this script with ``--parallel-rank``, a ``file://``
     rendezvous in ``tmp``), each waited for with a timeout and killed on
-    failure. Returns both ranks' bf16 launches, summed."""
+    failure; (d) and (e)'s unsharded run written beside them. Returns both
+    ranks' launches of (b), (d) and (e), summed."""
     from whisper_context_biasing_tpu_torch import Pipeline
 
     workdir = os.path.join(tmp, "parallel")
@@ -3576,6 +3618,20 @@ def two_ranks(torch, ops, card, f32_tokens, tmp) -> dict:
                                str(r), workdir], stdout=logs[r], stderr=subprocess.STDOUT)
              for r in range(2)]
     try:
+        # (d)-(e)'s unsharded run while the ranks run (b); they wait for it
+        t1 = time.perf_counter()
+        serving_ref = serving_routes(torch, ops, 0, sampled=True)
+        for name, r in serving_ref.items():
+            require(r["launches"] == r["implied"], f"(d) unsharded {name}: launches "
+                    f"{r['launches']} != what the loop implies {r['implied']}")
+        path = os.path.join(workdir, "serving_ref.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump(serving_ref, f)
+        os.replace(path + ".tmp", path)
+        print(f"  (d)-(e) unsharded f32 references in {time.perf_counter() - t1:.1f} s (beside "
+              f"the ranks' (b)): " + "; ".join(
+                  f"{n} launches {r['launches']} (mel calls, encoder passes, decoder steps "
+                  f"{r['loop']}; {r['wall_s']:.2f} s)" for n, r in serving_ref.items()))
         deadline = time.monotonic() + RANK_TIMEOUT_S
         while any(p.poll() is None for p in procs):
             # a rank that fails ends the phase: its peer would wait for it
@@ -3595,7 +3651,7 @@ def two_ranks(torch, ops, card, f32_tokens, tmp) -> dict:
                 print(f"  rank {r} exited {procs[r].returncode}:\n{text[-4000:]}")
     require(all(p.returncode == 0 for p in procs), "phase 15 (b): a rank failed")
     wall = time.perf_counter() - t0
-    total = {}
+    total, ranks = {}, []
     for r in range(2):
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
             res = json.load(f)
@@ -3613,7 +3669,25 @@ def two_ranks(torch, ops, card, f32_tokens, tmp) -> dict:
                   + ", ".join(f"{k} {v:.2f} s" for k, v in x["walls_s"].items()))
             for c in (x["serve"], x["train"], x["fused"]):
                 add_counts(total, {k: v for k, v in c.items() if k != "steps"})
-    print(f"  (b) two ranks took {wall:.1f} s (spawn to exit)  [{card}]")
+            for name, g in res["serving"][label].items():
+                same = ("the unsharded run's output" if "divergence" not in g else
+                        f"held by {'(e)' if name == 'sampled' else 'phase 4'}'s rule: "
+                        f"{g['divergence']}")
+                print(f"  (d)-(e) rank {r}, mesh {tuple(x['mesh'])}, {name}: {same}; "
+                      f"launches {g['launches']} = what its loop implies (mel "
+                      f"calls, encoder passes, decoder steps {g['loop']}"
+                      + ("; = the unsharded run's" if label == "tp" and "divergence" not in g
+                         else "")
+                      + f"), {g['wall_s']:.2f} s")
+                add_counts(total, g["launches"])
+        ranks.append(res)
+    draws = [res["serving"]["dp"]["sampled"]["out"][2] for res in ranks]
+    want = serving_ref["sampled"]["out"][2]
+    print(f"  (e) the {SAMPLED_T} rung at mesh (2, 1) on CUDA generators: every window took "
+          f"it; first uniforms rank 0 {draws[0]}, rank 1 {draws[1]}, unsharded {want}")
+    require(draws == [[u] for u in want] and draws[0] != draws[1],
+            "(e) the ranks' uniforms are not the unsharded run's rows'")
+    print(f"  (b), (d), (e): two ranks took {wall:.1f} s (spawn to exit)  [{card}]")
     return total
 
 
@@ -3761,16 +3835,478 @@ def world_of_one(torch, ops, Pipeline, card, serve_tokens, init_path, tmp) -> di
     return total
 
 
+# phase 15 (d)-(f): the serving routes under the mesh
+# ---------------------------------------------------------------------------
+
+SERVE_MEDUSA_HEADS = 2  # (d)'s heads: at 1 and 3 chains
+SAMPLED_T = 0.2         # (e)'s rung, forced by a log-prob threshold of 0
+SERVE_START_S = 300     # (f): a server that has not bound its port by then fails
+SERVE_EXIT_S = 120      # (f): every rank exits within this after SIGTERM
+
+
+class PassRecorder:
+    """The model passes inside, wherever the package holds ``encode_audio``
+    and ``decode_tokens``: each encoder pass implies one K2 launch a layer of
+    its model, and each single-token decoder pass of an int8 cross-K/V model
+    one K3 launch a decoder layer (the other passes take the plain int8 path).
+    ``implied(mel_calls)`` is the launches the loop reports."""
+
+    def __enter__(self):
+        from whisper_context_biasing_tpu_torch.models import whisper
+
+        self.k2 = self.k3 = self.encoder_passes = self.decoder_steps = 0
+        enc, dec = whisper.encode_audio, whisper.decode_tokens
+
+        def encode(model, *a, **kw):
+            self.encoder_passes += 1
+            self.k2 += model.cfg.n_audio_layers
+            return enc(model, *a, **kw)
+
+        def decode(model, tokens, *a, **kw):
+            cfg = model.cfg
+            if tokens.shape[1] == 1 and cfg.quantize_cross_kv and cfg.fused_quant_cross:
+                self.decoder_steps += 1
+                self.k3 += cfg.n_text_layers
+            return dec(model, tokens, *a, **kw)
+
+        self.patched = []
+        for n, m in list(sys.modules.items()):
+            if n.startswith("whisper_context_biasing_tpu_torch"):
+                for name, fn, new in (("encode_audio", enc, encode),
+                                      ("decode_tokens", dec, decode)):
+                    if getattr(m, name, None) is fn:
+                        setattr(m, name, new)
+                        self.patched.append((m, name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.patched:
+            setattr(m, name, fn)
+
+    def implied(self, mel_calls: int) -> dict:
+        want = {"mel": mel_calls, "flash_attention": self.k2, "quant_cross_attention": self.k3}
+        return {k: v for k, v in want.items() if v}
+
+
+def word_rows(words) -> list:
+    return [[w.word, w.start, w.end, w.probability] for w in words]
+
+
+def serving_routes(torch, ops, mp: int, host_windows: bool = False,
+                   sampled: bool = False) -> dict:
+    """Phase 15 (d), and (e) with ``sampled``, in f32 with every kernel on
+    ``Pipeline("base.en", model_parallelism=mp)`` (0: one device, the
+    references): phase 3's requests with phase 13's random tiny.en draft
+    (k 4), with the target as its own draft and with 2 Medusa heads at 1 and
+    3 chains; phase 11's clips at t=0 with timestamps and words ("long";
+    under tensor parallelism its 48 s clip alone, "long48", to keep the
+    script's time; the references run both); phase 12's chunked batch
+    (``host_windows`` also with the windows cut on the host);
+    (e) phase 11's clips on the ladder (0, 0.2) with a log-prob threshold of
+    0, so every window takes the 0.2 rung, on a CUDA generator, with each
+    row's first uniform. Per route: its output, launches, the launches its
+    loop implies, and its mel calls, encoder passes and decoder steps."""
+    from whisper_context_biasing_tpu_torch import Pipeline
+    from whisper_context_biasing_tpu_torch.decode import (
+        greedy,
+        transcribe_chunked,
+        transcribe_long_batch,
+    )
+    from whisper_context_biasing_tpu_torch.models import init_medusa_params
+
+    pipe = Pipeline("base.en", device=DEVICE, seed=0, dtype="float32", draft_model=DRAFT,
+                    speculative_k=SPEC_K, model_parallelism=mp)
+    tok = pipe.tokenizer
+    mel_calls = counted_mel(pipe)
+    draft = pipe.draft
+    heads = init_medusa_params(pipe.cfg, SERVE_MEDUSA_HEADS, 0)
+    clips = requests(np.random.default_rng(4))
+    rng = np.random.default_rng(11)
+    long_clips = [synthetic_audio(rng, x) for x in LONG_CLIPS_S]
+    kwargs = dict(context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0, max_tokens=MAX_TOKENS)
+    chunk_kw = dict(mel_fn=pipe.mel, max_new=MAX_TOKENS, max_batch=CHUNKED_BATCH,
+                    pad_batches=True, temperatures=(0.0,), return_segments=True,
+                    window_samples=pipe.window_samples, mesh=pipe.mesh, device=DEVICE)
+
+    def short(**attrs):
+        for k, v in attrs.items():
+            setattr(pipe, k, v)
+        return [r.tokens for r in pipe.transcribe(clips, **kwargs)]
+
+    def long_form(clips_):
+        pipe.medusa = None
+        res = pipe.transcribe(clips_, long_form=True, timestamps=True, word_timestamps=True,
+                              temperatures=(0.0,), **kwargs)
+        return [[r.tokens for r in res], [[list(x) for x in r.segments] for r in res],
+                [word_rows(r.words) for r in res]]
+
+    def chunked(windows):
+        toks, segs = transcribe_chunked(pipe.model, tok, chunked_clips(),
+                                        device_windows=windows, **chunk_kw)
+        return [toks, [[list(x) for x in f] for f in segs]]
+
+    # each sampled decode call's first uniforms, and at every step each
+    # row's slack: the distance of its uniform from the CDF bounds of the
+    # token it drew (a share of the whole mass)
+    draws, slacks = [], []
+    real_next, real_sample = greedy.RowDraws.next, greedy.sample_tokens
+
+    def first_draws(self):
+        u = real_next(self)
+        if not getattr(self, "seen", False):
+            self.seen = True
+            draws.append(u.tolist())
+            slacks.append([])
+        self.u = u
+        return u
+
+    def sample(lg, temperature, u):
+        pick = real_sample(lg, temperature, u)
+        probs = torch.softmax(lg / temperature, dim=-1)
+        cdf = torch.cumsum(probs, dim=-1)  # as sample_tokens sums it
+        x = u * cdf[:, -1]
+        hi = cdf.gather(1, pick[:, None])[:, 0]
+        lo = hi - probs.gather(1, pick[:, None])[:, 0]
+        slack = torch.minimum((x - lo).abs(), (hi - x).abs()) / cdf[:, -1]
+        slacks[-1].append(slack.tolist())
+        return pick
+
+    def sampled_rung():
+        gen = torch.Generator(device=DEVICE).manual_seed(1234)
+        greedy.RowDraws.next, greedy.sample_tokens = first_draws, sample
+        try:
+            toks, info = transcribe_long_batch(
+                pipe.model, tok, long_clips, mel_fn=pipe.mel, max_new=MAX_TOKENS,
+                temperatures=(0.0, SAMPLED_T), logprob_threshold=0.0,
+                compression_ratio_threshold=None, no_speech_threshold=None,
+                return_window_info=True, window_samples=pipe.window_samples, generator=gen,
+                mesh=pipe.mesh, device=DEVICE)
+        finally:
+            greedy.RowDraws.next, greedy.sample_tokens = real_next, real_sample
+        return [toks, [[w["temperature"] for w in f] for f in info], draws[0], slacks]
+
+    routes = {"draft": lambda: short(draft=draft),
+              "self_draft": lambda: short(draft=pipe.model, draft_cfg=pipe.cfg),
+              "medusa1": lambda: short(draft=None, medusa=dict(heads, n_chains=1)),
+              "medusa3": lambda: short(draft=None, medusa=dict(heads, n_chains=3))}
+    if mp != TP:
+        routes["long"] = lambda: long_form(long_clips)
+    if mp != 1:
+        routes["long48"] = lambda: long_form(long_clips[1:])
+    routes["chunked"] = lambda: chunked(True)
+    if host_windows:
+        routes["chunked_host"] = lambda: chunked(False)
+    if sampled:
+        routes["sampled"] = sampled_rung
+    out = {}
+    for name, run in routes.items():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        del mel_calls[:]
+        t0 = time.perf_counter()
+        # the greedy routes' decode calls, with their top-2 gaps (phase 4's rule)
+        with PassRecorder() as rec, PathRecorder(margins=True) as path:
+            got = run()
+            torch.cuda.synchronize()
+        out[name] = dict(out=got, launches=dict(ops.launches), implied=rec.implied(len(mel_calls)),
+                         loop=[len(mel_calls), rec.encoder_passes, rec.decoder_steps],
+                         wall_s=time.perf_counter() - t0,
+                         calls=[{k: None if v is None else v.tolist() for k, v in c.items()
+                                 if k != "steps"} for c in path.calls])
+    del pipe, routes
+    gc.collect()  # counted_mel's closure holds the pipeline in a cycle: free its weights now
+    torch.cuda.empty_cache()
+    return out
+
+
+def same_words(a, b) -> bool:
+    """Word rows equal, the probabilities within f32 rounding."""
+    return (len(a) == len(b) and all(
+        len(x) == len(y) and all(u[:3] == v[:3] and abs(u[3] - v[3]) <= 1e-5
+                                 for u, v in zip(x, y)) for x, y in zip(a, b)))
+
+
+def near_tie_only(calls: list, ref_calls: list, first: int = 0) -> tuple[bool, str]:
+    """Phase 4's rule on a route's greedy decode calls against the unsharded
+    run's: as many calls, and the first divergence at a plain top-2 logit
+    gap < 1e-4 (the rest, which it may steer, not compared). Returns (held,
+    what diverged where)."""
+    if not calls or len(calls) != len(ref_calls):
+        return False, f"{len(calls)} decode calls against {len(ref_calls)}"
+    for ci, (c, r) in enumerate(zip(calls, ref_calls)):
+        diff = np.argwhere(np.asarray(c["tokens"]) != np.asarray(r["tokens"]))
+        if diff.size:
+            row, step = (int(x) for x in diff[0])
+            gap = r["margins"][row][step]
+            return gap < 1e-4, (f"decode call {first + ci} row {row} diverges at step {step}, "
+                                f"the unsharded top-2 logit gap {gap:.3e} (limit 1e-4)")
+    return False, "no decode call diverges"
+
+
+SLACK = 1e-4  # (e): a draw this close to a CDF bound may flip with f32 sums
+
+
+def boundary_only(g: dict, want: dict) -> tuple[bool, str]:
+    """(e)'s rule when the tokens differ: the ladder's decode calls
+    alternate t = 0 (rejected by the threshold) and the sampled rung; a t = 0
+    call may diverge only at a near-tie (phase 4's rule), and the first
+    sampled call that diverges must do so where the unsharded run's draw lay
+    within SLACK of its token's CDF bound (the rest, steered by it, not
+    compared)."""
+    calls, ref_calls = g["calls"], want["calls"]
+    ref_slacks = want["out"][3]
+    if len(calls) != len(ref_calls) or len(ref_calls) != 2 * len(ref_slacks):
+        return False, f"{len(calls)} decode calls against {len(ref_calls)}"
+    notes = []
+    for ci, (c, r) in enumerate(zip(calls, ref_calls)):
+        diff = np.argwhere(np.asarray(c["tokens"]) != np.asarray(r["tokens"]))
+        if not diff.size:
+            continue
+        row, step = (int(x) for x in diff[0])
+        if ci % 2 == 0:
+            held, note = near_tie_only([c], [r], ci)
+            notes.append(note)
+            if not held:
+                return False, "; ".join(notes)
+            continue
+        slack = ref_slacks[ci // 2][step][row]
+        notes.append(f"sampled call {ci} row {row} diverges at step {step}, where the "
+                     f"unsharded draw lay {slack:.3e} of the mass from its token's CDF bound "
+                     f"(limit {SLACK})")
+        return slack < SLACK, "; ".join(notes)
+    return False, "no decode call diverges"
+
+
+def hold_routes(label: str, got: dict, ref: dict, tp: bool) -> None:
+    """Phase 15 (d)-(e)'s gates for one rank and mesh: every route's output
+    equals the unsharded run's (the words' probabilities within f32
+    rounding; (e)'s draws are the rank's rows of the unsharded run's; a
+    greedy route may diverge only at a near-tie, phase 4's rule), its
+    launches are what its loop implies and, under tensor parallelism alone,
+    the unsharded run's."""
+    for name, g in got.items():
+        want = ref["chunked" if name == "chunked_host" else name]
+        if name.startswith("long"):
+            same = g["out"][:2] == want["out"][:2] and same_words(g["out"][2], want["out"][2])
+        elif name == "sampled":
+            require(all(t == [SAMPLED_T] * len(t) for t in g["out"][1]),
+                    f"{label} sampled: a window missed the {SAMPLED_T} rung")
+            same = g["out"][:2] == want["out"][:2]
+            if not same:
+                same, g["divergence"] = boundary_only(g, want)
+        else:
+            same = g["out"] == want["out"]
+        if not same and name != "sampled":
+            same, g["divergence"] = near_tie_only(g["calls"], want["calls"])
+        require(same, f"{label} {name}: the output differs from the unsharded run's: "
+                f"{g.get('divergence')}")
+        require(g["launches"] == g["implied"], f"{label} {name}: launches {g['launches']} != "
+                f"what the loop implies {g['implied']}")
+        if tp and "divergence" not in g:  # a divergence may take other steps
+            require(g["launches"] == want["launches"], f"{label} {name}: launches "
+                    f"{g['launches']} != the unsharded run's {want['launches']}")
+
+
+REPLY_FLOATS = ("avg_logprob", "no_speech_prob", "probability")
+
+
+def split_floats(x, out: list):
+    """A server reply with the model's float outputs (``REPLY_FLOATS``:
+    f32 sums in another order under "model") taken out into ``out``."""
+    if isinstance(x, dict):
+        return {k: (out.append(v) if k in REPLY_FLOATS else split_floats(v, out))
+                for k, v in x.items()}
+    if isinstance(x, list):
+        return [split_floats(v, out) for v in x]
+    return x
+
+
+SERVERS = (("one rank, NCCL", 1, []),
+           ("two ranks, gloo, --model_parallelism 2", 2, ["--model_parallelism", "2"]),
+           ("two ranks, gloo, --model_parallelism 1", 2, ["--model_parallelism", "1"]))
+
+
+def serve_rank(argv) -> int:
+    """A rank of phase 15 (f)'s server (this script with ``--serve-rank``
+    under ``torchrun``): ``cli.serve``'s ``main`` with the model in f32."""
+    from whisper_context_biasing_tpu_torch.cli import serve
+    from whisper_context_biasing_tpu_torch.models import FAST_OVERRIDES, get_config
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return serve.main(argv, config=get_config("base.en", dtype="float32", **FAST_OVERRIDES))
+
+
+def start_servers(init_path, tmp) -> list:
+    """Phase 15 (f)'s three ``cli.serve`` launches (f32, ``serve_rank``)
+    under ``torchrun``, started together, each on a free port with its log
+    in ``tmp``: one rank over NCCL (no mesh: the one-device server), then two
+    ranks sharing the card (gloo: more ranks than cards) at
+    ``--model_parallelism 2`` and 1. Returns [label, process, port, log
+    path, start]."""
+    import socket
+
+    servers = []
+    for label, nproc, extra in SERVERS:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        log_path = os.path.join(tmp, f"serve_{len(servers)}.log")
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", str(nproc), os.path.abspath(__file__), "--serve-rank",
+                "--init_checkpoint", str(init_path), "--host", "127.0.0.1", "--port", str(port),
+                "--batch", str(BATCH), "--max_wait_ms", "250", "--max_tokens", str(MAX_TOKENS),
+                "--timestamps", "--temperatures", "0.0", "--bias_words", *BIAS_WORDS,
+                "--bias_boost", "2.0", "--device", DEVICE, *extra]
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT,
+                                    cwd=os.path.dirname(os.path.abspath(__file__)))
+        servers.append([label, proc, port, log_path, time.perf_counter()])
+    return servers
+
+
+def stop_servers(servers) -> None:
+    """Kill what is left of the servers (after a failure), and say why."""
+    for label, proc, _, log_path, _ in servers:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if proc.returncode != 0:
+            print(f"  (f) {label} exited {proc.returncode}:\n{open(log_path).read()[-4000:]}")
+
+
+def drive_servers(card, servers) -> None:
+    """Phase 15 (f): each server, once it has bound its port, gets phase 12
+    (f)'s posts (8 concurrent with a context, a 75 s post with window info,
+    a word-timestamp post) and a stream session (the 75 s clip in 1 s
+    chunks), the three at once; the sharded servers' replies equal the
+    one-device server's, ``latency_ms`` aside and the model's probabilities
+    within 1e-5; SIGTERM to each rank 0 ends every rank with exit 0 within
+    SERVE_EXIT_S."""
+    import http.client
+    import io
+    import signal
+    import threading
+    import wave
+
+    def wav(audio):
+        buf = io.BytesIO()
+        with wave.open(buf, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes())
+        return buf.getvalue()
+
+    clips = requests(np.random.default_rng(4))
+    long_clip = chunked_clips()[1]
+    pcm = (np.clip(long_clip, -1, 1) * 32767).astype("<i2")
+
+    def drive(port, out):
+        def call(path, body=b"", headers=None):
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            c.request("POST", path, body=body, headers=headers or {})
+            r = c.getresponse()
+            reply = json.loads(r.read())
+            c.close()
+            reply.pop("latency_ms", None)
+            return [r.status, reply]
+
+        t0 = time.perf_counter()
+        replies = [None] * BATCH
+
+        def post(i):
+            replies[i] = call("/transcribe", wav(clips[i]), {"X-Context": CONTEXT})
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(BATCH)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        replies.append(call("/transcribe", wav(long_clip), {"X-Window-Info": "1"}))
+        replies.append(call("/transcribe", wav(clips[2]), {"X-Word-Timestamps": "1"}))
+        status, opened = call("/stream", headers={"X-Context": CONTEXT})
+        replies.append(status)
+        sid = opened["session"]
+        replies += [call(f"/stream/{sid}", pcm[i: i + 16000].tobytes())
+                    for i in range(0, pcm.size, 16000)]
+        replies.append(call(f"/stream/{sid}/end"))
+        out.update(replies=replies, served=time.perf_counter() - t0)
+
+    pids, runs = [], [{} for _ in servers]
+    for label, proc, _, log_path, t0 in servers:
+        found = None
+        while found is None:
+            require(proc.poll() is None, f"(f) {label}: the server exited {proc.returncode}")
+            require(time.perf_counter() - t0 < SERVE_START_S,
+                    f"(f) {label}: no port bound in {SERVE_START_S} s")
+            found = re.search(r"serving on \S+ \(\S+, pid (\d+)\)", open(log_path).read())
+            time.sleep(0.2)
+        pids.append(int(found.group(1)))
+    started = time.perf_counter()
+    threads = [threading.Thread(target=drive, args=(srv[2], run))
+               for srv, run in zip(servers, runs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    served = time.perf_counter() - started
+    t1 = time.perf_counter()
+    for pid in pids:
+        os.kill(pid, signal.SIGTERM)
+    codes = [srv[1].wait(timeout=SERVE_EXIT_S) for srv in servers]
+    exited = time.perf_counter() - t1
+    for (label, *_), run, code in zip(servers, runs, codes):
+        require(code == 0, f"(f) {label}: torchrun exited {code} after SIGTERM to rank 0")
+        require("replies" in run, f"(f) {label}: the posts did not finish")
+        statuses = [r if isinstance(r, int) else r[0] for r in run["replies"]]
+        print(f"(f) cli.serve under torchrun, {label}: {len(statuses)} replies, all 200: "
+              f"{set(statuses) == {200}}, served in {run['served']:.1f} s (the three at once "
+              f"on the card)  [{card}]")
+        require(set(statuses) == {200}, f"(f) {label}: statuses {statuses}")
+    ref = runs[0]["replies"]
+    for (label, *_), run in zip(servers[1:], runs[1:]):
+        got_f, want_f = [], []
+        same = split_floats(run["replies"], got_f) == split_floats(ref, want_f)
+        worst = max((abs(a - b) for a, b in zip(got_f, want_f)), default=0.0)
+        print(f"  (f) {label}: replies equal the one-device server's apart from the "
+              f"model's {len(want_f)} log-probabilities and word probabilities: {same}; "
+              f"those within {worst:.2e} of its (limit 1e-5)")
+        require(same and len(got_f) == len(want_f) and worst <= 1e-5,
+                f"(f) {label}: the replies differ from the one-device server's")
+    require(ref[BATCH][1].get("windows") and ref[BATCH + 1][1].get("words")
+            and ref[-1][1]["text"], "(f) the window, word or stream fields are missing")
+    print(f"  (f) the three servers bound their ports by {started - servers[0][4]:.1f} s after "
+          f"their launch (loaded and warmed up meanwhile), served in {served:.1f} s, and every "
+          f"rank of the three exited 0 within {exited:.1f} s of SIGTERM to its rank 0  [{card}]")
+
+
 def parallelism_and_remat(torch, Pipeline, ops, card, serve_tokens, f32_tokens, init_path,
                           tmp) -> dict:
-    """Phase 15: (a) a world of one, (b) two ranks on the card, (c) the
-    remat policies. Returns the launches of (a), (b) (both ranks) and (c)."""
+    """Phase 15: (a) a world of one, (b) two ranks on the card with (d) and
+    (e) the serving routes on them, (f) ``cli.serve`` under ``torchrun``,
+    (c) the remat policies. Returns the launches of (a), (b), (d), (e) (both
+    ranks) and (c)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     start = time.perf_counter()
     total = world_of_one(torch, ops, Pipeline, card, serve_tokens, init_path, tmp)
     t = time.perf_counter()
     print(f"  (a) took {t - start:.1f} s")
-    add_counts(total, two_ranks(torch, ops, card, f32_tokens, tmp))
-    print(f"  (b) took {time.perf_counter() - t:.1f} s")
+    servers = start_servers(init_path, tmp)
+    pool = ThreadPoolExecutor(1)
+    try:
+        served = pool.submit(drive_servers, card, servers)  # (f) beside (b)-(e)
+        add_counts(total, two_ranks(torch, ops, card, f32_tokens, tmp))
+        print(f"  (b), (d), (e) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        served.result()
+        print(f"  (f) took {time.perf_counter() - t:.1f} s after (e)")
+    finally:
+        stop_servers(servers)  # after a failure elsewhere, this ends (f)'s posts too
+        pool.shutdown()
     t = time.perf_counter()
     add_counts(total, remat_policies(torch, ops, card))
     print(f"  (c) took {time.perf_counter() - t:.1f} s")
@@ -3794,6 +4330,8 @@ def main() -> int:
                     help="as --kernels-only, for the flash kernels (K2, K4) alone")
     ap.add_argument("--parallel-rank", nargs=2, metavar=("RANK", "WORKDIR"),
                     help=argparse.SUPPRESS)  # phase 15 (b) spawns its ranks this way
+    ap.add_argument("--serve-rank", nargs=argparse.REMAINDER,
+                    help=argparse.SUPPRESS)  # phase 15 (f)'s servers, under torchrun
     args = ap.parse_args()
     tree = args.kernels_only or args.flash_only
 
@@ -3804,6 +4342,8 @@ def main() -> int:
         return 1
     if args.parallel_rank:
         return parallel_rank(int(args.parallel_rank[0]), args.parallel_rank[1])
+    if args.serve_rank is not None:
+        return serve_rank(args.serve_rank)
     if tree:
         sys.path.insert(0, os.path.abspath(tree))
     from whisper_context_biasing_tpu_torch import Pipeline, ops
@@ -3879,8 +4419,8 @@ def main() -> int:
               "harnesses):")
         ext_counts = training_extensions(torch, ops, card, init_path, tmp)
         print("phase 15, data and tensor parallelism (a world of one over NCCL, two ranks "
-              "on the card over gloo at mesh (1, 2) and (2, 1), torchrun) and the remat "
-              "policies:")
+              "on the card over gloo at mesh (1, 2) and (2, 1) with every serving route, "
+              "cli.serve under torchrun) and the remat policies:")
         par_counts = parallelism_and_remat(torch, Pipeline, ops, card, serve_tokens,
                                            f32_tokens, init_path, tmp)
     # launches: the runs of the main-path phases (3, 5, 7, 9, 10, 11, 12, 13, 14, 15)

@@ -345,18 +345,28 @@ def test_int16_input_matches_float_and_jax(tok, setup):
     assert got_i == jax_chunked.transcribe_chunked(params, jcfg, tok, [pcm], **common)
 
 
-def test_unported_chunked_options_raise(tok, setup):
-    """A mesh raises (A.9); a draft and Medusa heads are ported: the plain
-    tokens, and a draft with another n_mels refused at the t=0 rung."""
+def test_unported_chunked_options_raise(tok, setup, tmp_path):
+    """A mesh, a draft and Medusa heads are ported: the plain tokens (a
+    world of one here; tests/test_torch_parallel_serving.py has a world of
+    4), and a draft with another n_mels refused at the t=0 rung."""
+    import torch.distributed as dist
+
     from whisper_context_biasing_tpu_torch.models import init_medusa_params
+    from whisper_context_biasing_tpu_torch.parallel import make_mesh
 
     model = setup[2]
     clip = [np.zeros(1600, np.float32)]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A.9"):
-        chunked.transcribe_chunked(model, tok, clip, device="cpu", mesh=object())
     # the timestamp rules stay off with an accelerator (as in JAX)
     kw = dict(max_new=3, temperatures=(0.0,), use_timestamps=False, device="cpu")
     plain = chunked.transcribe_chunked(model, tok, clip, **kw)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", world_size=1,
+                            rank=0)
+    try:
+        for windows in (True, False):
+            assert chunked.transcribe_chunked(model, tok, clip, mesh=make_mesh(1),
+                                              device_windows=windows, **kw) == plain
+    finally:
+        dist.destroy_process_group()
     for accel in (dict(draft=(model, model.cfg, 2)),
                   dict(medusa=init_medusa_params(model.cfg, 2))):
         assert chunked.transcribe_chunked(model, tok, clip, **accel, **kw) == plain

@@ -158,10 +158,11 @@ def test_sampler_distribution_chi_square():
     """20,000 draws from softmax(lg / 0.7) over 6 classes (one suppressed to
     the f32 minimum, as the filters leave it): Pearson's chi-square against
     the expected counts stays under 20.52, the 0.999 quantile at 5 degrees
-    of freedom; the suppressed class is never drawn."""
+    of freedom; the suppressed class is never drawn (the uniforms are a
+    seeded generator's, as ``greedy.RowDraws`` gives them)."""
     lg = torch.tensor([1.0, 0.2, -0.5, 2.0, 0.0, NEG]).repeat(20000, 1)
     gen = torch.Generator().manual_seed(7)
-    draws = sample_tokens(lg, 0.7, gen)
+    draws = sample_tokens(lg, 0.7, torch.rand(20000, generator=gen))
     counts = np.bincount(draws.numpy(), minlength=6)
     assert counts[5] == 0
     p = torch.softmax(lg[0, :5] / 0.7, dim=-1).numpy()

@@ -11,6 +11,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch.distributed
 
 import whisper_context_biasing_tpu_torch as port
 from whisper_context_biasing_tpu_torch import Pipeline, ops
@@ -167,7 +168,7 @@ def test_unported_transcribe_options_raise(pipe, kwargs, exc, match):
         pipe.transcribe(np.zeros(1600, np.float32), **kwargs)
 
 
-def test_unported_paths_raise(pipe):
+def test_unported_paths_raise(pipe, tmp_path):
     from whisper_context_biasing_tpu_torch.decode import transcribe_long_batch
 
     # long-form word timestamps are ported: they run
@@ -183,17 +184,20 @@ def test_unported_paths_raise(pipe):
     with pytest.raises(FileNotFoundError):
         Pipeline("tiny.en", config=tiny_test_config(), device="cpu",
                  checkpoint="model.safetensors")
-    # sampling, no_speech_prob, timestamp rules, long-form word timestamps
-    # and draft and Medusa models are ported (a draft and heads give the
-    # plain tokens); a mesh is not
+    # sampling, no_speech_prob, timestamp rules, long-form word timestamps,
+    # draft and Medusa models and a mesh are ported (a draft, heads and a
+    # world of one give the plain tokens)
     from whisper_context_biasing_tpu_torch.models import init_medusa_params
 
     clip = [np.zeros(1600, np.float32)]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A.9"):
-        transcribe_long_batch(pipe.model, pipe.tokenizer, clip, device="cpu", mesh=object())
     kw = dict(max_new=3, temperatures=(0.0,), mel_fn=pipe.mel,
               window_samples=pipe.window_samples, device="cpu")
     plain = transcribe_long_batch(pipe.model, pipe.tokenizer, clip, **kw)
+    try:
+        assert transcribe_long_batch(pipe.model, pipe.tokenizer, clip,
+                                     mesh=_world_of_one(tmp_path), **kw) == plain
+    finally:
+        torch.distributed.destroy_process_group()
     for accel in (dict(draft=(pipe.model, pipe.cfg, 2)),
                   dict(medusa=init_medusa_params(pipe.cfg, 2))):
         assert transcribe_long_batch(pipe.model, pipe.tokenizer, clip, **accel, **kw) == plain

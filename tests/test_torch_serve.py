@@ -9,9 +9,10 @@ sequential long-form with window info and words, the chunked route with an
 int16 upload, a bad option) and of a stream session's every call are equal,
 apart from ``latency_ms``. Then two concurrent posts land in one
 micro-batch, ``/health``, the audio-body decoders against the JAX ones, the
-A.9 flag raising before any weights load (the draft and Medusa flags going
-on to load them), and ``--medusa`` and ``--draft_model`` servers against the
-JAX server with the same heads or draft.
+draft, Medusa and ``--model_parallelism`` flags going on to load the
+weights, and ``--medusa`` and ``--draft_model`` servers against the JAX
+server with the same heads or draft (the server under a mesh is
+tests/test_torch_parallel_serving.py's).
 
 The model is ``tiny_test_config`` with the real 30 s window; the JAX
 engine's log-mel is its jnp frontend, the port's the mel kernel's plain
@@ -257,11 +258,12 @@ def test_audio_body_decoders_match_jax():
 
 @pytest.mark.parametrize("argv,item", [(["--draft_model", "tiny.en"], None),
                                        (["--medusa", "medusa.npz"], None),
-                                       (["--model_parallelism", "2"], "A.9")],
+                                       (["--model_parallelism", "2"], None)],
                          ids=["draft_model", "medusa", "model_parallelism"])
 def test_unported_serve_flags_raise_before_loading(argv, item, tmp_path):
-    # the checkpoint does not exist: a flag not ported is refused before it
-    # is read; the draft and Medusa flags, ported since, go on to read it
+    # the checkpoint does not exist: a flag not ported would be refused
+    # before it is read; the draft, Medusa and model-parallelism flags,
+    # ported since, go on to read it
     argv = ["--init_checkpoint", str(tmp_path / "none.safetensors"), "--device", "cpu", *argv]
     if item is None:
         with pytest.raises(FileNotFoundError, match="none"):

@@ -16,7 +16,6 @@ import wave
 from typing import Callable
 
 import numpy as np
-from scipy.signal import resample_poly
 
 # Optional decoders for non-WAV containers, keyed by lowercase extension.
 # Signature: path -> (float32 samples (channels, n) or (n,), sample_rate).
@@ -55,6 +54,8 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     if orig_sr == target_sr:
         return audio
     from math import gcd
+
+    from scipy.signal import resample_poly  # seconds to import: only when resampling
 
     g = gcd(orig_sr, target_sr)
     return resample_poly(audio, target_sr // g, orig_sr // g, axis=-1).astype(np.float32)

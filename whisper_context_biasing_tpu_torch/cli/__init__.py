@@ -18,9 +18,10 @@ the three ``scripts/check_*.py`` harnesses)::
     python -m whisper_context_biasing_tpu_torch.cli.check_data_loader --bias_list ...
 
 Each module has ``parse_args(argv=None)`` and ``main(argv=None)`` and runs
-nothing at import. ``train``, ``evaluation`` and ``transcribe`` run data
-and tensor parallelism with one process per card, launched by ``torchrun``
-(``parallel.initialize_multihost`` reads its variables)::
+nothing at import. ``train``, ``evaluation``, ``transcribe`` and ``serve``
+run data and tensor parallelism with one process per card, launched by
+``torchrun`` (``parallel.initialize_multihost`` reads its variables; the
+server's ranks keep in step by the protocol in ``cli/serve.py``)::
 
     torchrun --nproc_per_node 4 -m whisper_context_biasing_tpu_torch.cli.train \
         --model_parallelism 2 ...   # data 2 x model 2
@@ -31,8 +32,8 @@ tensor parallelism over groups of N, 0 none; ``transcribe`` meshes as
 ``Pipeline``'s default (1). Rank 0 alone writes files. Deviations from the
 JAX scripts: ``--device`` (every entry point that runs a model; default
 ``cuda``, ``cpu`` for tests), a data axis that does not divide ``--batch``
-raises (JAX shrinks it, leaving chips idle), ``distill`` and ``serve`` run on
-one device (``--model_parallelism`` > 1 raises until ROADMAP A.9), and the
+raises (JAX shrinks it, leaving chips idle), ``distill`` runs on one device
+(``--model_parallelism`` > 1 raises until ROADMAP Queue A.9), and the
 port's seeded init without a checkpoint (the JAX init's distributions,
 other numbers). Flags whose modules are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item before any data is read.
@@ -46,9 +47,9 @@ def not_ported(what: str, item: str):
 
 
 def check_model_parallelism(model_parallelism: int) -> None:
-    """``--model_parallelism`` of ``distill`` and ``serve``: 0 and 1 run on
-    one device (what JAX's 1 does with one visible card); a tensor-parallel
-    degree raises."""
+    """``--model_parallelism`` of ``distill``: 0 and 1 run on one device
+    (what JAX's 1 does with one visible card); a tensor-parallel degree
+    raises."""
     if model_parallelism > 1:
         not_ported(f"--model_parallelism {model_parallelism} (tensor parallelism)", "A.9")
 

@@ -37,25 +37,66 @@ counters are updated by one thread at a time. ``--device`` defaults to
 Greedy decoding runs speculatively with the same output on every route:
 ``--draft_model`` (``--draft_checkpoint``, ``--spec_k``; long-form and
 streams only with the target's ``n_mels``) or ``--medusa medusa.npz``
-(``--medusa_chains``), which wins over a draft. ``--model_parallelism > 1``
-raises naming ROADMAP Queue A.9 before any weights load.
+(``--medusa_chains``), which wins over a draft.
+
+Several cards: one process a card, launched by ``torchrun``, with
+``--model_parallelism`` as in JAX (1: the micro-batches' rows over "data"
+on every card; N > 1: (data, model) with the weights, and a draft's, over
+groups of N; 0: rank 0 alone)::
+
+    torchrun --nproc_per_node 4 -m whisper_context_biasing_tpu_torch.cli.serve \
+        --model_parallelism 2 --port 8080 ...
+
+JAX drives every chip from one process; the port is SPMD, so the ranks keep
+in step by a protocol of their own:
+
+  * rank 0 alone binds the socket and runs the handler threads, the
+    micro-batch worker and the stream table's bookkeeping; ranks > 0 run
+    ``Engine.follow()``;
+  * every device task (a short-form batch, a long-form or chunked batch, a
+    stream's opening, feed and end, the warm-up batch, dropping idle
+    streams) is broadcast by rank 0 while it holds ``device_lock``, as its
+    method's name and its numpy or plain-Python arguments, over a gloo
+    group of its own (``torch.distributed.broadcast_object_list``), and
+    then run by every rank: all ranks run the same calls in the same order,
+    and every rank holds every stream session's state;
+  * a request that validation refuses (``_validate_opt``, audio that does
+    not decode, too many streams) is refused on rank 0 before anything is
+    broadcast, and so is a feed or end of a session that is unknown once
+    rank 0 holds ``device_lock`` (another call ended it, or it was reaped,
+    while this one waited: 404, on one device too);
+  * while no request comes, rank 0 broadcasts a no-op every
+    ``HEARTBEAT_S`` seconds, so a waiting rank hears from it within the
+    process group's timeout (``DIST_TIMEOUT_S``);
+  * a failure of a device task on any rank ends that rank's process with a
+    non-zero code, and a rank waiting on a peer that died fails when the
+    process group's timeout expires: no rank catches such a failure and
+    goes on;
+  * ``Engine.close()`` (SIGTERM or SIGINT to rank 0) broadcasts the
+    shutdown; ranks > 0 ignore those signals, leave their loop on it, and
+    every rank exits 0.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import io
 import json
+import os
 import queue
+import signal
 import sys
 import threading
 import time
+import traceback
 import uuid
 import wave
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..audio import pad_or_trim, pcm_to_float32, resample, select_mel_frontend
@@ -84,9 +125,13 @@ from ..models import (
 )
 from ..models.convert import params_from_jax
 from ..models.whisper import encode_audio
+from ..parallel import auto_mesh, initialize_multihost, shard_params
 from ..tokenizer import LANGUAGES, load_tokenizer
 from ..utils import RtfMeter, warn_missing_assets
-from . import check_model_parallelism
+from . import report_devices
+
+HEARTBEAT_S = 10.0  # rank 0's no-op broadcast while idle (ranks > 0 wait on it)
+DIST_TIMEOUT_S = 600.0  # a rank waiting this long on a collective fails
 
 
 def parse_args(argv=None):
@@ -117,7 +162,9 @@ def parse_args(argv=None):
     p.add_argument("--bias_words", nargs="*", default=None, help="server-wide default bias words")
     p.add_argument("--bias_boost", type=float, default=0.0)
     p.add_argument("--model_parallelism", type=int, default=1,
-                   help="0 or 1: one device (a tensor-parallel degree is not ported yet)")
+                   help="under torchrun: 1 shards each batch's rows over every process "
+                        "(data parallel), N > 1 a (data, model) mesh with the weights over "
+                        "groups of N, 0 rank 0 alone")
     p.add_argument("--long_chunked", action="store_true",
                    help="serve >30 s requests with the chunked decoder (all windows of a "
                         "request batch in --chunked_batch decode calls)")
@@ -148,28 +195,26 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def check_ported(args) -> None:
-    """Raise for a flag whose module is not ported yet, before any weights load."""
-    check_model_parallelism(args.model_parallelism)
-
-
 def _nan_off(x):
     return None if x is None or x != x else x
 
 
 class Engine:
-    """The model on one device, and the micro-batching worker. ``config``
-    and ``params`` (the JAX package's params tree as numpy arrays) replace
-    what ``args`` would load, and ``draft_config`` and ``draft_params`` what
-    ``--draft_model`` would; ``warmup`` runs one silent batch before the
-    first request. ``batches`` lists the real requests of each micro-batch
-    the worker ran."""
+    """The model on one device, or this rank's shard of it, and (on rank 0)
+    the micro-batching worker. ``config`` and ``params`` (the JAX package's
+    params tree as numpy arrays) replace what ``args`` would load, and
+    ``draft_config`` and ``draft_params`` what ``--draft_model`` would;
+    ``warmup`` runs one silent batch before the first request.
+    ``batches`` lists the real requests of each micro-batch the worker ran.
+
+    In a process group of several ranks (the caller initialized it) with a
+    mesh, every rank builds an ``Engine``; rank 0 serves and the others
+    call ``follow()`` (the module's docstring has the protocol)."""
 
     MAX_SPANS = (16, 16)  # bias spans padded to one shape for every request
 
     def __init__(self, args, *, config=None, params=None, draft_config=None,
                  draft_params=None, warmup: bool = True):
-        check_ported(args)
         self.args = args
         self.device = resolve_device(args.device)
         self.tokenizer = load_tokenizer(args.vocab, args.merges,
@@ -193,6 +238,18 @@ class Engine:
                 args.draft_model, args.draft_checkpoint,
                 overrides=FAST_OVERRIDES if fast else {}, target_cfg=self.cfg,
                 cfg=draft_config, params=draft_params, device=self.device)
+        # the mesh: the weights (and the draft's) over "model", each batch's
+        # rows over "data"; every rank of the group takes part
+        self.mesh = auto_mesh(args.model_parallelism)
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.tasks = None  # the gloo group rank 0 broadcasts device tasks over
+        if self.mesh is not None:
+            report_devices(self.device, self.mesh)
+            self.model = shard_params(self.model, self.mesh)
+            if self.draft is not None:
+                self.draft = shard_params(self.draft, self.mesh)
+            self.tasks = dist.new_group(backend="gloo", timeout=datetime.timedelta(
+                seconds=DIST_TIMEOUT_S))
         self.frontend = select_mel_frontend()
         self.rtf = RtfMeter()
         self.collator = SpeechSeq2SeqCollator(
@@ -206,19 +263,77 @@ class Engine:
         self.q: queue.Queue = queue.Queue()
         self.streams: dict = {}
         self.streams_lock = threading.Lock()
+        if self.rank != 0:  # a follower: its tasks come from rank 0
+            return
+        self.last_task = time.monotonic()
+        self.closing = threading.Event()
         self.worker = threading.Thread(target=self._worker, daemon=True)
         self.worker.start()
+        if self.tasks is not None:
+            self.heartbeat = threading.Thread(target=self._heartbeat, daemon=True)
+            self.heartbeat.start()
         if warmup:
             print("warming up...", file=sys.stderr)
             with self.device_lock:
-                self._run([np.zeros(16000, np.float32)] * args.batch, [None] * args.batch,
-                          [None] * args.batch)
+                self._task("_run", [np.zeros(16000, np.float32)] * args.batch,
+                           [None] * args.batch, [None] * args.batch)
             print("ready", file=sys.stderr)
 
     def close(self) -> None:
-        """Stop the worker after the batches already queued."""
+        """Stop the worker after the batches already queued; under a mesh,
+        then tell the other ranks to leave ``follow()``."""
         self.q.put(None)
         self.worker.join()
+        if self.tasks is not None:
+            self.closing.set()
+            with self.device_lock:
+                self._broadcast("_shutdown")
+            self.heartbeat.join()
+
+    # -- the ranks' protocol (the module's docstring) ----------------------
+
+    def _broadcast(self, name: str, *args) -> None:
+        dist.broadcast_object_list([(name, args)], src=0, group=self.tasks,
+                                   device=torch.device("cpu"))
+        self.last_task = time.monotonic()
+
+    def _task(self, name: str, *args):
+        """Run the device task ``name`` here and, under a mesh, on every
+        other rank first told to (the caller holds ``device_lock``). A
+        failure under a mesh ends the process: the ranks are out of step."""
+        if self.tasks is None:
+            return getattr(self, name)(*args)
+        self._broadcast(name, *args)
+        try:
+            return getattr(self, name)(*args)
+        except Exception:
+            traceback.print_exc()
+            print(f"rank {self.rank}: device task {name} failed; exiting", file=sys.stderr,
+                  flush=True)
+            os._exit(1)
+
+    def _heartbeat(self) -> None:
+        while not self.closing.wait(HEARTBEAT_S / 4):
+            if time.monotonic() - self.last_task < HEARTBEAT_S:
+                continue
+            with self.device_lock:
+                if not self.closing.is_set():
+                    self._broadcast("_ping")
+
+    def _ping(self) -> None:
+        pass
+
+    def follow(self) -> None:
+        """Ranks > 0: run every device task rank 0 broadcasts, in its order,
+        until its shutdown. Any failure propagates (the process exits)."""
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0, group=self.tasks,
+                                       device=torch.device("cpu"))
+            name, args = box[0]
+            if name == "_shutdown":
+                return
+            getattr(self, name)(*args)
 
     def mel(self, audio, n_mels: int | None = None) -> torch.Tensor:
         return self.frontend(torch.as_tensor(audio, dtype=torch.float32, device=self.device),
@@ -288,7 +403,8 @@ class Engine:
             enc = encode_audio(self.model, mel)  # shared by language id and alignment
         starts, langs = self._starts_for(mel, opts, enc_out=enc)
         kwargs = dict(contexts=ctx, max_new=self.args.max_tokens, bias_spans=spans,
-                      bias_boost=self.args.bias_boost, starts=starts, device=self.device)
+                      bias_boost=self.args.bias_boost, starts=starts, device=self.device,
+                      mesh=self.mesh)
         if self.args.num_beams > 1:
             hyps = beam_decode_batch(self.model, tok, mel, num_beams=self.args.num_beams,
                                      **kwargs)
@@ -377,15 +493,13 @@ class Engine:
             max_batch=self.args.chunked_batch, pad_batches=True, start_tokens=start_tokens,
             num_beams=self.args.num_beams, vad=self.args.vad, return_segments=want_words,
             word_timestamps=want_words, return_window_info=want_info, medusa=self.medusa,
-            draft=self._long_draft(), device=self.device)
+            draft=self._long_draft(), mesh=self.mesh, device=self.device)
         return self._long_results(out, n, audios, opts, langs, want_words, want_info)
 
     @torch.no_grad()
     def _run_long(self, audios, contexts, bias_word_lists, opts=None):
         """Requests over 30 s: the sequential-window seek loop, the batch
         padded to --batch with silence (the caller holds ``device_lock``)."""
-        if self.args.long_chunked:
-            return self._run_long_chunked(audios, contexts, bias_word_lists, opts)
         bs = self.args.batch
         n = len(audios)
         opts = (opts or [{} for _ in range(n)]) + [{}] * (bs - n)
@@ -405,7 +519,7 @@ class Engine:
             logprob_threshold=lp, prefix_pad_to_multiple=32, start_tokens=start_tokens,
             return_segments=want_words, word_timestamps=want_words,
             num_beams=self.args.num_beams, vad=self.args.vad, return_window_info=want_info,
-            medusa=self.medusa, draft=self._long_draft(), device=self.device)
+            medusa=self.medusa, draft=self._long_draft(), mesh=self.mesh, device=self.device)
         return self._long_results(out, n, audios, opts, langs, want_words, want_info)
 
     # -- streaming sessions (decode/streaming.py) -------------------------
@@ -415,8 +529,16 @@ class Engine:
         outside the micro-batch queue, under ``device_lock``. Language options
         as for /transcribe: a code forces it, "auto" (or translate without a
         code) detects on the first window."""
-        opt = opt or {}
         self._reap_streams()
+        sid = uuid.uuid4().hex[:16]
+        with self.device_lock:
+            with self.streams_lock:
+                if len(self.streams) >= self.args.max_streams:
+                    raise RuntimeError(f"too many active streams (max {self.args.max_streams})")
+            self._task("_open_stream", sid, context, bias_words, opt or {})
+        return sid
+
+    def _open_stream(self, sid, context, bias_words, opt) -> None:
         tok = self.tokenizer
         spans = None
         words = bias_words if bias_words is not None else self.args.bias_words
@@ -434,20 +556,27 @@ class Engine:
             task=opt.get("task", "transcribe") if tok.multilingual else "transcribe",
             word_timestamps=bool(opt.get("words")), vad=self.args.vad, medusa=self.medusa,
             draft=None if self.medusa is not None else self._long_draft(), device=self.device)
-        sid = uuid.uuid4().hex[:16]
         with self.streams_lock:
-            if len(self.streams) >= self.args.max_streams:
-                raise RuntimeError(f"too many active streams (max {self.args.max_streams})")
             self.streams[sid] = [st, threading.Lock(), time.time()]
-        return sid
 
     def _reap_streams(self):
         """Drop sessions idle past the TTL (an abandoned client's buffered
-        audio and history would stay forever)."""
-        cutoff = time.time() - self.args.stream_ttl
+        audio and history would stay forever), on every rank."""
+        def idle():
+            cutoff = time.time() - self.args.stream_ttl
+            with self.streams_lock:
+                return [s for s, rec in self.streams.items() if rec[2] < cutoff]
+
+        if idle():
+            with self.device_lock:  # a call may have touched one meanwhile
+                sids = idle()
+                if sids:
+                    self._task("_drop_streams", sids)
+
+    def _drop_streams(self, sids) -> None:
         with self.streams_lock:
-            for sid in [s for s, rec in self.streams.items() if rec[2] < cutoff]:
-                del self.streams[sid]
+            for sid in sids:
+                self.streams.pop(sid, None)
 
     def _stream(self, sid):
         with self.streams_lock:
@@ -457,19 +586,27 @@ class Engine:
             rec[2] = time.time()
             return rec
 
+    def _stream_task(self, name: str, sid, *args):
+        """The session's device task ``name``, if the session is still open
+        once ``device_lock`` is held (a concurrent end or the reaper may have
+        closed it since ``_stream``): else KeyError, before any broadcast."""
+        with self.device_lock:
+            with self.streams_lock:
+                if sid not in self.streams:
+                    raise KeyError(f"unknown stream session: {sid}")
+            return self._task(name, sid, *args)
+
     @staticmethod
     def _segment_dicts(segs):
         return [{"start": round(a, 3), "end": None if e is None else round(e, 3),
                  "text": t.strip()} for a, e, t in segs]
 
-    @torch.no_grad()
     def stream_feed(self, sid, audio):
         self._reap_streams()  # abandoned sessions go even if no stream starts
         st, lock, _ = self._stream(sid)
         with lock:
             n_words = len(st.words)
-            with self.device_lock:
-                segs = st.feed(audio)
+            segs = self._stream_task("_feed_stream", sid, audio)
             out = {"segments": self._segment_dicts(segs),
                    "buffered_seconds": round(st.buffered_samples / 16000, 2)}
             if st.word_timestamps:
@@ -479,20 +616,28 @@ class Engine:
             return out
 
     @torch.no_grad()
+    def _feed_stream(self, sid, audio):
+        rec = self.streams.get(sid)  # rank 0 checked it under device_lock
+        return [] if rec is None else rec[0].feed(audio)
+
     def stream_end(self, sid):
         st, lock, _ = self._stream(sid)
         with lock:
             n_words = len(st.words)
-            with self.device_lock:
-                segs = st.finish()
+            segs = self._stream_task("_finish_stream", sid)
             out = {"segments": self._segment_dicts(segs), "text": st.text}
             if st.word_timestamps:
                 out["words"] = self._word_dicts(st.words[n_words:])
             if st.language:
                 out["language"] = st.language
-        with self.streams_lock:
-            self.streams.pop(sid, None)
         return out
+
+    @torch.no_grad()
+    def _finish_stream(self, sid):
+        """The session's tail; the session is closed on every rank."""
+        rec = self.streams.get(sid)  # rank 0 checked it under device_lock
+        self._drop_streams([sid])
+        return [] if rec is None else rec[0].finish()
 
     # -- the micro-batch queue --------------------------------------------
 
@@ -541,10 +686,11 @@ class Engine:
             t0 = time.time()
             try:
                 with self.device_lock:
-                    if long_form:
-                        results = self._run_long(audios[:n], ctxs[:n], words[:n], opts[:n])
+                    if long_form:  # the route rank 0 takes, named to every rank
+                        route = "_run_long_chunked" if self.args.long_chunked else "_run_long"
+                        results = self._task(route, audios[:n], ctxs[:n], words[:n], opts[:n])
                     else:
-                        results = self._run(audios, ctxs, words, opts)
+                        results = self._task("_run", audios, ctxs, words, opts)
                 self.rtf.add(audio_s, time.time() - t0)
                 self.batches.append(n)
                 for (_, _, _, _, done, box), res in zip(batch, results[:n]):
@@ -716,18 +862,52 @@ def make_handler(engine: Engine):
 
 def make_server(args, **engine_kwargs) -> tuple[Engine, ThreadingHTTPServer]:
     """The engine and its HTTP server bound to ``--host``:``--port`` (0
-    picks a free port: ``server.server_address[1]``), not yet serving."""
+    picks a free port: ``server.server_address[1]``), not yet serving. Rank
+    0's alone: under a mesh the other ranks build an ``Engine`` and
+    ``follow()`` it."""
     engine = Engine(args, **engine_kwargs)
     return engine, ThreadingHTTPServer((args.host, args.port), make_handler(engine))
 
 
-def main(argv=None):
+def main(argv=None, **engine_kwargs) -> int:
+    """Serve until SIGTERM or SIGINT (rank 0), or follow rank 0 (the other
+    ranks of a ``torchrun`` launch); returns 0 after a clean shutdown.
+    ``engine_kwargs`` go to every rank's ``Engine`` (e.g. ``config``)."""
     args = parse_args(argv)
-    check_ported(args)
-    _, server = make_server(args)
-    print(f"serving on {args.host}:{server.server_address[1]}", file=sys.stderr)
-    server.serve_forever()
+    device = torch.device(args.device)
+    initialize_multihost(device=args.device,
+                         timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        if dist.is_initialized() and dist.get_rank() != 0:
+            # rank 0 decides when to stop: the signals a launcher sends every
+            # rank are its to act on
+            signal.signal(signal.SIGINT, signal.SIG_IGN)
+            signal.signal(signal.SIGTERM, signal.SIG_IGN)
+            engine = Engine(args, warmup=False, **engine_kwargs)
+            if engine.tasks is not None:
+                engine.follow()
+            return 0
+        engine, server = make_server(args, **engine_kwargs)
+        stop = threading.Event()
+
+        def on_signal(*_):
+            if not stop.is_set():
+                stop.set()
+                threading.Thread(target=server.shutdown, daemon=True).start()
+
+        signal.signal(signal.SIGTERM, on_signal)
+        signal.signal(signal.SIGINT, on_signal)
+        print(f"serving on {args.host}:{server.server_address[1]} ({device}, pid {os.getpid()})",
+              file=sys.stderr, flush=True)
+        server.serve_forever()
+        server.server_close()
+        engine.close()
+        print("shut down", file=sys.stderr, flush=True)
+        return 0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -21,8 +21,10 @@ Greedy decoding runs speculatively with the same output: ``--draft_model``
 (with ``--draft_checkpoint`` and ``--spec_k``) proposes with a draft model,
 ``--medusa medusa.npz`` (from ``cli.medusa``; ``--medusa_chains``) with
 Medusa heads, which win over a draft; in long-form they drive the t=0 rung.
-Under ``torchrun`` the short-form batch shards over "data" as ``Pipeline``'s
-default mesh does (the JAX script runs one device); rank 0 writes.
+Under ``torchrun`` every route (short-form, ``--long``, ``--chunked``, with
+a draft or Medusa heads) shards its batches over "data" as ``Pipeline``'s
+default mesh does, the draft too (the JAX script runs one device); rank 0
+writes.
 """
 
 from __future__ import annotations
@@ -65,7 +67,6 @@ from ..parallel.multihost import process_index
 from ..tokenizer import load_tokenizer
 from ..utils import warn_missing_assets
 from ..utils.subtitles import close_open_segments, format_srt, format_vtt, words_to_segments
-from . import not_ported
 
 
 def parse_args(argv=None):
@@ -260,8 +261,6 @@ def main(argv=None):
     device = resolve_device(args.device)
     # Pipeline's default mesh: data parallel over a multi-process launch
     mesh = auto_mesh(1)
-    if mesh is not None and (args.long or args.draft_model or args.medusa):
-        not_ported("--long, --draft_model and --medusa under a mesh", "A.9")
     tokenizer = load_tokenizer(args.vocab, args.merges,
                                multilingual=not args.model.endswith(".en"))
     fast = device.type == "cuda" and not args.exact
@@ -280,9 +279,10 @@ def main(argv=None):
                         n_mels=n_mels or cfg.n_mels)
 
     def draft_model():
-        return load_draft(args.draft_model, args.draft_checkpoint,
-                          overrides=FAST_OVERRIDES if fast else {}, target_cfg=cfg,
-                          device=device)
+        dmodel, dcfg = load_draft(args.draft_model, args.draft_checkpoint,
+                                  overrides=FAST_OVERRIDES if fast else {}, target_cfg=cfg,
+                                  device=device)
+        return (dmodel if mesh is None else shard_params(dmodel, mesh)), dcfg
 
     contexts = spans = None
     n = len(args.audio)
@@ -341,7 +341,8 @@ def main(argv=None):
             beam_early_stopping=args.beam_early_stopping,
             word_timestamps=args.word_timestamps, alignment_heads=heads,
             vad=parse_clip_timestamps(args.clip_timestamps) or args.vad,
-            return_window_info=args.window_info, medusa=medusa, draft=draft, device=device)
+            return_window_info=args.window_info, medusa=medusa, draft=draft, mesh=mesh,
+            device=device)
         if args.chunked:
             out = transcribe_chunked(model, tokenizer, raw, prefix_pad_to_multiple=32, **common)
         else:
@@ -389,12 +390,12 @@ def main(argv=None):
         elif args.medusa:
             hyps = medusa_decode_batch(model, load_medusa(args.medusa,
                                                           n_chains=args.medusa_chains),
-                                       tokenizer, mel, **kwargs)
+                                       tokenizer, mel, mesh=mesh, **kwargs)
         elif args.draft_model:
             dmodel, dcfg = draft_model()
             mel_d = make_mel(audio, n_mels=dcfg.n_mels) if dcfg.n_mels != cfg.n_mels else None
             hyps = speculative_decode_batch(dmodel, model, tokenizer, mel, k=args.spec_k,
-                                            input_features_draft=mel_d, **kwargs)
+                                            input_features_draft=mel_d, mesh=mesh, **kwargs)
         else:
             hyps = decode_batch(model, tokenizer, mel, mesh=mesh, **kwargs)
         audio_seconds = sum(true_lengths) / 16000

@@ -23,6 +23,15 @@ after each file, and gathers every batch's windows from it on the device
 through ``mel_fn`` (the mel kernel on a card) and the ladder of
 ``greedy_decode`` calls, each of which encodes the batch (the flash kernel)
 and decodes it (the int8 cross-attention kernel a step).
+``device_windows=False`` is the JAX package's host path: each batch's
+windows are cut in numpy and uploaded, then go through the same ``mel_fn``,
+for the same tokens.
+
+Under a (data, model) mesh every batch is padded with silent rows to a
+multiple of "data", and each rank cuts (or gathers) and turns into mel only
+its own share of the windows, so its mel kernel and encoder run on
+B / "data" windows; the decode gathers every row's tokens on every rank
+(``parallel.LocalRows``), and the ladder decides on them.
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ from .._device import resolve_device
 from ..audio.io import pcm_to_float32
 from ..audio.mel import N_SAMPLES, SAMPLE_RATE, select_mel_frontend
 from ..models.whisper import Whisper
+from ..parallel.mesh import DATA_AXIS, axis_index, axis_size
+from ..parallel.sharding import LocalRows, gather_rows
 from .greedy import greedy_decode, pack_prefixes
 from .speculative import t0_verified_decode
 from .long_form import (
@@ -206,6 +217,8 @@ def transcribe_chunked(
     alignment_heads: list[tuple[int, int]] | None = None,
     phase_times: dict | None = None,          # filled with upload_s, decode_s,
                                               # merge_s, n_windows (host clock)
+    device_windows: bool = True,              # gather windows on the device
+                                              # (default) or cut them on the host
     device="cuda",
 ):
     """Per-file token lists; with ``return_segments`` ``(tokens, segments)``,
@@ -223,10 +236,14 @@ def transcribe_chunked(
     with the target's ``n_mels``) drives the t=0 rung through
     ``t0_verified_decode`` (Medusa wins; beams win over both), with the same
     tokens as plain greedy; the timestamp rules are then off on every rung,
-    as in JAX. ``mesh`` is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded chunked decoding is not ported yet "
-                                  "(ROADMAP Queue A.9)")
+    as in JAX.
+
+    ``mesh``: each rank decodes its share of every window batch (see the
+    module docstring); ``model`` and a draft are this rank's shards
+    (``parallel.shard_params``) and every rank returns the whole result.
+    ``device_windows``: gather each batch's windows on the device from the
+    buffer uploaded once, or, False, cut them in numpy and upload each
+    batch (JAX's path under a mesh; the same tokens)."""
     device = resolve_device(device)
     if mel_fn is None:
         frontend, n_mels = select_mel_frontend(), model.cfg.n_mels
@@ -239,9 +256,9 @@ def transcribe_chunked(
         generator = torch.Generator(device=device).manual_seed(0)
 
     # int16 PCM crosses as int16 and is normalised on the device; a mix of
-    # dtypes normalises on the host
+    # dtypes, or the host path, normalises on the host
     audios = [np.asarray(a) for a in audios]
-    if not (audios and all(a.dtype == np.int16 for a in audios)):
+    if not (device_windows and audios and all(a.dtype == np.int16 for a in audios)):
         audios = [pcm_to_float32(a) for a in audios]
     nfiles = len(audios)
 
@@ -278,12 +295,13 @@ def transcribe_chunked(
     win_info: list[dict | None] = [None] * len(work)
 
     t_up = time.perf_counter()
-    if work:
+    if work and device_windows:
         buf, base, zero_off = _flat_audio_buffer(audios, window_samples, device)
         if phase_times is not None and device.type == "cuda":
             torch.cuda.synchronize(device)  # the copy is this phase's
     if phase_times is not None:
-        phase_times["upload_s"] = time.perf_counter() - t_up if work else 0.0
+        phase_times["upload_s"] = (time.perf_counter() - t_up
+                                   if work and device_windows else 0.0)
         phase_times["n_windows"] = len(work)
     t_dec = time.perf_counter()
     ns_id = tokenizer.no_speech if no_speech_threshold is not None else None
@@ -292,12 +310,30 @@ def transcribe_chunked(
     ts_begin = (tokenizer.timestamp_begin
                 if use_timestamps and medusa is None and draft is None else None)
 
+    dp = axis_size(mesh, DATA_AXIS)
     for lo in range(0, len(work), max_batch):
         batch = work[lo: lo + max_batch]
         nb_real = len(batch)
         nb = max_batch if pad_batches else nb_real
-        starts = [base[fi] + s for fi, s, _, _ in batch] + [zero_off] * (nb - nb_real)
-        mel = mel_fn(_gather_windows(buf, starts, window_samples))
+        nb = -(-nb // dp) * dp  # a share for each rank of "data"
+        # this rank's windows: all of them without a mesh
+        per, di = nb // dp, axis_index(mesh, DATA_AXIS)
+        mine = range(di * per, (di + 1) * per)
+        if device_windows:
+            starts = [base[fi] + s for fi, s, _, _ in batch] + [zero_off] * (nb - nb_real)
+            chunk = _gather_windows(buf, [starts[j] for j in mine], window_samples)
+        else:
+            host = np.zeros((len(mine), window_samples), np.float32)
+            for r, j in enumerate(mine):
+                if j < nb_real:
+                    fi, s, _, _ = batch[j]
+                    part = audios[fi][s: s + window_samples]
+                    host[r, : len(part)] = part
+            chunk = torch.from_numpy(host).to(device)
+        mel = mel_fn(chunk)
+        if mesh is not None:  # an injected decode_fn gets the whole batch
+            mel = torch.as_tensor(mel, device=device)
+            mel = LocalRows(mel) if decode_fn is None else gather_rows(mel, mesh)
 
         prefixes = [prefix_for(fi) for fi, _, _, _ in batch] + [[tokenizer.sot]] * (nb - nb_real)
         ids, mask = pack_prefixes(prefixes, tokenizer.eot, pad_to_multiple=prefix_pad_to_multiple)
@@ -322,7 +358,7 @@ def transcribe_chunked(
                     eot_id=tokenizer.eot, bias_spans=spans, bias_boost=bias_boost,
                     span_pad_id=tokenizer.eot, length_penalty=length_penalty,
                     early_stopping=beam_early_stopping, no_speech_id=ns_id,
-                    sot_offset=sot_off, timestamp_begin=ts_begin, device=device)
+                    sot_offset=sot_off, timestamp_begin=ts_begin, device=device, mesh=mesh)
                 return _best_beam_as_greedy(res, length_penalty, beam_early_stopping)
             if temperature == 0.0 and (medusa is not None or draft is not None):
                 if medusa is None and draft[1].n_mels != model.cfg.n_mels:
@@ -331,12 +367,12 @@ def transcribe_chunked(
                 return t0_verified_decode(
                     model, tokenizer, mel, ids, mask, max_new=max_new, spans=spans,
                     bias_boost=bias_boost, no_speech_id=ns_id, sot_offset=sot_off,
-                    medusa=medusa, draft=draft, device=device)
+                    medusa=medusa, draft=draft, device=device, mesh=mesh)
             return greedy_decode(
                 model, mel, ids, mask, max_new=max_new, eot_id=tokenizer.eot,
                 bias_spans=spans, bias_boost=bias_boost, span_pad_id=tokenizer.eot,
                 temperature=temperature, generator=gen, no_speech_id=ns_id,
-                sot_offset=sot_off, timestamp_begin=ts_begin, device=device)
+                sot_offset=sot_off, timestamp_begin=ts_begin, device=device, mesh=mesh)
 
         # the ladder over the whole batch; only failing real rows pend
         # (padding rows decode silence and must not drive retries)
@@ -400,8 +436,11 @@ def transcribe_chunked(
 
             act = [j for j in range(nb_real) if results[lo + j]]
             if act:
+                # every rank aligns every row: its own share's mel joined
+                # with the other ranks'
+                whole = gather_rows(mel.rows, mesh) if isinstance(mel, LocalRows) else mel
                 timings = find_word_timestamps(
-                    model, tokenizer, _mel_rows(mel, act), [results[lo + j] for j in act],
+                    model, tokenizer, _mel_rows(whole, act), [results[lo + j] for j in act],
                     starts=([list(start_tokens[batch[j][0]]) for j in act]
                             if start_tokens else None),
                     num_frames=[window_frames(len(audios[batch[j][0]]), batch[j][1],

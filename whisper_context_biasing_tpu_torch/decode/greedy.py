@@ -40,6 +40,7 @@ from ..models.whisper import (
     precompute_cross_kv,
     quantize_cross_kv,
 )
+from ..parallel.mesh import DATA_AXIS, axis_index
 from ..parallel.sharding import gather_rows, shard_decode_inputs
 from ..utils.compile_count import counted_jit
 from .bias_processor import (
@@ -129,13 +130,45 @@ def apply_timestamp_rules(
     return lg.masked_fill((ts_lp > max_txt)[:, None] & ~ts_cols, NEG)
 
 
-def sample_tokens(lg: torch.Tensor, temperature: float,
-                  generator: torch.Generator | None) -> torch.Tensor:
-    """One draw per row from ``softmax(lg / temperature)``. The draws are
-    torch's, so for one seed they differ from ``jax.random.categorical``'s;
-    the distribution is the same."""
+def sample_tokens(lg: torch.Tensor, temperature: float, u: torch.Tensor) -> torch.Tensor:
+    """One draw per row from ``softmax(lg / temperature)``, by the inverse
+    CDF of ``u`` (B,), uniforms in [0, 1) (``RowDraws``). A token of
+    probability 0 is never drawn. The draws are torch's, so for one seed
+    they differ from ``jax.random.categorical``'s; the distribution is the
+    same."""
     probs = torch.softmax(lg / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    cdf = torch.cumsum(probs, dim=-1)
+    # the first token whose CDF passes u: never a zero-probability one
+    pick = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None].contiguous(), right=True)[:, 0]
+    last = probs.shape[-1] - 1 - (probs > 0).flip(-1).to(torch.int32).argmax(dim=-1)
+    return torch.minimum(pick, last)
+
+
+def call_seed(generator: torch.Generator | None) -> int:
+    """The seed of one sampled decode call, drawn from the caller's
+    generator (0 without one): one draw a call, so every rank of a mesh
+    draws the same seed however long its loops ran."""
+    if generator is None:
+        return 0
+    return int(torch.randint(0, 2 ** 62, (1,), generator=generator, device=generator.device))
+
+
+class RowDraws:
+    """The uniforms of a sampled decode: at step t, the t-th draw of
+    ``n_global`` values from a generator seeded with the call's seed, of
+    which the rows ``row_offset ..`` are this call's (rows past the global
+    batch, a mesh's padding, take the last row's). So a row's draw depends on
+    the seed, the step and its index in the whole batch, never on the rank
+    that holds it; rows do not share uniforms."""
+
+    def __init__(self, seed: int, b: int, row_offset: int, n_global: int | None, device):
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.n = n_global or b
+        self.rows = torch.clamp(torch.arange(b, device=device) + row_offset, max=self.n - 1)
+        self.device = device
+
+    def next(self) -> torch.Tensor:
+        return torch.rand(self.n, generator=self.gen, device=self.device)[self.rows]
 
 
 def sot_offsets(sot_offset, b: int, device) -> torch.Tensor:
@@ -173,17 +206,25 @@ def _as_tensor(x, device, dtype=None):
     return torch.as_tensor(np.asarray(x), device=device, dtype=dtype)
 
 
-def decode_on_mesh(decode, mesh, model, input_features, prefix_ids, prefix_mask, kw: dict):
+def decode_on_mesh(decode, mesh, model, input_features, prefix_ids, prefix_mask, kw: dict,
+                   draws: bool = False):
     """``decode(model, feats, ids, mask, **kw)`` on this rank's rows: the
     batch (and every per-row argument of ``kw``: bias spans, forced-eot
-    caps, per-row sot offsets) padded to a multiple of "data" by repeating
-    its first row and split (``shard_decode_inputs``); each tensor of the
-    result gathered over "data" on every rank and the padding stripped."""
-    rows = {k: kw[k] for k in ("bias_spans", "forced_eot_at", "sot_offset")
+    caps, per-row sot offsets, a draft's own mel) padded to a multiple of
+    "data" by repeating its first row and split (``shard_decode_inputs``;
+    an input given as ``LocalRows`` is already split); each tensor of the
+    result gathered over "data" on every rank and the padding stripped.
+    ``draws``: ``decode`` takes ``row_offset`` and ``global_rows``, the
+    rank's first row and the batch size, for its random draws."""
+    rows = {k: kw[k] for k in ("bias_spans", "forced_eot_at", "sot_offset",
+                               "input_features_draft")
             if kw.get(k) is not None and np.ndim(kw[k]) >= 1}
     (feats, ids, mask, *local), b = shard_decode_inputs(
         mesh, input_features, prefix_ids, prefix_mask, *rows.values())
-    res = decode(model, feats, ids, mask, **{**kw, **dict(zip(rows, local))})
+    kw = {**kw, **dict(zip(rows, local))}
+    if draws:
+        kw.update(row_offset=axis_index(mesh, DATA_AXIS) * ids.shape[0], global_rows=b)
+    res = decode(model, feats, ids, mask, **kw)
     return type(res)(*(gather_rows(f, mesh, b) if isinstance(f, torch.Tensor) else f
                        for f in res))
 
@@ -222,7 +263,7 @@ def greedy_decode(
           if k not in ("model", "input_features", "prefix_ids", "prefix_mask", "mesh")}
     if mesh is not None:
         return decode_on_mesh(_greedy_decode, mesh, model, input_features, prefix_ids,
-                              prefix_mask, kw)
+                              prefix_mask, kw, draws=True)
     return _greedy_decode(model, input_features, prefix_ids, prefix_mask, **kw)
 
 
@@ -249,14 +290,18 @@ def _greedy_decode(
     timings: dict | None = None,  # filled with encode_ms, prefill_ms,
                                   # decode_ms and steps when given
     return_margins: bool = False,
+    row_offset: int = 0,          # under a mesh: this rank's first row and
+    global_rows: int | None = None,  # the whole batch (decode_on_mesh)
 ) -> GreedyResult:
     """Batched greedy decode. The prefix must end with the token the model
     should continue from (``[<|sot|>]``, or ``[<|sop|>, ctx..., <|sot|>]``
     for prompted decode). Returns tokens, lengths and summed logprobs.
 
-    ``temperature > 0`` samples from ``softmax(logits / temperature)`` with
-    ``generator`` (a ``torch.Generator`` on the decode device; seed 0 when
-    None); the draws differ from ``jax.random``'s for one seed.
+    ``temperature > 0`` samples from ``softmax(logits / temperature)``: the
+    call draws its seed from ``generator`` (a ``torch.Generator``; seed 0
+    when None) and each step's uniforms from it (``RowDraws``), so a row's
+    draw does not depend on how a mesh shards the batch; the draws differ
+    from ``jax.random``'s for one seed.
     ``suppress_tokens`` are masked every step. ``no_speech_id`` adds
     ``no_speech_prob`` from the prefill logits ``sot_offset`` tokens from the
     end of the prefix (1 for ``[<|sot|>]``, 3 for ``[sot, lang, task]``; a
@@ -312,8 +357,8 @@ def _greedy_decode(
                if return_margins else None)
     suppress = (torch.as_tensor(suppress_tokens, dtype=torch.int64, device=device)
                 if suppress_tokens else None)
-    if temperature > 0.0 and generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+    row_draws = (RowDraws(call_seed(generator), b, row_offset, global_rows, device)
+                 if temperature > 0.0 else None)
 
     def pick(lg, state, t, ts_state):
         lg = lg.float()
@@ -326,7 +371,7 @@ def _greedy_decode(
                 lg, *ts_state, timestamp_begin=timestamp_begin, eot_id=eot_id, is_first=t == 0,
                 max_initial_timestamp_index=max_initial_timestamp_index)
         if temperature > 0.0:
-            nxt = sample_tokens(lg, temperature, generator)
+            nxt = sample_tokens(lg, temperature, row_draws.next())
         else:
             nxt = torch.argmax(lg, dim=-1)
         logp = torch.log_softmax(lg, dim=-1).gather(1, nxt[:, None])[:, 0]

@@ -19,7 +19,9 @@ sequential decoding with the robustness rules of OpenAI's long-form loop.
 
 The current windows of all files decode together as one batch; per-file
 histories ride the left-padded prefixes. Sampling draws from one
-``torch.Generator`` on the decode device (JAX splits one PRNG key).
+``torch.Generator`` on the decode device (JAX splits one PRNG key): each
+decode call draws its seed from it. Under a mesh each window call's file
+batch shards over "data" and the ladder decides on the gathered result.
 """
 
 from __future__ import annotations
@@ -155,9 +157,10 @@ def _content_tokens(tokens: list[int], tokenizer) -> list[int]:
 
 def sample_best_of(call, temperature: float, generator, n: int) -> GreedyResult:
     """OpenAI's ``best_of`` rule for a sampled rung: ``n`` samples of the
-    whole batch, one after another from one generator, keeping per row the
-    candidate with the highest average token logprob (``sum/(len+1)``, the
-    ladder's ranking). ``call(temperature, generator) -> GreedyResult`` must
+    whole batch, one after another from one generator (each call draws its
+    own seed from it, so every rank of a mesh draws the same ones), keeping
+    per row the candidate with the highest average token logprob
+    (``sum/(len+1)``, the ladder's ranking). ``call(temperature, generator) -> GreedyResult`` must
     fill ``sum_logprob``; without it every sample ties at zero and the first
     one wins."""
     best: list | None = None
@@ -254,10 +257,15 @@ def transcribe_long_batch(
     the draft with the target's ``n_mels``: ``mel_fn`` is shared) drives the
     t=0 rung through ``t0_verified_decode`` (Medusa wins), with the same
     tokens as plain greedy; the timestamp rules are then off on every rung,
-    as in JAX. ``mesh`` is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded long-form decoding is not ported yet "
-                                  "(ROADMAP Queue A.9)")
+    as in JAX.
+
+    ``mesh``: each window call's file batch shards over "data" (with its
+    bias spans and per-row sot offsets; ``model`` and a draft are this
+    rank's shards, ``parallel.shard_params``) and every rank gets the whole
+    result, so every rank takes the ladder's decisions (quality, silence,
+    seeks, the next prompts) on the same numbers and makes the same calls.
+    Sampled rungs draw each row's uniforms by its index in the batch
+    (``greedy.RowDraws``): the same tokens as without the mesh."""
     device = resolve_device(device)
     if mel_fn is None:
         n_mels = model.cfg.n_mels
@@ -283,18 +291,18 @@ def transcribe_long_batch(
                     eot_id=tokenizer.eot, bias_spans=bias_spans, bias_boost=bias_boost,
                     span_pad_id=tokenizer.eot, length_penalty=length_penalty,
                     early_stopping=beam_early_stopping, no_speech_id=ns_id,
-                    sot_offset=sot_off, timestamp_begin=ts_begin, device=device)
+                    sot_offset=sot_off, timestamp_begin=ts_begin, device=device, mesh=mesh)
                 return _best_beam_as_greedy(res, length_penalty, beam_early_stopping)
             if temperature == 0.0 and (medusa is not None or draft is not None):
                 return t0_verified_decode(
                     model, tokenizer, mel, ids, mask, max_new=max_new, spans=bias_spans,
                     bias_boost=bias_boost, no_speech_id=ns_id, sot_offset=sot_off,
-                    medusa=medusa, draft=draft, device=device)
+                    medusa=medusa, draft=draft, device=device, mesh=mesh)
             return greedy_decode(
                 model, mel, ids, mask, max_new=max_new, eot_id=tokenizer.eot,
                 bias_spans=bias_spans, bias_boost=bias_boost, span_pad_id=tokenizer.eot,
                 temperature=temperature, generator=gen, no_speech_id=ns_id,
-                sot_offset=sot_off, timestamp_begin=ts_begin, device=device)
+                sot_offset=sot_off, timestamp_begin=ts_begin, device=device, mesh=mesh)
     # the words are reachable only through (tokens, segments, words)
     word_timestamps = word_timestamps and return_segments
     if not temperatures:

@@ -31,13 +31,52 @@ from ..models.whisper import Whisper, decode_tokens
 from ..utils.compile_count import counted_jit
 from .beam import top_k
 from .bias_processor import BiasTrieState, sanitize_bias_spans
-from .greedy import Clock, GreedyResult, _as_tensor, build_prefixes, pack_prefixes
+from .greedy import (
+    Clock,
+    GreedyResult,
+    _as_tensor,
+    build_prefixes,
+    decode_on_mesh,
+    pack_prefixes,
+)
 from .speculative import _Bias, _no_speech, _pick, _Prefill, _Rounds, accept_run
 
 
 @counted_jit
-@torch.no_grad()
 def medusa_greedy_decode(
+    params: Whisper,
+    medusa: dict,
+    input_features,
+    prefix_ids,
+    prefix_mask,
+    max_new: int = 224,
+    eot_id: int = 50256,
+    bias_spans=None,
+    bias_boost: float = 0.0,
+    span_pad_id: int = 50256,
+    no_speech_id: int | None = None,
+    sot_offset=1,
+    n_chains: int = 1,
+    device="cuda",
+    timings: dict | None = None,
+    mesh=None,
+) -> GreedyResult:
+    """Medusa greedy decode (``_medusa_greedy_decode`` has the arguments).
+    ``mesh``: the rows shard over "data" (``decode_on_mesh``), ``params`` is
+    this rank's shard and the heads are whole on every rank (their logits
+    gather the vocabulary over "model" in ``project_vocab``); the result is
+    the whole batch's on every rank, ``spec_rounds`` this rank's."""
+    kw = {k: v for k, v in locals().items()
+          if k not in ("params", "medusa", "input_features", "prefix_ids", "prefix_mask",
+                       "mesh")}
+    if mesh is not None:
+        return decode_on_mesh(lambda m, *a, **k: _medusa_greedy_decode(m, medusa, *a, **k),
+                              mesh, params, input_features, prefix_ids, prefix_mask, kw)
+    return _medusa_greedy_decode(params, medusa, input_features, prefix_ids, prefix_mask, **kw)
+
+
+@torch.no_grad()
+def _medusa_greedy_decode(
     params: Whisper,
     medusa: dict,                 # models/medusa.py heads {"w": (K, d, d), "b": (K, d)}
     input_features,               # (B, n_mels, T) f32
@@ -185,9 +224,11 @@ def medusa_decode_batch(
     starts: list[list[int]] | None = None,
     device="cuda",
     timings: dict | None = None,
+    mesh=None,
 ) -> list[list[int]]:
     """Host-side convenience mirroring ``greedy.decode_batch``; the heads'
-    ``n_chains`` setting (``load_medusa``) picks the chain width."""
+    ``n_chains`` setting (``load_medusa``) picks the chain width. ``mesh``
+    shards the rows over "data" (``medusa_greedy_decode``)."""
     b = input_features.shape[0]
     prefixes = build_prefixes(tokenizer, b, contexts, starts)
     ids, mask = pack_prefixes(prefixes, tokenizer.eot, pad_to_multiple=pad_to_multiple)
@@ -195,7 +236,7 @@ def medusa_decode_batch(
     res = medusa_greedy_decode(
         params, heads, input_features, ids, mask, max_new=max_new, eot_id=tokenizer.eot,
         n_chains=n_chains, bias_spans=sanitize_bias_spans(bias_spans), bias_boost=bias_boost,
-        span_pad_id=tokenizer.eot, device=device, timings=timings)
+        span_pad_id=tokenizer.eot, device=device, timings=timings, mesh=mesh)
     toks = res.tokens.cpu().numpy()
     lens = res.lengths.cpu().numpy()
     return [toks[i, : lens[i]].tolist() for i in range(b)]

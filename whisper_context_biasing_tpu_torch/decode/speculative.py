@@ -35,6 +35,7 @@ from ..models.whisper import (
     decode_tokens,
     encode_audio,
     init_kv_cache,
+    kv_width,
     precompute_cross_kv,
     quantize_cross_kv,
 )
@@ -51,6 +52,7 @@ from .greedy import (
     GreedyResult,
     _as_tensor,
     build_prefixes,
+    decode_on_mesh,
     greedy_decode,
     pack_prefixes,
     sot_offsets,
@@ -69,14 +71,15 @@ class _Prefill:
         dev = ids.device
         self.cross = precompute_cross_kv(model, encode_audio(model, feats))
         if cfg.quantize_cross_kv:
-            self.cross = quantize_cross_kv(self.cross)
+            self.cross = quantize_cross_kv(self.cross, tp=model.tp)
         # positions: pads don't advance the position counter (left-pad support)
         self.prefix_pos = torch.clamp(torch.cumsum(mask.to(torch.int64), dim=1) - 1, min=0)
         self.key_mask = torch.cat(
             [mask, torch.ones((b, cache_len - p), dtype=torch.bool, device=dev)], 1)
         pos = self.prefix_pos if pos_fn is None else pos_fn(self.prefix_pos)
         out = decode_tokens(model, ids, cross_kv=self.cross,
-                            cache=init_kv_cache(cfg, b, cache_len, dev), pos_offset=0,
+                            cache=init_kv_cache(cfg, b, cache_len, dev, width=kv_width(model)),
+                            pos_offset=0,
                             token_positions=pos, self_mask=self.key_mask, return_hidden=hidden)
         self.logits, self.cache = out[0], out[1]
         self.hidden = out[2] if hidden else None
@@ -222,12 +225,27 @@ def speculative_greedy_decode(
     device="cuda",
     timings: dict | None = None,  # filled with encode_ms (both prefills),
                                   # decode_ms and rounds when given
+    mesh=None,
 ) -> GreedyResult:
     """Batched speculative greedy decode (see the module docstring). The
     models carry their configs (the JAX signature's ``cfg_draft`` and
     ``cfg_target``). Returns a ``GreedyResult`` whose tokens and lengths
     equal ``greedy_decode(params_target, ...)``'s, with the same
-    ``sum_logprob`` and ``no_speech_prob`` semantics and ``spec_rounds``."""
+    ``sum_logprob`` and ``no_speech_prob`` semantics and ``spec_rounds``.
+
+    ``mesh``: the rows (and a draft's own mel) shard over "data" through
+    ``decode_on_mesh`` and both models are this rank's shards
+    (``parallel.shard_params``); the result is the whole batch's on every
+    rank, ``spec_rounds`` this rank's. The per-row cache offsets are
+    row-local, and the ranks of one model group hold the same rows, so they
+    run the same rounds."""
+    if mesh is not None:
+        kw = {k: v for k, v in locals().items()
+              if k not in ("params_draft", "params_target", "input_features", "prefix_ids",
+                           "prefix_mask", "mesh")}
+        return decode_on_mesh(
+            lambda tgt, *a, **k: speculative_greedy_decode(params_draft, tgt, *a, **k),
+            mesh, params_target, input_features, prefix_ids, prefix_mask, kw)
     device = resolve_device(device)
     cfg_d, cfg_t = params_draft.cfg, params_target.cfg
     if cfg_d.n_vocab != cfg_t.n_vocab:
@@ -319,10 +337,13 @@ def speculative_decode_batch(
     input_features_draft=None,
     device="cuda",
     timings: dict | None = None,
+    mesh=None,
 ) -> list[list[int]]:
     """Host-side convenience mirroring ``greedy.decode_batch``: build the
     prefixes, run the speculative loop, strip to finished token lists. The
-    lists are identical to ``decode_batch``'s with the target model."""
+    lists are identical to ``decode_batch``'s with the target model.
+    ``mesh`` shards the rows over "data" (``speculative_greedy_decode``;
+    both models sharded by ``parallel.shard_params``)."""
     b = input_features.shape[0]
     prefixes = build_prefixes(tokenizer, b, contexts, starts, include_notimestamps)
     ids, mask = pack_prefixes(prefixes, tokenizer.eot, pad_to_multiple=pad_to_multiple)
@@ -330,7 +351,7 @@ def speculative_decode_batch(
         params_draft, params_target, input_features, ids, mask, k=k, max_new=max_new,
         eot_id=tokenizer.eot, bias_spans=sanitize_bias_spans(bias_spans),
         bias_boost=bias_boost, span_pad_id=tokenizer.eot,
-        input_features_draft=input_features_draft, device=device, timings=timings)
+        input_features_draft=input_features_draft, device=device, timings=timings, mesh=mesh)
     toks = res.tokens.cpu().numpy()
     lens = res.lengths.cpu().numpy()
     return [toks[i, : lens[i]].tolist() for i in range(b)]
@@ -406,13 +427,15 @@ def t0_verified_decode(
     medusa: dict | None = None,
     draft: tuple | None = None,     # (draft model, its config, k)
     device="cuda",
+    mesh=None,
 ) -> GreedyResult:
     """The temperature-0 accelerator of the long-form, chunked and streaming
     ladders: Medusa heads win over a draft model, and without either plain
-    greedy runs; every branch returns a GreedyResult with the same tokens."""
+    greedy runs; every branch returns a GreedyResult with the same tokens.
+    ``mesh`` shards the rows over "data" on every branch."""
     common = dict(max_new=max_new, eot_id=tokenizer.eot, bias_spans=spans,
                   bias_boost=bias_boost, span_pad_id=tokenizer.eot,
-                  no_speech_id=no_speech_id, sot_offset=sot_offset, device=device)
+                  no_speech_id=no_speech_id, sot_offset=sot_offset, device=device, mesh=mesh)
     if medusa is not None:
         from ..models.medusa import split_medusa
         from .medusa import medusa_greedy_decode

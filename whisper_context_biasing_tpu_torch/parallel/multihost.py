@@ -27,6 +27,7 @@ def initialize_multihost(
     num_processes: int | None = None,
     process_id: int | None = None,
     device="cuda",
+    timeout=None,
 ) -> bool:
     """Join this process to the default process group. Returns True when a
     group of more than one process is active, False for a single process.
@@ -36,8 +37,10 @@ def initialize_multihost(
     package's variables), then torchrun's ``MASTER_ADDR`` / ``WORLD_SIZE`` /
     ``RANK`` (its store, ``env://``). An address without a scheme is a TCP
     rendezvous (``host:port``). The backend follows ``device``: NCCL for a
-    card, gloo for the CPU. A default group the caller has already
-    initialized is used as it is."""
+    card, gloo for the CPU or when torchrun starts more ranks on this host
+    (``LOCAL_WORLD_SIZE``) than it has cards, which they then share.
+    ``timeout`` (a ``datetime.timedelta``) bounds every collective's wait. A
+    default group the caller has already initialized is used as it is."""
     if dist.is_initialized():
         return dist.get_world_size() > 1
     env = os.environ
@@ -55,11 +58,15 @@ def initialize_multihost(
         return False
     init = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
     device = torch.device(device)
+    backend = "gloo"
     if device.type == "cuda":
-        local = int(env.get("LOCAL_RANK", process_id % max(torch.cuda.device_count(), 1)))
+        cards = max(torch.cuda.device_count(), 1)
+        local = int(env.get("LOCAL_RANK", process_id)) % cards
         torch.cuda.set_device(device if device.index is not None else local)
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=init,
-                            world_size=num_processes, rank=process_id)
+        if int(env.get("LOCAL_WORLD_SIZE", 1)) <= cards:
+            backend = "nccl"
+    dist.init_process_group(backend, init_method=init, world_size=num_processes,
+                            rank=process_id, **({} if timeout is None else {"timeout": timeout}))
     return dist.get_world_size() > 1
 
 

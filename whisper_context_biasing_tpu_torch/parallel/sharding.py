@@ -216,15 +216,27 @@ def shard_batch(batch: dict, mesh, extra_leading_axes: int = 0) -> dict:
     return {k: put(v) for k, v in batch.items()}
 
 
+class LocalRows:
+    """A decode input that already holds this rank's rows of its batch (e.g.
+    the mel of the windows a rank of "data" gathered itself): the batch is
+    a multiple of "data" and ``rows`` is the rank's equal share of it.
+    ``shard_decode_inputs`` passes it through."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+
 def shard_decode_inputs(mesh, *arrays, batch_axis: int = 0) -> tuple[list, int]:
     """This rank's rows of the decode inputs (mel features, prefix ids and
     mask, bias spans, per-row values), the batch first padded up to a
     multiple of "data" by repeating its first row (even shards; the caller
     strips the padded rows after ``gather_rows``). Returns ([local arrays],
-    original batch size); ``None`` entries pass through. numpy arrays and
-    tensors both."""
+    original batch size); ``None`` entries pass through, and a ``LocalRows``
+    entry gives its rows (the batch must then need no padding). numpy arrays
+    and tensors both."""
     dp, r = axis_size(mesh, DATA_AXIS), axis_index(mesh, DATA_AXIS)
-    sizes = {a.shape[batch_axis] for a in arrays if a is not None}
+    sizes = {a.shape[batch_axis] for a in arrays
+             if a is not None and not isinstance(a, LocalRows)}
     if len(sizes) != 1:
         raise ValueError(f"inconsistent batch sizes: {sizes}")
     b = sizes.pop()
@@ -234,6 +246,12 @@ def shard_decode_inputs(mesh, *arrays, batch_axis: int = 0) -> tuple[list, int]:
     for a in arrays:
         if a is None:
             out.append(None)
+            continue
+        if isinstance(a, LocalRows):
+            if padded != b or a.rows.shape[batch_axis] != per:
+                raise ValueError(f"local rows {a.rows.shape[batch_axis]} are not this rank's "
+                                 f"share of a batch of {b} over data={dp}")
+            out.append(a.rows)
             continue
         if padded != b:
             first = _rows(a, 0, 1, batch_axis)

@@ -26,7 +26,10 @@ or ``torchrun``), ``model_parallelism`` meshes the pipeline as the JAX
 package's does (``parallel.auto_mesh``): 1 (the default) is data parallelism
 over every rank, N > 1 tensor parallelism over groups of N, 0 none. The
 short-form route's rows then shard over "data" and the weights over
-"model"; every rank gets every result.
+"model"; every rank gets every result. Every route takes the mesh: beams, a
+draft (sharded like the model) and Medusa heads (whole on every rank) on the
+short-form route, and the sequential and chunked long-form routes, whose
+window batches shard over "data". Streams run the same calls on every rank.
 """
 
 from __future__ import annotations
@@ -115,9 +118,8 @@ class Pipeline:
     ``medusa.npz`` path or a head dict) turns on Medusa decoding and wins
     over a draft; ``medusa_chains`` overrides its chain width.
 
-    ``model_parallelism``: the mesh (see the module's docstring); a draft,
-    Medusa heads and the long-form routes under a mesh are not ported yet
-    (ROADMAP Queue A.9)."""
+    ``model_parallelism``: the mesh (see the module's docstring); a draft
+    is sharded like the model."""
 
     def __init__(
         self,
@@ -163,9 +165,6 @@ class Pipeline:
         self.model = build_model(self.cfg, state, seed=seed, device=self.device)
         self.mesh = auto_mesh(model_parallelism)
         if self.mesh is not None:
-            if draft_model or draft_config is not None or medusa is not None:
-                raise NotImplementedError("speculative and Medusa decoding under a mesh are "
-                                          "not ported yet (ROADMAP Queue A.9)")
             self.model = shard_params(self.model, self.mesh)
         self.medusa = None
         if medusa is not None:
@@ -183,6 +182,8 @@ class Pipeline:
                     draft_model, draft_checkpoint, dtype=dtype, overrides=overrides,
                     target_cfg=self.cfg, cfg=draft_config, params=draft_params,
                     device=self.device)
+            if self.mesh is not None and self.draft.tp is None:  # not sharded yet
+                self.draft = shard_params(self.draft, self.mesh)
         self.default_bias_words = bias_words
         self.default_bias_boost = bias_boost
         self.collator = SpeechSeq2SeqCollator(
@@ -310,14 +311,15 @@ class Pipeline:
                                      **kwargs)
         elif self.medusa is not None:
             hyps = medusa_decode_batch(self.model, self.medusa, self.tokenizer, mel,
-                                       pad_to_multiple=32, **kwargs)
+                                       pad_to_multiple=32, mesh=self.mesh, **kwargs)
         elif self.draft is not None:
             # a draft with another mel frontend gets its own mel
             mel_d = (None if self.draft_cfg.n_mels == self.cfg.n_mels
                      else self.mel(stacked, n_mels=self.draft_cfg.n_mels))
             hyps = speculative_decode_batch(self.draft, self.model, self.tokenizer, mel,
                                             k=self.speculative_k, pad_to_multiple=32,
-                                            input_features_draft=mel_d, **kwargs)
+                                            input_features_draft=mel_d, mesh=self.mesh,
+                                            **kwargs)
         else:
             hyps = decode_batch(self.model, self.tokenizer, mel, pad_to_multiple=32,
                                 mesh=self.mesh, **kwargs)

@@ -169,9 +169,6 @@ def evaluate_wer(
     ``mesh``: each decode batch's rows shard over its "data" axis, with
     ``model`` this rank's shard (``parallel.shard_params``); every rank gets
     the whole result, and rank 0 alone writes ``refs_pred_file``."""
-    if mesh is not None and medusa is not None:
-        raise NotImplementedError("Medusa decoding under a mesh is not ported yet "
-                                  "(ROADMAP Queue A.9)")
     # shallow-copy the collator: mid-training evals run while the training
     # BatchLoader threads still collate with the shared instance — mutating
     # span_pad_multiple on it would change train batch shapes mid-flight
@@ -252,7 +249,8 @@ def _eval_decode_batch(batch, all_preds, all_labels, model: Whisper, tokenizer, 
     else:
         if medusa is not None:
             heads, n_chains = split_medusa(medusa)
-            res = medusa_greedy_decode(model, heads, feats, ids, mask, n_chains=n_chains, **kw)
+            res = medusa_greedy_decode(model, heads, feats, ids, mask, n_chains=n_chains,
+                                       mesh=mesh, **kw)
         else:
             res = greedy_decode(model, feats, ids, mask, mesh=mesh, **kw)
         toks = res.tokens.cpu().numpy()
