@@ -142,7 +142,15 @@ on failure:
    --dtype float32`` under ``torchrun``, one rank over NCCL and two over
    gloo at ``--model_parallelism`` 2 and 1, started while (b)-(e) run:
    phase 12 (f)'s posts and a stream session give the one-device server's
-   replies, and every rank exits 0 after SIGTERM to its rank 0.
+   replies, and every rank exits 0 after SIGTERM to its rank 0; (g) on the
+   same two ranks, in f32 at both meshes: two distillation steps of phase
+   14 (b)'s pair and phase 14 (a)'s LoRA loop, unfused and ``--fused_ln``,
+   against the unsharded runs (loss rel 1e-5, agreement equal, the first
+   step's gradients phase 6's rule, launches exactly the rank's loop's:
+   at (1, 2) phase 14's), and a sharded (DCP) checkpoint saved at (1, 2)
+   from the card's tensors, read back in this process bit-equal to the
+   gathered weights, one copy on disk, and resumed at (2, 1) for the next
+   step's loss; (a) also saves and reads one over NCCL.
 
 Phase 2 also holds the mel kernel against its plain version at 80 and 128
 mels, a 3 s window and batch 1, and against the float64 numpy frontend on a
@@ -3462,8 +3470,9 @@ def parallel_rank(rank: int, workdir: str) -> int:
     gradients against the unsharded references the parent wrote, and the
     bf16 launches of a serving batch, a training step and a fused training
     step; then (d) and (e), the serving routes at each mesh held to the
-    parent's unsharded run (``serving_routes``, ``hold_routes``). Writes
-    ``rank{rank}.json``."""
+    parent's unsharded run (``serving_routes``, ``hold_routes``); then (g),
+    distillation, LoRA and the sharded checkpoint at each mesh
+    (``parallel_train``). Writes ``rank{rank}.json``."""
     import torch
     import torch.distributed as dist
 
@@ -3580,6 +3589,15 @@ def parallel_rank(rank: int, workdir: str) -> int:
         got = serving_routes(torch, ops, mp, host_windows=mp == 1, sampled=mp == 1)
         hold_routes(f"rank {rank} mesh {label}", got, ref, tp=mp > 1)
         out["serving"][label] = got
+    # (g): distillation, LoRA and the sharded checkpoint, held to the
+    # parent's unsharded references
+    path = os.path.join(workdir, "train_ref.pt")
+    while not os.path.exists(path):
+        require(time.monotonic() < deadline, f"rank {rank}: no training references")
+        time.sleep(0.2)
+    ref = torch.load(path)
+    out["train"] = {label: parallel_train(torch, ops, rank, label, auto_mesh(mp), ref, workdir)
+                    for label, mp in (("tp", TP), ("dp", 1))}
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -3632,6 +3650,18 @@ def two_ranks(torch, ops, card, f32_tokens, tmp) -> dict:
               f"the ranks' (b)): " + "; ".join(
                   f"{n} launches {r['launches']} (mel calls, encoder passes, decoder steps "
                   f"{r['loop']}; {r['wall_s']:.2f} s)" for n, r in serving_ref.items()))
+        train_ref = parallel_train_refs(torch, ops, os.path.join(tmp, "corpus"), workdir)
+        path = os.path.join(workdir, "train_ref.pt")
+        torch.save(train_ref, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        print(f"  (g) unsharded f32 references in {train_ref['wall_s']:.1f} s: distillation "
+              f"{[round(m['loss'], 6) for m in train_ref['distill']['metrics']]} "
+              f"({train_ref['distill']['wall_s']:.2f} s), LoRA "
+              f"{[round(x, 6) for x in train_ref['lora']['losses']]} "
+              f"({train_ref['lora']['wall_s']:.2f} s), fused "
+              f"{[round(x, 6) for x in train_ref['lora_fused']['losses']]} "
+              f"({train_ref['lora_fused']['wall_s']:.2f} s), checkpointed steps "
+              f"{[round(x, 6) for x in train_ref['ckpt_losses']]}")
         deadline = time.monotonic() + RANK_TIMEOUT_S
         while any(p.poll() is None for p in procs):
             # a rank that fails ends the phase: its peer would wait for it
@@ -3687,8 +3717,58 @@ def two_ranks(torch, ops, card, f32_tokens, tmp) -> dict:
           f"it; first uniforms rank 0 {draws[0]}, rank 1 {draws[1]}, unsharded {want}")
     require(draws == [[u] for u in want] and draws[0] != draws[1],
             "(e) the ranks' uniforms are not the unsharded run's rows'")
-    print(f"  (b), (d), (e): two ranks took {wall:.1f} s (spawn to exit)  [{card}]")
+    for r, res in enumerate(ranks):
+        for label in ("tp", "dp"):
+            g, shape = res["train"][label], tuple(res[label]["mesh"])
+            d = g["distill"]
+            print(f"  (g) rank {r}, mesh {shape}: distillation (f32, {G_STEPS} steps) loss rel "
+                  f"{d['loss_rel']:.2e} (limit 1e-5), agreement {d['agreement']} = the "
+                  f"unsharded run's, gradients {d['grad_rel']:.2e} (limit 1e-4), launches "
+                  f"{d['launches']}, {d['wall_s']:.2f} s")
+            for name in ("lora", "lora_fused"):
+                x = g[name]
+                print(f"  (g) rank {r}, mesh {shape}: {name} loop (f32, 2 steps, an eval, a DCP "
+                      f"save) loss rel {x['loss_rel']:.2e}, adapter gradients "
+                      f"{x['grad_rel']:.2e}, eval_wer {x['wers'][0]} (unsharded "
+                      f"{x['wers'][1]}), launches {x['launches']}, {x['wall_s']:.2f} s")
+                add_counts(total, x["launches"])
+            add_counts(total, d["launches"])
+            c = g["ckpt"]
+            print(f"  (g) rank {r}, mesh {shape}: checkpointed step {c['step']} "
+                  + ("(saved through DCP in " + f"{c['save_s']:.2f} s) " if c["save_s"] else
+                     "(resumed from the (1, 2) DCP checkpoint) ")
+                  + f"loss {c['loss']:.7f}, rel {c['loss_rel']:.2e} (limit 1e-5)")
+    sharded_checkpoint(torch, workdir)
+    print(f"  (b), (d), (e), (g): two ranks took {wall:.1f} s (spawn to exit)  [{card}]")
     return total
+
+
+def sharded_checkpoint(torch, workdir) -> None:
+    """(g) in the parent, with no process group: the checkpoint the ranks
+    saved at (1, 2) loads whole and bit-equal to their gathered weights;
+    each rank's file sizes beside one copy of the tensors."""
+    import torch.distributed as dist
+
+    from whisper_context_biasing_tpu_torch.train import load_checkpoint
+
+    require(not dist.is_initialized(), "the parent holds a process group")
+    path = os.path.join(workdir, "sharded", "checkpoint-1")
+    sd, opt, _ = load_checkpoint(path, ckpt_cfg(), load_opt_state=True)
+    whole = torch.load(os.path.join(workdir, "gathered.pt"))
+    same = all(torch.equal(sd[n], whole[n]) for n in sd)
+    sizes = {d: {f: os.path.getsize(os.path.join(path, d, f))
+                 for f in sorted(os.listdir(os.path.join(path, d))) if f.endswith(".distcp")}
+             for d in ("params_dcp", "opt_dcp")}
+    one_copy = {"params_dcp": sum(t.numel() * 4 for t in sd.values()),
+                "opt_dcp": 2 * sum(m.numel() * 4 for m in opt.mu) + 8}
+    print(f"  (g) the (1, 2) checkpoint loaded in the parent (no process group): "
+          f"{len(sd)} tensors bit-equal to the ranks' gathered weights: {same}; files "
+          + "; ".join(f"{d} {sizes[d]} = {sum(sizes[d].values()):,} bytes against one copy "
+                      f"{one_copy[d]:,}" for d in sizes))
+    require(same, "the sharded checkpoint differs from the gathered weights")
+    for d, files in sizes.items():
+        require(one_copy[d] <= sum(files.values()) <= 1.05 * one_copy[d],
+                f"{d}: {sum(files.values())} bytes against one copy {one_copy[d]}")
 
 
 def remat_policies(torch, ops, card) -> dict:
@@ -3706,6 +3786,8 @@ def remat_policies(torch, ops, card) -> dict:
         make_loss_fn,
     )
 
+    gc.collect()  # earlier phases' cycles (the loops' closures) hold device tensors
+    torch.cuda.empty_cache()
     batch = {k: torch.from_numpy(v).cuda() for k, v in train_batch(
         np.random.default_rng(7)).items()}
     layers = N_LAYERS + N_LAYERS
@@ -3761,16 +3843,285 @@ def remat_policies(torch, ops, card) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 15 (g): distillation, LoRA and the sharded checkpoint under the mesh
+# ---------------------------------------------------------------------------
+
+G_OPT = dict(peak_lr=1e-3, warmup_steps=0, total_steps=100)  # (g)'s checkpoint steps
+G_STEPS = 2
+
+
+def lora_loop_launches(cfg) -> dict:
+    """Phase 14 (a)'s loop (2 steps of 8 x 2 on short labels, one eval
+    batch): the launches its steps and its eval imply."""
+    evals = -(-ENTRY_ROWS["dev"] // BATCH)
+    want = expected_train_launches(cfg, 2, s=0, mel=False)
+    want["flash_attention"] += evals * cfg.n_audio_layers
+    if cfg.fused_ln_qkv:
+        want["fused_ln_matmul"] += evals * 2 * cfg.n_audio_layers
+    return want
+
+
+def distill_f32_steps(torch, ops, mesh=None) -> dict:
+    """(g) phase 14 (b)'s pair (base.en teacher, tiny.en student, phase 5's
+    8 x 2 raw-audio batch, labels of 449 tokens) in f32 with every kernel,
+    G_STEPS steps, both models sharded over ``mesh``: each step's metrics,
+    the first step's student gradients gathered whole, the launches and
+    those the recorded forwards imply."""
+    from whisper_context_biasing_tpu_torch.models import build_model, get_config
+    from whisper_context_biasing_tpu_torch.parallel import shard_batch, shard_params
+    from whisper_context_biasing_tpu_torch.parallel.sharding import gather_tensor
+    from whisper_context_biasing_tpu_torch.train import (
+        init_train_state,
+        make_distill_step,
+        make_optimizer,
+    )
+    from whisper_context_biasing_tpu_torch.train import distill as distill_mod
+
+    batch = {k: torch.from_numpy(v).cuda() for k, v in train_batch(
+        np.random.default_rng(7)).items() if k != "bias_spans"}
+    kw = dict(dtype="float32", flash_attention=True, remat="full")
+    cfg_t, cfg_d = get_config("base.en", **kw), get_config("tiny.en", **kw)
+    teacher = build_model(cfg_t, seed=0, device="cuda")
+    student = build_model(cfg_d, seed=1, device="cuda", train=True)
+    if mesh is not None:
+        teacher, student = shard_params(teacher, mesh), shard_params(student, mesh)
+        batch = shard_batch(batch, mesh, extra_leading_axes=1)
+    opt = make_optimizer(peak_lr=1e-4, warmup_steps=0, total_steps=100)
+    step = make_distill_step(cfg_d, cfg_t, opt, grad_accum=ACCUM, mesh=mesh)
+    state = init_train_state(student, opt)
+    calls = []
+    real = count_forwards(torch, distill_mod, calls)
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        metrics, grads = [], None
+        t0 = time.perf_counter()
+        for _ in range(G_STEPS):
+            state, m = step(state, teacher, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if grads is None:
+                grads = {n: gather_tensor(student, n, p.grad).cpu()
+                         for n, p in student.named_parameters()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.launches)
+    finally:
+        distill_mod.forward = real
+    want = dict(mel=G_STEPS * ACCUM, **forward_launches(calls))
+    del teacher, student, state, step
+    torch.cuda.empty_cache()
+    return dict(metrics=metrics, grads=grads, launches=counts, implied=want, wall_s=wall)
+
+
+def lora_f32_loop(torch, ops, corpus, out, fused, mesh=None) -> dict:
+    """(g) phase 14 (a)'s ``train_and_evaluate`` (LoRA rank 8 and
+    SpecAugment over phase 10's corpus, 8 x 2, 2 steps, an eval, a save) in
+    f32 with every kernel (and ``fused``: --fused_ln) under ``mesh``, its
+    checkpoint through the sharded backend: the logged losses, the first
+    step's adapter gradients gathered whole, the launches and those the loop
+    implies."""
+    from whisper_context_biasing_tpu_torch.data import SpeechSeq2SeqCollator
+    from whisper_context_biasing_tpu_torch.models import get_config, init_state_dict
+    from whisper_context_biasing_tpu_torch.train import TrainingConfig, train_and_evaluate
+    from whisper_context_biasing_tpu_torch.train import lora as lora_mod
+
+    import pathlib
+
+    tok, data = phase14_datasets(pathlib.Path(corpus))
+    coll = SpeechSeq2SeqCollator(pad_token_id=tok.pad_token_id, decoder_start_token_id=tok.sot,
+                                 decoder_prev_token_id=tok.sop, pad_to_multiple=32)
+    cfg = get_config("base.en", dtype="float32", flash_attention=True, remat="full",
+                     **(FUSED_LN if fused else {}))
+    tcfg = TrainingConfig(output_dir=str(out), per_device_train_batch_size=BATCH,
+                          gradient_accumulation_steps=ACCUM, num_train_epochs=2,
+                          eval_steps=2, save_steps=2, logging_steps=1, learning_rate=1e-3,
+                          per_device_eval_batch_size=BATCH, generation_max_length=EVAL_MAX_LEN,
+                          lora_rank=LORA_RANK, spec_augment=True, checkpoint_backend="orbax",
+                          dataloader_num_workers=2)
+    first = []
+    real = lora_mod.make_lora_grad_fn
+
+    def recording(*args, **kwargs):  # keeps the first step's adapter gradients
+        fn = real(*args, **kwargs)
+
+        def grad_fn(adapters, base, batch):
+            loss, grads = fn(adapters, base, batch)
+            if not first:
+                first.append(([g.clone() for g in grads], adapters, base.tp))
+            return loss, grads
+        return grad_fn
+
+    lora_mod.make_lora_grad_fn = recording
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, hist = train_and_evaluate(cfg, init_state_dict(get_config("base.en"), 0), tok,
+                                     data["train"], data["dev"], coll, tcfg, mesh=mesh,
+                                     device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.launches)
+    finally:
+        lora_mod.make_lora_grad_fn = real
+    grads, adapters, tp = first[0]
+    tree: dict = {}
+    for ((top, blk, t, ab), _), g in zip(lora_mod._leaves(adapters), grads):
+        tree.setdefault(top, {}).setdefault(blk, {}).setdefault(t, {})[ab] = g
+    whole, _ = lora_mod.lora_host_arrays(tree, tp=tp)  # collective over "model"
+    torch.cuda.empty_cache()
+    return dict(losses=[e["loss"] for e in hist if "loss" in e],
+                wers=[e["eval_wer"] for e in hist if "eval_wer" in e],
+                grads={"/".join(p): torch.from_numpy(x) for p, x in lora_mod._leaves(whole)},
+                launches=counts, implied=lora_loop_launches(cfg), wall_s=wall)
+
+
+def ckpt_cfg():
+    from whisper_context_biasing_tpu_torch.models import get_config
+
+    return get_config("base.en", dtype="float32", flash_attention=True, remat="full")
+
+
+def ckpt_model(torch, mesh=None, state_dict=None):
+    """(g)'s checkpointed fine-tune: phase 5's f32 configuration (flash,
+    remat full, mel in the step) from the seeded init or ``state_dict``,
+    sharded over ``mesh``; (model, step function, optimizer)."""
+    from whisper_context_biasing_tpu_torch.models import build_model
+    from whisper_context_biasing_tpu_torch.parallel import shard_params
+    from whisper_context_biasing_tpu_torch.train import make_optimizer, make_train_step
+
+    cfg = ckpt_cfg()
+    model = build_model(cfg, state_dict, seed=0, device="cuda", train=True)
+    if mesh is not None:
+        model = shard_params(model, mesh)
+    opt = make_optimizer(**G_OPT)
+    step = make_train_step(cfg, opt, bias_weight=1.5, grad_accum=ACCUM, mel_on_device=True,
+                           mesh=mesh)
+    return model, step, opt
+
+
+def parallel_train_refs(torch, ops, corpus, tmp) -> dict:
+    """(g)'s unsharded references, in the parent: the distillation steps,
+    the two LoRA loops and the checkpointed fine-tune's two losses."""
+    from whisper_context_biasing_tpu_torch.train import init_train_state
+
+    t0 = time.perf_counter()
+    ref = {"distill": distill_f32_steps(torch, ops)}
+    for fused in (False, True):
+        name = "lora_fused" if fused else "lora"
+        ref[name] = lora_f32_loop(torch, ops, corpus, os.path.join(tmp, f"ref_{name}"), fused)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in train_batch(
+        np.random.default_rng(7)).items()}
+    model, step, opt = ckpt_model(torch)
+    state = init_train_state(model, opt)
+    ref["ckpt_losses"] = [float(step(state, batch)[1]["loss"]) for _ in range(2)]
+    del model, step, opt, state
+    torch.cuda.empty_cache()
+    for k in ("distill", "lora", "lora_fused"):
+        require(ref[k]["launches"] == ref[k]["implied"], f"(g) unsharded {k}: launches "
+                f"{ref[k]['launches']} != {ref[k]['implied']}")
+    ref["wall_s"] = time.perf_counter() - t0
+    return ref
+
+
+def parallel_train(torch, ops, rank: int, label: str, mesh, ref: dict, workdir: str) -> dict:
+    """Phase 15 (g) on one rank at one mesh: the f32 distillation steps and
+    the two LoRA loops held to the unsharded references (losses rel 1e-5,
+    agreement equal, the first step's gradients phase 6's rule, launches
+    exactly what the rank's loop implies: at (1, 2) phase 14's); then at
+    (1, 2) a step of the checkpointed fine-tune saved through the sharded
+    backend from the card's tensors (and the gathered weights beside it for
+    the parent), at (2, 1) that checkpoint resumed for the next step."""
+    from whisper_context_biasing_tpu_torch.parallel import gather_params, shard_batch
+    from whisper_context_biasing_tpu_torch.parallel.sharding import shard_opt_state
+    from whisper_context_biasing_tpu_torch.train import (
+        init_train_state,
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    res = {}
+    what = f"(g) rank {rank} mesh {label}"
+    got = distill_f32_steps(torch, ops, mesh)
+    want = ref["distill"]
+    rels = [abs(g["loss"] - w["loss"]) / abs(w["loss"])
+            for g, w in zip(got["metrics"], want["metrics"])]
+    require(max(rels) <= 1e-5, f"{what}: distillation losses {got['metrics']} vs "
+            f"{want['metrics']}")
+    require([g["agreement"] for g in got["metrics"]] ==
+            [w["agreement"] for w in want["metrics"]], f"{what}: distillation agreement differs")
+    require(got["launches"] == got["implied"], f"{what}: distillation launches "
+            f"{got['launches']} != {got['implied']}")
+    if label == "tp":  # phase 14 (b)'s a step: K1 2, K2 84, K4 24
+        require(got["launches"] == {"mel": 2 * G_STEPS, "flash_attention": 84 * G_STEPS,
+                                    "flash_attention_bwd": 24 * G_STEPS},
+                f"{what}: distillation launches {got['launches']}")
+    res["distill"] = dict(loss_rel=max(rels), agreement=[g["agreement"] for g in got["metrics"]],
+                          grad_rel=grads_within(f"{what} distillation", got["grads"],
+                                                want["grads"]),
+                          launches=got["launches"], wall_s=got["wall_s"])
+    for fused in (False, True):
+        name = "lora_fused" if fused else "lora"
+        corpus = os.path.join(os.path.dirname(workdir), "corpus")
+        got = lora_f32_loop(torch, ops, corpus, os.path.join(workdir, f"{name}_{label}"), fused,
+                            mesh)
+        want = ref[name]
+        rels = [abs(g - w) / abs(w) for g, w in zip(got["losses"], want["losses"])]
+        require(len(got["losses"]) == 2 and max(rels) <= 1e-5,
+                f"{what}: {name} losses {got['losses']} vs {want['losses']}")
+        require(got["launches"] == got["implied"] == want["launches"],
+                f"{what}: {name} launches {got['launches']} != {got['implied']}")
+        res[name] = dict(loss_rel=max(rels), launches=got["launches"], wall_s=got["wall_s"],
+                         wers=[got["wers"], want["wers"]],
+                         grad_rel=grads_within(f"{what} {name}", got["grads"], want["grads"]))
+    batch = shard_batch({k: torch.from_numpy(v).cuda() for k, v in train_batch(
+        np.random.default_rng(7)).items()}, mesh, extra_leading_axes=1)
+    path = os.path.join(workdir, "sharded", "checkpoint-1")
+    if label == "tp":  # save at (1, 2)
+        model, step, opt = ckpt_model(torch, mesh)
+        state = init_train_state(model, opt)
+        loss = float(step(state, batch)[1]["loss"])
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.dirname(path), 1, model, state.opt_state, backend="orbax",
+                        mesh=mesh)
+        torch.cuda.synchronize()
+        save_s = time.perf_counter() - t0
+        whole = {n: t.cpu() for n, t in gather_params(model).items()}
+        if rank == 0:
+            torch.save(whole, os.path.join(workdir, "gathered.pt"))
+        i = 0
+    else:  # resume at (2, 1) for the next step
+        sd, opt_state, meta = load_checkpoint(path, ckpt_cfg(), load_opt_state=True)
+        model, step, opt = ckpt_model(torch, mesh, sd)
+        state = init_train_state(model, opt)
+        opt_state = shard_opt_state(opt_state, model, mesh)
+        opt_state.mu = [m.cuda() for m in opt_state.mu]
+        opt_state.nu = [v.cuda() for v in opt_state.nu]
+        state.opt_state, state.step = opt_state, meta["step"]
+        loss = float(step(state, batch)[1]["loss"])
+        save_s, i = None, 1
+    rel = abs(loss - ref["ckpt_losses"][i]) / abs(ref["ckpt_losses"][i])
+    require(rel <= 1e-5, f"{what}: checkpointed step {i + 1} loss {loss} vs "
+            f"{ref['ckpt_losses'][i]}")
+    res["ckpt"] = dict(step=i + 1, loss=loss, loss_rel=rel, save_s=save_s)
+    del model, step, opt, state
+    torch.cuda.empty_cache()
+    return res
+
+
 def world_of_one(torch, ops, Pipeline, card, serve_tokens, init_path, tmp) -> dict:
     """Phase 15 (a): a world of one over NCCL with ``make_mesh(1)``: phase
-    5's f32 step gives the unsharded loss (1e-6), phase 3's requests phase
-    3's tokens and launches, ``cli.train`` under ``torchrun
+    5's f32 step gives the unsharded loss (1e-6), a DCP checkpoint of the
+    model saved and read back bit-equal, phase 3's requests phase 3's
+    tokens and launches, ``cli.train`` under ``torchrun
     --nproc_per_node 1`` runs one step, and ``--model_parallelism 2`` on
     that world raises JAX's ValueError."""
     import torch.distributed as dist
 
     from whisper_context_biasing_tpu_torch.cli import train as train_cli
     from whisper_context_biasing_tpu_torch.parallel import make_mesh
+    from whisper_context_biasing_tpu_torch.train import load_checkpoint, save_checkpoint
 
     total = {}
     dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous1", world_size=1,
@@ -3784,6 +4135,16 @@ def world_of_one(torch, ops, Pipeline, card, serve_tokens, init_path, tmp) -> di
               f"{plain:.7f} without the mesh (limit rel 1e-6)")
         require(abs(meshed - plain) <= 1e-6 * abs(plain), "world-of-one f32 loss differs")
         add_counts(total, counts)
+        # (g)'s sharded checkpoint over NCCL: saved from the card, read back whole
+        model = ckpt_model(torch, mesh)[0]
+        path = save_checkpoint(os.path.join(tmp, "nccl_dcp"), 1, model, backend="orbax",
+                               mesh=mesh)
+        sd, _, _ = load_checkpoint(path, ckpt_cfg())
+        same = all(torch.equal(sd[n], p.detach().cpu()) for n, p in model.named_parameters())
+        print(f"  (a) a DCP checkpoint saved over NCCL at (1, 1) and read back: {len(sd)} "
+              f"tensors bit-equal: {same}")
+        require(same, "the NCCL world's DCP checkpoint differs from the model")
+        del model
         pipe = Pipeline("base.en", device="cuda", seed=0)
         pipe.mesh = mesh
         kwargs = dict(context=CONTEXT, bias_words=BIAS_WORDS, bias_boost=2.0,
@@ -4286,9 +4647,10 @@ def drive_servers(card, servers) -> None:
 def parallelism_and_remat(torch, Pipeline, ops, card, serve_tokens, f32_tokens, init_path,
                           tmp) -> dict:
     """Phase 15: (a) a world of one, (b) two ranks on the card with (d) and
-    (e) the serving routes on them, (f) ``cli.serve`` under ``torchrun``,
-    (c) the remat policies. Returns the launches of (a), (b), (d), (e) (both
-    ranks) and (c)."""
+    (e) the serving routes and (g) distillation, LoRA and the sharded
+    checkpoint on them, (f) ``cli.serve`` under ``torchrun``, (c) the remat
+    policies. Returns the launches of (a), (b), (d), (e), (g) (both ranks)
+    and (c)."""
     from concurrent.futures import ThreadPoolExecutor
 
     start = time.perf_counter()
@@ -4300,7 +4662,7 @@ def parallelism_and_remat(torch, Pipeline, ops, card, serve_tokens, f32_tokens, 
     try:
         served = pool.submit(drive_servers, card, servers)  # (f) beside (b)-(e)
         add_counts(total, two_ranks(torch, ops, card, f32_tokens, tmp))
-        print(f"  (b), (d), (e) took {time.perf_counter() - t:.1f} s")
+        print(f"  (b), (d), (e), (g) took {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         served.result()
         print(f"  (f) took {time.perf_counter() - t:.1f} s after (e)")
@@ -4420,7 +4782,8 @@ def main() -> int:
         ext_counts = training_extensions(torch, ops, card, init_path, tmp)
         print("phase 15, data and tensor parallelism (a world of one over NCCL, two ranks "
               "on the card over gloo at mesh (1, 2) and (2, 1) with every serving route, "
-              "cli.serve under torchrun) and the remat policies:")
+              "distillation, LoRA and the sharded checkpoint, cli.serve under torchrun) and "
+              "the remat policies:")
         par_counts = parallelism_and_remat(torch, Pipeline, ops, card, serve_tokens,
                                            f32_tokens, init_path, tmp)
     # launches: the runs of the main-path phases (3, 5, 7, 9, 10, 11, 12, 13, 14, 15)

@@ -16,8 +16,8 @@ the heads it writes reaching ``evaluate_wer`` through ``cli/evaluation.py
 --medusa`` as the JAX script's do), the three inspection harnesses
 (``cli/check_weightce.py``, ``cli/check_data_collator.py``,
 ``cli/check_data_loader.py``) printing the JAX scripts' tables on the same
-inputs, ``NotImplementedError`` naming its ROADMAP item for each flag
-whose module is not ported, and the JAX scripts' ``ValueError`` for a
+inputs, every flag once refused as not ported taken (the run goes on to
+read the missing data), and the JAX scripts' ``ValueError`` for a
 ``--model_parallelism`` the world does not divide."""
 
 import dataclasses
@@ -332,7 +332,8 @@ UNPORTED = {
     # ported since: a tensor-parallel degree the world (one process here)
     # does not divide raises the JAX scripts' ValueError (parallel.auto_mesh)
     "train_model_parallelism": (train, ["--model_parallelism", "2"], ValueError),
-    "train_orbax": (train, ["--checkpoint_backend", "orbax"], "A.9"),
+    # ported since: the sharded checkpoint backend (torch.distributed.checkpoint)
+    "train_orbax": (train, ["--checkpoint_backend", "orbax"], None),
     "train_remat_dots": (train, ["--remat", "dots"], None),
     "train_remat_wide": (train, ["--remat", "wide"], None),
     "eval_num_beams": (evaluation, ["--num_beams", "4", "--medusa", "medusa.npz"], None),
@@ -349,23 +350,17 @@ def test_unported_flags_raise_before_reading_data(case, tmp_path):
             mod.main(["--jsonl_data", str(tmp_path / "none"), "--output", str(tmp_path),
                       "--device", "cpu", *argv])
         return
-    if item is ValueError:
-        import jax
+    import jax
 
-        from whisper_context_biasing_tpu.parallel import auto_mesh as jax_auto_mesh
+    from whisper_context_biasing_tpu.parallel import auto_mesh as jax_auto_mesh
 
-        with pytest.raises(ValueError) as ref:
-            jax_auto_mesh(int(argv[1]), devices=jax.devices("cpu")[:1])
-        with pytest.raises(ValueError) as got:
-            mod.main(["--jsonl_data", str(tmp_path / "none"), "--output", str(tmp_path),
-                      "--device", "cpu", *argv])
-        assert str(got.value) == str(ref.value) == \
-            f"1 devices not divisible by model_parallelism={argv[1]}"
-        return
-    # the data paths do not exist: the flag is refused before they are read
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue {item}"):
+    with pytest.raises(ValueError) as ref:
+        jax_auto_mesh(int(argv[1]), devices=jax.devices("cpu")[:1])
+    with pytest.raises(ValueError) as got:
         mod.main(["--jsonl_data", str(tmp_path / "none"), "--output", str(tmp_path),
                   "--device", "cpu", *argv])
+    assert str(got.value) == str(ref.value) == \
+        f"1 devices not divisible by model_parallelism={argv[1]}"
 
 
 @pytest.mark.parametrize("mod", [train, evaluation], ids=["train", "evaluation"])

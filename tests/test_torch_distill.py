@@ -313,9 +313,27 @@ def test_distill_and_evaluate_checkpoints(pair, tmp_path):
     assert hist[-1]["total_steps"] == 4 and "best_agreement" in hist[-1]
     # training ran: the weights moved
     assert any(not torch.equal(p, student0[n]) for n, p in model.named_parameters())
-    with pytest.raises(NotImplementedError, match="A.9"):
-        distill_and_evaluate(cfg, None, cfg, None, SynthDataset(2), SynthDataset(2), collate,
-                             dcfg, mesh=object(), device="cpu")
+    # a mesh of one (a gloo world of this process alone) and the sharded
+    # backend: the same log and weights as the run above
+    import torch.distributed as dist
+
+    from whisper_context_biasing_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+        dcfg.output_dir, dcfg.checkpoint_backend = str(tmp_path / "mesh"), "orbax"
+        meshed, mhist = distill_and_evaluate(cfg, student0, cfg, params_from_jax(params[7], cfg),
+                                             SynthDataset(8), SynthDataset(4), collate, dcfg,
+                                             mesh=make_mesh(1), device="cpu")
+    finally:
+        dist.destroy_process_group()
+    assert [{k: v for k, v in h.items() if k != "wall_s"} for h in mhist] == \
+        [{k: v for k, v in h.items() if k != "wall_s"} for h in hist]
+    for n, p in model.named_parameters():
+        assert torch.equal(p, meshed.get_parameter(n)), n
+    best = find_best_checkpoint(dcfg.output_dir, metric_key="eval_disagreement")
+    assert os.path.isdir(os.path.join(best, "params_dcp"))
 
 
 def test_probe_pads_partial_eval_batch(pair, tmp_path, monkeypatch):
@@ -370,7 +388,7 @@ def _wav_corpus(root):
     return jsonl
 
 
-def test_distill_parse_args_defaults_match_jax(monkeypatch):
+def test_distill_parse_args_defaults_match_jax(monkeypatch, tmp_path):
     import importlib.util
     import sys
 
@@ -386,10 +404,12 @@ def test_distill_parse_args_defaults_match_jax(monkeypatch):
     got = vars(cli.parse_args([]))
     assert got.pop("device") == "cuda"
     assert got == want
-    with pytest.raises(NotImplementedError, match="A.9"):
-        cli.main(["--model_parallelism", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A.9"):
-        cli.main(["--checkpoint_backend", "orbax", "--device", "cpu"])
+    # ported since: both flags are taken, and the run goes on to read the
+    # missing data (the mesh is built after it, as the JAX script builds it)
+    for flags in (["--model_parallelism", "2"], ["--checkpoint_backend", "orbax"]):
+        with pytest.raises(FileNotFoundError, match="none"):
+            cli.main([*flags, "--model", "tiny.en", "--jsonl_data", str(tmp_path / "none"),
+                      "--device", "cpu"])
 
 
 @pytest.mark.parametrize("draft", ["same_mels", "mixed_mels"])

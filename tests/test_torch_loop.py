@@ -49,7 +49,7 @@ from whisper_context_biasing_tpu_torch.train import (
     save_checkpoint,
     train_and_evaluate,
 )
-from whisper_context_biasing_tpu_torch.train.checkpoint import checkpoint_step
+from whisper_context_biasing_tpu_torch.train.checkpoint import checkpoint_step, is_native_checkpoint
 
 SMALL = dict(n_audio_layers=1, n_text_layers=1, d_model=8, n_heads=1)
 
@@ -154,12 +154,34 @@ def test_best_checkpoint_selection(tmp_path, case):
 
 
 def test_orbax_backend_raises(tmp_path):
-    model = _model(tiny_test_config(**SMALL))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A.9"):
-        save_checkpoint(str(tmp_path), 1, model, backend="orbax")
-    (tmp_path / "checkpoint-2" / "params_ocp").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A.9"):
-        load_checkpoint(str(tmp_path / "checkpoint-2"), model.cfg)
+    """The sharded backend in one process (no process group): the DCP dirs
+    round-trip the weights and moments bit-equal, as the npz path does;
+    retention and the metadata are the npz path's. A JAX Orbax dir is
+    recognised and refused with a ValueError naming the npz backend."""
+    cfg = tiny_test_config(**SMALL)
+    model = _model(cfg)
+    opt_state = _stepped(model)
+    for step in (1, 2):
+        p = save_checkpoint(str(tmp_path), step, model, opt_state,
+                            metadata={"eval_wer": 10.0 - step, "eval_step": step},
+                            backend="orbax")
+    assert [os.path.basename(c) for c in list_checkpoints(str(tmp_path))] == ["checkpoint-2"]
+    assert sorted(os.listdir(p)) == ["opt_dcp", "params_dcp", "trainer_state.json"]
+    assert os.path.isfile(os.path.join(p, "params_dcp", ".metadata"))
+    assert os.path.isfile(os.path.join(p, "params_dcp", "__0_0.distcp"))
+    sd, restored, meta = load_checkpoint(p, cfg, load_opt_state=True)
+    assert meta["step"] == 2 and meta["eval_wer"] == 8.0
+    npz = save_checkpoint(str(tmp_path / "npz"), 2, model, opt_state)
+    want, want_opt, _ = load_checkpoint(npz, cfg, load_opt_state=True)
+    _same_state_dicts(sd, want)
+    assert restored.count == want_opt.count == opt_state.count
+    for a, b in zip(restored.mu + restored.nu, want_opt.mu + want_opt.nu):
+        assert torch.equal(a, b)
+    (tmp_path / "checkpoint-3" / "params_ocp").mkdir(parents=True)
+    (tmp_path / "checkpoint-3" / "trainer_state.json").write_text('{"step": 3}')
+    assert is_native_checkpoint(str(tmp_path / "checkpoint-3"))
+    with pytest.raises(ValueError, match="npz backend"):
+        load_checkpoint(str(tmp_path / "checkpoint-3"), model.cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Ground rules of the port: it imports neither JAX nor the JAX package
 (chip_smoke.py neither), it exports the JAX package's public names from the
 same places, its entry points default to the card and refuse to run without
-one, options not ported yet raise (and misused ones raise as in JAX), and
-its kernel wrappers take the plain version only for CPU tensors."""
+one, every option once refused as not ported runs (and misused ones raise
+as in JAX), and its kernel wrappers take the plain version only for CPU
+tensors."""
 
 import pathlib
 import subprocess
@@ -308,29 +309,27 @@ def _world_of_one(tmp_path):
     return make_mesh(1)
 
 
-@pytest.mark.parametrize("call,item", [
+@pytest.mark.parametrize("call", [
     # ported since: evaluations take a mesh
-    (lambda p: _evaluate(p, num_beams=2, mesh=_world_of_one(p)), None),
-    (lambda p: _evaluate(p, medusa=_heads()), None),
-    (lambda p: _evaluate(p, mesh=_world_of_one(p)), None),
-    (lambda p: _train(p, lora_rank=4), None),
-    (lambda p: _train(p, spec_augment=True), None),
-    (lambda p: _train(p, checkpoint_backend="orbax"), "A.9"),
-    (_save_orbax, "A.9"),
+    lambda p: _evaluate(p, num_beams=2, mesh=_world_of_one(p)),
+    lambda p: _evaluate(p, medusa=_heads()),
+    lambda p: _evaluate(p, mesh=_world_of_one(p)),
+    lambda p: _train(p, lora_rank=4),
+    lambda p: _train(p, spec_augment=True),
+    # ported since: the sharded checkpoint backend
+    lambda p: _train(p, checkpoint_backend="orbax"),
+    _save_orbax,
 ], ids=["num_beams", "medusa", "mesh", "lora_rank", "spec_augment",
         "orbax_loop", "orbax_save"])
-def test_unported_loop_options_raise(tmp_path, call, item):
+def test_unported_loop_options_raise(tmp_path, call):
+    """Every option once refused as not ported runs now."""
     import torch.distributed as dist
 
-    if item is None:  # ported since: the call runs
-        try:
-            call(tmp_path)
-        finally:
-            if dist.is_initialized():
-                dist.destroy_process_group()
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue {item}"):
+    try:
         call(tmp_path)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_hub_model_id_degrades_offline(tmp_path, monkeypatch, capsys):

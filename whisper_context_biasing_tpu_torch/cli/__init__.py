@@ -18,10 +18,11 @@ the three ``scripts/check_*.py`` harnesses)::
     python -m whisper_context_biasing_tpu_torch.cli.check_data_loader --bias_list ...
 
 Each module has ``parse_args(argv=None)`` and ``main(argv=None)`` and runs
-nothing at import. ``train``, ``evaluation``, ``transcribe`` and ``serve``
-run data and tensor parallelism with one process per card, launched by
-``torchrun`` (``parallel.initialize_multihost`` reads its variables; the
-server's ranks keep in step by the protocol in ``cli/serve.py``)::
+nothing at import. ``train``, ``evaluation``, ``transcribe``, ``serve`` and
+``distill`` run data and tensor parallelism with one process per card,
+launched by ``torchrun`` (``parallel.initialize_multihost`` reads its
+variables; the server's ranks keep in step by the protocol in
+``cli/serve.py``)::
 
     torchrun --nproc_per_node 4 -m whisper_context_biasing_tpu_torch.cli.train \
         --model_parallelism 2 ...   # data 2 x model 2
@@ -29,29 +30,18 @@ server's ranks keep in step by the protocol in ``cli/serve.py``)::
 ``--model_parallelism`` has the JAX scripts' semantics
 (``parallel.auto_mesh``): 1 is data parallelism over every process, N > 1
 tensor parallelism over groups of N, 0 none; ``transcribe`` meshes as
-``Pipeline``'s default (1). Rank 0 alone writes files. Deviations from the
-JAX scripts: ``--device`` (every entry point that runs a model; default
+``Pipeline``'s default (1). Rank 0 alone writes files, but
+``--checkpoint_backend orbax`` (``train``, ``distill``), where every rank
+writes its own shards (``train/checkpoint.py``). Deviations from the JAX
+scripts: ``--device`` (every entry point that runs a model; default
 ``cuda``, ``cpu`` for tests), a data axis that does not divide ``--batch``
-raises (JAX shrinks it, leaving chips idle), ``distill`` runs on one device
-(``--model_parallelism`` > 1 raises until ROADMAP Queue A.9), and the
-port's seeded init without a checkpoint (the JAX init's distributions,
-other numbers). Flags whose modules are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item before any data is read.
+raises (JAX shrinks it, leaving chips idle), ``--checkpoint_backend orbax``
+writes ``torch.distributed.checkpoint`` directories where JAX writes Orbax
+ones (neither package reads the other's), and the port's seeded init
+without a checkpoint (the JAX init's distributions, other numbers).
 """
 
 from __future__ import annotations
-
-
-def not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue {item})")
-
-
-def check_model_parallelism(model_parallelism: int) -> None:
-    """``--model_parallelism`` of ``distill``: 0 and 1 run on one device
-    (what JAX's 1 does with one visible card); a tensor-parallel degree
-    raises."""
-    if model_parallelism > 1:
-        not_ported(f"--model_parallelism {model_parallelism} (tensor parallelism)", "A.9")
 
 
 def report_devices(device, mesh=None) -> None:

@@ -16,8 +16,13 @@ whose mel frontend differs from the target's (an 80-mel draft for the
 128-mel large-v3) reads raw audio, and the mel kernel runs once per
 frontend inside the step. On a card both models run the flash kernels;
 without ``--init_checkpoint`` the target is the port's seeded init
-(``--seed``), the draft's ``--seed + 1``. ``--model_parallelism > 1`` and
-``--checkpoint_backend orbax`` raise naming ROADMAP Queue A.9.
+(``--seed``), the draft's ``--seed + 1``. Under ``torchrun`` both models
+shard over the mesh of ``--model_parallelism`` (``cli/__init__.py``) and
+rank 0 writes the files; ``--checkpoint_backend orbax`` writes the sharded
+DCP layout (``train/checkpoint.py``)::
+
+    torchrun --nproc_per_node 2 -m whisper_context_biasing_tpu_torch.cli.distill \
+        --model_parallelism 2 --checkpoint_backend orbax ...
 """
 
 from __future__ import annotations
@@ -30,10 +35,13 @@ from .._device import resolve_device
 from ..config import DATA_DIR, JSONL_DATA
 from ..data import PromptWhisperDataset, SpeechSeq2SeqCollator
 from ..models import get_config, init_state_dict, load_checkpoint_or_safetensors, save_safetensors
+from ..parallel import auto_mesh, initialize_multihost
+from ..parallel.multihost import process_index
+from ..parallel.sharding import gather_tensor
 from ..tokenizer import load_tokenizer
 from ..train import DistillConfig, distill_and_evaluate
 from ..utils import warn_missing_assets
-from . import check_model_parallelism, not_ported, report_devices
+from . import report_devices
 
 
 def parse_args(argv=None):
@@ -76,10 +84,12 @@ def parse_args(argv=None):
     p.add_argument("--logging_steps", type=int, default=50)
     p.add_argument("--eval_batches", type=int, default=16)
     p.add_argument("--model_parallelism", type=int, default=1,
-                   help="0 or 1: one device (a tensor-parallel degree > 1 is not "
-                        "ported yet)")
+                   help="1: data parallel over every process (one per card, "
+                        "torchrun); N>1: data x model mesh; 0: no mesh")
     p.add_argument("--checkpoint_backend", choices=["npz", "orbax"], default="npz",
-                   help="orbax is not ported yet")
+                   help="npz: the JAX package's files, gathered whole; orbax: "
+                        "torch.distributed.checkpoint dirs (params_dcp/, opt_dcp/), "
+                        "each rank writing its own shards")
     p.add_argument("--seed", type=int, default=42)
     # the port's own
     p.add_argument("--device", type=str, default="cuda",
@@ -90,11 +100,8 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     print(f"Arguments: {vars(args)}")
-    check_model_parallelism(args.model_parallelism)
-    if args.checkpoint_backend == "orbax":
-        not_ported("--checkpoint_backend orbax", "A.9")
+    initialize_multihost(device=args.device)
     device = resolve_device(args.device)
-    report_devices(device)
     warn_missing_assets(args.vocab, args.init_checkpoint, "distill")
 
     tokenizer = load_tokenizer(args.vocab, args.merges,
@@ -146,6 +153,10 @@ def main(argv=None):
             raise ValueError(f"{name} dataset is empty")
         print(f"{name} data length: {len(ds)}")
 
+    # the JAX script's auto-mesh, built where it builds it: both models
+    # shard over it inside distill_and_evaluate
+    mesh = auto_mesh(args.model_parallelism, batch_divisor=args.batch)
+    report_devices(device, mesh)
     dcfg = DistillConfig(
         output_dir=args.output,
         per_device_train_batch_size=args.batch,
@@ -165,7 +176,11 @@ def main(argv=None):
     print("Starting distillation...")
     draft, log_history = distill_and_evaluate(
         cfg_d, params_d, cfg_t, params_t, data_train, data_eval, collator, dcfg,
-        device=device)
+        mesh=mesh, device=device)
+    # the whole draft (collective over "model"), for rank 0's export
+    full = {n: gather_tensor(draft, n, p.detach()) for n, p in draft.named_parameters()}
+    if process_index() != 0:
+        return draft, log_history
 
     summary = next((h for h in reversed(log_history) if "best_agreement" in h), {})
     print(f"Distillation done: best dev agreement "
@@ -175,7 +190,7 @@ def main(argv=None):
         json.dump(summary, f, indent=2)
 
     # HF-loadable export of the final draft beside the native checkpoints
-    save_safetensors(dict(draft.named_parameters()), cfg_d, args.output)
+    save_safetensors(full, cfg_d, args.output)
     print(f"safetensors export: {args.output}/model.safetensors")
     return draft, log_history
 

@@ -20,8 +20,8 @@ def parse_args(argv=None):
     p.add_argument("--model", default="base.en",
                    help="architecture name (sets dims for native checkpoints)")
     p.add_argument("--checkpoint", required=True,
-                   help="native checkpoint-N dir (params.npz) or an HF "
-                        "safetensors file/dir (roundtrip)")
+                   help="native checkpoint-N dir (params.npz or params_dcp/) or "
+                        "an HF safetensors file/dir (roundtrip)")
     p.add_argument("--out", required=True,
                    help="output directory (or .safetensors path)")
     return p.parse_args(argv)

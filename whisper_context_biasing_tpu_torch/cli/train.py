@@ -18,8 +18,10 @@ the evaluations' encoder. ``--lora_rank N`` trains LoRA adapters over the
 frozen model (checkpoints hold the adapters; the test evaluation and the
 export see the merged weights), ``--spec_augment`` masks the features in
 the step. ``--remat`` takes the JAX policies (full, dots, wide, none).
-Under ``torchrun`` the run is data / tensor parallel by
-``--model_parallelism`` (``cli/__init__.py``). ``--device`` (default
+``--checkpoint_backend orbax`` writes the sharded DCP layout
+(``train/checkpoint.py``). Under ``torchrun`` the run is data / tensor
+parallel by ``--model_parallelism`` (``cli/__init__.py``), LoRA included.
+``--device`` (default
 ``cuda``) is the port's own flag; see ``cli/__init__.py`` for the other
 deviations.
 """
@@ -45,7 +47,7 @@ from ..parallel.multihost import process_index
 from ..tokenizer import load_tokenizer
 from ..train import TrainingConfig, evaluate_wer, latest_checkpoint, train_and_evaluate
 from ..utils import push_to_hub_if_exists, upload_results_to_hub, warn_missing_assets
-from . import not_ported, report_devices
+from . import report_devices
 
 
 def parse_args(argv=None):
@@ -96,7 +98,8 @@ def parse_args(argv=None):
     p.add_argument("--remat", default="auto",
                    choices=["auto", "full", "dots", "wide", "none"],
                    help="rematerialization policy for transformer blocks: "
-                        "auto = full; dots and wide are not ported yet")
+                        "auto = full (recompute each block), dots (keep the "
+                        "matmul outputs), wide (recompute the MLP alone), none")
     p.add_argument("--freeze_encoder", action="store_true",
                    help="train the decoder only (reference freeze_encoder())")
     p.add_argument("--lora_rank", type=int, default=0,
@@ -113,18 +116,14 @@ def parse_args(argv=None):
                    help="SpecAugment mel masking in the train step (2 freq + 2 "
                         "time masks, mean fill; train-time only)")
     p.add_argument("--checkpoint_backend", choices=["npz", "orbax"], default="npz",
-                   help="orbax is not ported yet")
+                   help="npz: the JAX package's files, gathered whole; orbax: "
+                        "torch.distributed.checkpoint dirs (params_dcp/, opt_dcp/), "
+                        "each rank writing its own shards")
     p.add_argument("--seed", type=int, default=42)
     # the port's own
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (cpu for tests)")
     return p.parse_args(argv)
-
-
-def check_ported(args) -> None:
-    """Raise for a flag whose module is not ported yet, before any data is read."""
-    if args.checkpoint_backend == "orbax":
-        not_ported("--checkpoint_backend orbax", "A.9")
 
 
 def training_config(args) -> TrainingConfig:
@@ -162,7 +161,6 @@ def model_config(args):
 def main(argv=None):
     args = parse_args(argv)
     print(f"Arguments: {vars(args)}")
-    check_ported(args)
     initialize_multihost(device=args.device)
     device = resolve_device(args.device)
     # the JAX script's auto-mesh: data parallel over every process by

@@ -161,8 +161,9 @@ def load_torch_model(model, cfg: WhisperConfig | None = None
 
 
 def load_checkpoint_or_safetensors(path: str, cfg: WhisperConfig | None = None):
-    """Load either a native checkpoint-N dir (npz) or an HF safetensors
-    checkpoint; returns (state dict, cfg)."""
+    """Load either a native checkpoint-N dir (npz or the sharded DCP
+    layout, whole whatever mesh wrote it) or an HF safetensors checkpoint;
+    returns (state dict, cfg)."""
     from ..train.checkpoint import is_native_checkpoint, load_checkpoint
 
     if is_native_checkpoint(path):

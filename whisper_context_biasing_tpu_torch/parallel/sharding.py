@@ -98,29 +98,39 @@ def shard_params(model, mesh, cfg=None, device=None):
     ``model`` itself. The attention heads and the FFN width must divide by
     the model axis; the vocabulary need not."""
     from ..models.convert import build_model
-    from ..models.whisper import Whisper, int8_decoder_layout
+    from ..models.whisper import Whisper
 
     if not isinstance(model, Whisper):
         model = build_model(cfg, model, device=device or "cuda")
     size = axis_size(mesh, MODEL_AXIS)
     if size == 1:
         return model
-    cfg = model.cfg
-    if cfg.n_heads % size:
-        raise ValueError(f"{cfg.n_heads} attention heads do not divide over "
+    if model.cfg.n_heads % size:
+        raise ValueError(f"{model.cfg.n_heads} attention heads do not divide over "
                          f"model_parallelism={size}")
     tp = TensorParallel(axis_group(mesh, MODEL_AXIS))
-    sd = model.state_dict()
-    grads = {n: p.requires_grad for n, p in model.named_parameters()}
-    int8 = sd["decoder.token_emb"].dtype == torch.int8
-    with torch.device("meta"):  # every tensor is set below
-        local = Whisper(cfg, untied_head=model.proj_out is not None)
-        if int8:
-            int8_decoder_layout(local)
-    for name, t in sd.items():
+    local = {}
+    for name, t in model.state_dict().items():
         d = _model_dim(name, t.ndim)
-        _set_tensor(local, name, t.detach().clone() if d is None else _local_slice(t, d, tp),
-                    grads.get(name, False))
+        local[name] = t.detach().clone() if d is None else _local_slice(t, d, tp)
+    return like_shard(model, local, tp)
+
+
+def like_shard(model, tensors: dict, tp: TensorParallel | None = None):
+    """A new ``Whisper`` laid out as ``model`` (its config, head, int8
+    layout, mode and which parameters train) that holds ``tensors``, a
+    whole state dict of this rank's shards, and runs the collectives over
+    ``tp`` (``model``'s own by default)."""
+    from ..models.whisper import Whisper, int8_decoder_layout
+
+    tp = tp or model.tp
+    grads = {n: p.requires_grad for n, p in model.named_parameters()}
+    with torch.device("meta"):  # every tensor is set below
+        local = Whisper(model.cfg, untied_head=model.proj_out is not None)
+        if tensors["decoder.token_emb"].dtype == torch.int8:
+            int8_decoder_layout(local)
+    for name, t in tensors.items():
+        _set_tensor(local, name, t, grads.get(name, False))
     local.tp = local.decoder.tp = tp
     for blk in [*local.encoder.blocks, *local.decoder.blocks]:
         for attn in [getattr(blk, a) for a in ("attn", "self_attn", "cross_attn")
@@ -144,15 +154,26 @@ def _gather_dim(t: torch.Tensor, dim: int, tp: TensorParallel, n: int) -> torch.
     return torch.cat(parts, dim=dim).narrow(dim, 0, n)
 
 
-def gather_tensor(model: Whisper, name: str, t: torch.Tensor) -> torch.Tensor:
-    """The whole of ``t``, the shard of ``model``'s entry ``name`` (or a
-    tensor laid out like it, e.g. an optimizer moment), on every rank."""
+def shard_layout(model: Whisper, name: str, t: torch.Tensor) -> tuple[int, int] | None:
+    """(dim, whole length) of ``t``, the shard of ``model``'s entry ``name``
+    (or a tensor laid out like it, e.g. an optimizer moment), when it is
+    split over "model"; None when it is held whole. The last shard of an
+    uneven dim is zero-padded to the common width (``shard_bounds``)."""
     tp = getattr(model, "tp", None)
     d = None if tp is None else _model_dim(name, t.ndim)
     if d is None:
+        return None
+    return d, model.cfg.n_vocab if name in _VOCAB else t.shape[d] * tp.size
+
+
+def gather_tensor(model: Whisper, name: str, t: torch.Tensor) -> torch.Tensor:
+    """The whole of ``t``, the shard of ``model``'s entry ``name`` (or a
+    tensor laid out like it, e.g. an optimizer moment), on every rank."""
+    layout = shard_layout(model, name, t)
+    if layout is None:
         return t
-    n = model.cfg.n_vocab if name in _VOCAB else t.shape[d] * tp.size
-    return _gather_dim(t, d, tp, n)
+    d, n = layout
+    return _gather_dim(t, d, model.tp, n)
 
 
 def gather_params(model: Whisper) -> dict:

@@ -86,20 +86,34 @@ def step_generator(augment_seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed >> 1)
 
 
-def make_augment_fn(spec_augment: SpecAugmentConfig, augment_seed: int):
+def make_augment_fn(spec_augment: SpecAugmentConfig, augment_seed: int, mesh=None):
     """``augment(batch, step) -> batch`` with its ``input_features`` masked,
     the masks drawn from ``step_generator(augment_seed, step)``; a leading
     microbatch axis (A, B, n_mels, T) is flattened through the masks, as in
-    the JAX package. Shared by the full-weight and LoRA steps."""
+    the JAX package. Shared by the full-weight and LoRA steps. Under a
+    ``mesh`` the batch holds this rank's rows of each microbatch
+    (``shard_batch``): the whole batch's masks are drawn, as one device
+    draws them, and the rank takes its rows' (the sharded step masks what
+    the unsharded one does)."""
+    from ..parallel.mesh import DATA_AXIS, axis_index, axis_size
+
     if not isinstance(spec_augment, SpecAugmentConfig):
         raise TypeError("spec_augment must be a SpecAugmentConfig, got "
                         f"{type(spec_augment).__name__}")
+    dp, r = axis_size(mesh, DATA_AXIS), axis_index(mesh, DATA_AXIS)
 
     def augment(batch: dict, step: int) -> dict:
         feats = batch["input_features"]
         flat = feats.reshape((-1,) + tuple(feats.shape[-2:]))
         g = step_generator(augment_seed, step, flat.device)
-        flat = apply_spec_augment(flat, g, spec_augment)
+        fmask, tmask = draw_spec_augment_masks(flat.shape[0] * dp, *flat.shape[1:], g,
+                                               spec_augment)
+        if dp > 1:  # row j of microbatch a is whole-batch row a * dp * b + r * b + j
+            b = feats.shape[-3]
+            rows = (torch.arange(flat.shape[0] // b)[:, None] * (dp * b) + r * b
+                    + torch.arange(b)[None, :]).reshape(-1).to(flat.device)
+            fmask, tmask = fmask[rows], tmask[rows]
+        flat = apply_spec_augment_masks(flat, fmask, tmask)
         return dict(batch, input_features=flat.reshape(feats.shape))
 
     return augment

@@ -19,11 +19,16 @@ reported every step and picks the best checkpoint.
     target): the batch carries raw audio and the mel kernel runs once per
     distinct ``n_mels`` inside the step (``_features_for``)
   * the pair must share a token space (verification compares token ids)
+  * under a (data, model) mesh (``parallel/``; one process per card) the
+    student and the teacher are sharded, each rank holds its rows of every
+    batch, and the valid-label count and the sums behind soft, hard and
+    agreement are the global batch's (summed over "data"), as the WeightCE
+    loss sums its count; the gradients sum over "data" and the clip norm
+    sums sharded squares over "model", as in ``step.py``. Rank 0 logs and
+    writes; checkpoints go through either backend (``train/checkpoint.py``)
 
-On one device only: ``mesh``, ``shard_fn``, ``eval_shard_fn`` and the Orbax
-backend raise ``NotImplementedError`` naming ROADMAP Queue A.9. ``mel_interpret``
-is the JAX signature's (Pallas interpret mode) and changes nothing here: the
-mel wrapper runs its plain version for CPU tensors.
+``mel_interpret`` is the JAX signature's (Pallas interpret mode) and changes
+nothing here: the mel wrapper runs its plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..data.collator import IGNORE_INDEX
@@ -42,12 +48,13 @@ from ..models.config import WhisperConfig
 from ..models.convert import build_model
 from ..models.whisper import Whisper, forward
 from ..ops.mel_kernel import log_mel_spectrogram_fused
+from ..parallel.mesh import DATA_AXIS, axis_group
+from ..parallel.multihost import process_index
+from ..parallel.sharding import shard_batch, shard_params, sharded_dims
 from ..utils.logging import RunLogger
-from .checkpoint import save_checkpoint
+from .checkpoint import check_backend, save_checkpoint
 from .optim import AdamW, global_norm, make_optimizer
 from .step import TrainState, _on_device, accumulate_microbatch_grads, init_train_state
-
-_A9 = "is not ported yet (ROADMAP Queue A.9)"
 
 
 def _features_for(cfg_draft: WhisperConfig, cfg_target: WhisperConfig, batch: dict):
@@ -66,10 +73,13 @@ def _features_for(cfg_draft: WhisperConfig, cfg_target: WhisperConfig, batch: di
 
 def make_distill_loss_fn(cfg_draft: WhisperConfig, cfg_target: WhisperConfig,
                          temperature: float = 2.0, hard_weight: float = 0.5,
-                         mel_interpret: bool = False):
+                         mel_interpret: bool = False, mesh=None):
     """``loss_fn(student, teacher, batch) -> (loss, aux)`` with aux
     ``{soft, hard, agreement}`` averaged over valid label positions; the
-    loss is differentiable in the student only."""
+    loss is differentiable in the student only. Under a ``mesh`` (the
+    models a rank's shards, ``batch`` its rows) the aux are the global
+    batch's on every rank and the loss is this rank's share of the global
+    loss (its sum over "data" is the loss)."""
     if cfg_draft.n_vocab != cfg_target.n_vocab:
         raise ValueError(
             f"draft/target vocab mismatch ({cfg_draft.n_vocab} vs "
@@ -77,6 +87,7 @@ def make_distill_loss_fn(cfg_draft: WhisperConfig, cfg_target: WhisperConfig,
             "ids, so the pair must share a tokenizer")
     temp = float(temperature)
     hw = float(hard_weight)
+    group = axis_group(mesh, DATA_AXIS)
 
     def loss_fn(student: Whisper, teacher: Whisper, batch: dict):
         feats_d, feats_t = _features_for(cfg_draft, cfg_target, batch)
@@ -87,35 +98,44 @@ def make_distill_loss_fn(cfg_draft: WhisperConfig, cfg_target: WhisperConfig,
         s32 = forward(student, feats_d, dec).float()
 
         valid = labels != IGNORE_INDEX
-        nvalid = valid.sum().float() + 1e-8
+        count = valid.sum()
+        if group is not None:
+            dist.all_reduce(count, group=group)
+        nvalid = count.float() + 1e-8
         # softened KL(teacher || student), Hinton's T^2 keeps gradient
         # magnitudes comparable across temperatures
         t_logp = torch.log_softmax(t32 / temp, dim=-1)
         s_logp = torch.log_softmax(s32 / temp, dim=-1)
         kl = (t_logp.exp() * (t_logp - s_logp)).sum(dim=-1)  # (B, S)
-        soft = (kl * valid).sum() / nvalid * (temp * temp)
         # hard CE against the labels (keeps the student honest where the
         # teacher itself is wrong)
         safe = torch.where(valid, labels, 0)
         nll = -torch.log_softmax(s32, dim=-1).gather(-1, safe[..., None])[..., 0]
-        hard = (nll * valid).sum() / nvalid
-        loss = (1.0 - hw) * soft + hw * hard
-        agree = ((s32.argmax(-1) == t32.argmax(-1)) & valid).sum() / nvalid
-        return loss, {"soft": soft.detach(), "hard": hard.detach(), "agreement": agree}
+        sums = [(kl * valid).sum(), (nll * valid).sum()]
+        loss = (1.0 - hw) * (sums[0] / nvalid * (temp * temp)) + hw * (sums[1] / nvalid)
+        agree = ((s32.argmax(-1) == t32.argmax(-1)) & valid).sum()
+        whole = torch.stack([sums[0].detach(), sums[1].detach(), agree.float()])
+        if group is not None:  # the global batch's sums, then its ratios
+            dist.all_reduce(whole, group=group)
+        return loss, {"soft": whole[0] / nvalid * (temp * temp), "hard": whole[1] / nvalid,
+                      "agreement": whole[2] / nvalid}
 
     return loss_fn
 
 
 def make_distill_step(cfg_draft: WhisperConfig, cfg_target: WhisperConfig, optimizer: AdamW,
                       temperature: float = 2.0, hard_weight: float = 0.5, grad_accum: int = 1,
-                      donate: bool = True, mel_interpret: bool = False):
+                      donate: bool = True, mel_interpret: bool = False, mesh=None):
     """Returns ``step(state, teacher, batch) -> (state, metrics)``: ``state``
     (``init_train_state``) holds the student, updated in place; the teacher
     rides along frozen. Metrics: loss, grad_norm, soft, hard, agreement
     (0-d tensors). With ``grad_accum > 1`` every tensor in ``batch`` carries
     a leading microbatch axis. ``donate`` is the JAX signature's and changes
-    nothing here."""
-    loss_fn = make_distill_loss_fn(cfg_draft, cfg_target, temperature, hard_weight)
+    nothing here. ``mesh``: the student and the teacher are a rank's shards
+    (``shard_params``), ``batch`` its rows (``shard_batch``); the metrics
+    are the global ones on every rank."""
+    loss_fn = make_distill_loss_fn(cfg_draft, cfg_target, temperature, hard_weight,
+                                   mesh=mesh)
 
     def step(state: TrainState, teacher: Whisper, batch: dict):
         student = state.model
@@ -127,9 +147,11 @@ def make_distill_step(cfg_draft: WhisperConfig, cfg_target: WhisperConfig, optim
             auxes.append(aux)
             return loss
 
-        loss, grads = accumulate_microbatch_grads(loss_only, student, batch, grad_accum)
+        loss, grads = accumulate_microbatch_grads(loss_only, student, batch, grad_accum, mesh)
         aux = {k: torch.stack([a[k] for a in auxes]).sum() / grad_accum for k in auxes[0]}
-        norm = global_norm(grads)
+        tp = student.tp
+        norm = (global_norm(grads) if tp is None else
+                global_norm(grads, [d is not None for d in sharded_dims(student)], tp.group))
         optimizer.update_(student.parameters(), grads, state.opt_state, norm=norm)
         state.step += 1
         return state, {"loss": loss, "grad_norm": norm, **aux}
@@ -139,16 +161,21 @@ def make_distill_step(cfg_draft: WhisperConfig, cfg_target: WhisperConfig, optim
 
 def make_agreement_step(cfg_draft: WhisperConfig, cfg_target: WhisperConfig,
                         temperature: float = 2.0, hard_weight: float = 0.5,
-                        mel_interpret: bool = False):
+                        mel_interpret: bool = False, mesh=None):
     """Forward-only evaluation: ``eval_step(student, teacher, batch)`` ->
     ``{loss, soft, hard, agreement}`` for one batch (the dev-set acceptance
-    probe)."""
-    loss_fn = make_distill_loss_fn(cfg_draft, cfg_target, temperature, hard_weight)
+    probe); under a ``mesh``, of the global batch whose rows the ranks
+    hold."""
+    loss_fn = make_distill_loss_fn(cfg_draft, cfg_target, temperature, hard_weight,
+                                   mesh=mesh)
+    group = axis_group(mesh, DATA_AXIS)
 
     @torch.no_grad()
     def eval_step(student: Whisper, teacher: Whisper, batch: dict) -> dict:
         loss, aux = loss_fn(student, teacher,
                             _on_device(batch, next(student.parameters()).device))
+        if group is not None:
+            dist.all_reduce(loss, group=group)
         return {"loss": loss, **aux}
 
     return eval_step
@@ -173,7 +200,7 @@ class DistillConfig:
     save_total_limit: int = 2
     seed: int = 42
     mel_interpret: bool = False     # the JAX signature's; unused here
-    checkpoint_backend: str = "npz"  # "orbax" is not ported (ROADMAP A.9)
+    checkpoint_backend: str = "npz"  # or "orbax": DCP, sharded (train/checkpoint.py)
 
 
 def distill_and_evaluate(
@@ -195,13 +222,25 @@ def distill_and_evaluate(
     are state dicts (None: the seeded init); the student trains f32
     masters, the teacher serves in the compute dtype. Checkpoints carry
     ``eval_agreement`` (higher is better) and ``eval_disagreement``, which
-    retention minimizes; the best-agreement step is in the log."""
-    if mesh is not None or shard_fn is not None or eval_shard_fn is not None:
-        raise NotImplementedError(f"sharded distillation {_A9}")
-    if dcfg.checkpoint_backend == "orbax":
-        raise NotImplementedError(f"the Orbax checkpoint backend {_A9}")
+    retention minimizes; the best-agreement step is in the log.
+
+    ``mesh`` (``parallel.auto_mesh``): both models are sharded
+    (``shard_params``) and the returned student is this rank's shard;
+    ``shard_fn`` maps each (global) training batch to this rank's part and
+    ``eval_shard_fn`` each probe batch, both ``shard_batch`` over "data" by
+    default. Every rank computes the probe's global agreement; rank 0 alone
+    logs and writes files."""
+    check_backend(dcfg.checkpoint_backend)
     device = resolve_device(device)
     accum = dcfg.gradient_accumulation_steps
+    if mesh is not None:
+        if shard_fn is None:
+            def shard_fn(b):
+                return shard_batch(b, mesh, extra_leading_axes=1 if accum > 1 else 0)
+        if eval_shard_fn is None:
+            def eval_shard_fn(b):
+                return shard_batch(b, mesh)
+    lead = process_index() == 0
     steps_per_epoch = max(1, len(data_train) // (dcfg.per_device_train_batch_size * accum))
     total_steps = int(steps_per_epoch * dcfg.num_train_epochs)
 
@@ -211,11 +250,13 @@ def distill_and_evaluate(
         max_grad_norm=dcfg.max_grad_norm)
     student = build_model(cfg_draft, params_draft, seed=dcfg.seed + 1, device=device, train=True)
     teacher = build_model(cfg_target, params_target, seed=dcfg.seed, device=device)
+    if mesh is not None:  # the moments start from the shards: no shard_opt_state
+        student, teacher = shard_params(student, mesh), shard_params(teacher, mesh)
     state = init_train_state(student, optimizer)
     step_fn = make_distill_step(cfg_draft, cfg_target, optimizer, temperature=dcfg.temperature,
-                                hard_weight=dcfg.hard_weight, grad_accum=accum)
+                                hard_weight=dcfg.hard_weight, grad_accum=accum, mesh=mesh)
     eval_fn = make_agreement_step(cfg_draft, cfg_target, temperature=dcfg.temperature,
-                                  hard_weight=dcfg.hard_weight)
+                                  hard_weight=dcfg.hard_weight, mesh=mesh)
 
     loader = BatchLoader(data_train, collator,
                          batch_size=dcfg.per_device_train_batch_size * accum,
@@ -246,12 +287,15 @@ def distill_and_evaluate(
         for i, b in enumerate(ev):
             if i >= dcfg.eval_batches:
                 break
-            tot += float(eval_fn(state.model, teacher, pad_rows(b))["agreement"])
+            b = pad_rows(b)  # before the shard: every rank gets equal rows
+            if eval_shard_fn is not None:
+                b = eval_shard_fn(b)
+            tot += float(eval_fn(state.model, teacher, b)["agreement"])
             n += 1
         return tot / max(n, 1)
 
     os.makedirs(dcfg.output_dir, exist_ok=True)
-    logger = RunLogger(dcfg.output_dir)
+    logger = RunLogger(dcfg.output_dir) if lead else None
     log_history: list[dict] = []
     best = {"agreement": -1.0, "step": -1}
     last_eval: tuple[float, int] | None = None
@@ -260,7 +304,8 @@ def distill_and_evaluate(
 
     def batches():
         for raw in loader:
-            yield reshape_accum(raw)
+            b = reshape_accum(raw)
+            yield b if shard_fn is None else shard_fn(b)
 
     for epoch in range(int(np.ceil(dcfg.num_train_epochs))):
         if gstep >= total_steps:
@@ -274,12 +319,14 @@ def distill_and_evaluate(
                 row = {k: float(v) for k, v in metrics.items()}
                 row.update(step=gstep, epoch=epoch, wall_s=round(time.time() - t0, 1))
                 log_history.append(row)
-                logger.log(row)
+                if lead:
+                    logger.log(row)
             if gstep % dcfg.eval_steps == 0 or gstep == total_steps:
                 acc = probe_agreement()
                 row = {"step": gstep, "eval_agreement": acc}
                 log_history.append(row)
-                logger.log(row)
+                if lead:
+                    logger.log(row)
                 last_eval = (acc, gstep)
                 if acc > best["agreement"]:
                     best = {"agreement": acc, "step": gstep}
@@ -294,10 +341,12 @@ def distill_and_evaluate(
                                 eval_step=estep)
                 save_checkpoint(dcfg.output_dir, gstep, state.model, state.opt_state,
                                 metadata=meta, keep=dcfg.save_total_limit,
-                                best_metric_key="eval_disagreement")
+                                best_metric_key="eval_disagreement",
+                                backend=dcfg.checkpoint_backend, mesh=mesh)
 
     row = {"best_agreement": best["agreement"], "best_step": best["step"],
            "total_steps": gstep}
     log_history.append(row)
-    logger.log(row)
+    if lead:
+        logger.log(row)
     return state.model, log_history

@@ -9,9 +9,11 @@ replacement for HF ``Seq2SeqTrainer`` as the reference drives it
   * AdamW + cosine w/ warmup, weight decay, grad clipping
   * eval every ``eval_steps`` optimizer steps: batched greedy (or beam)
     decode over the KV cache, scored by the compute_wer flow, refs_and_pred.txt written
-  * checkpoint every ``save_steps`` (the JAX package's npz layout) with the
-    accumulated log_history, written on a background thread; retention
-    keep-N + best (load_best_model_at_end on lowest eval_wer)
+  * checkpoint every ``save_steps`` with the accumulated log_history: the
+    JAX package's npz layout, written on a background thread, or with
+    ``checkpoint_backend="orbax"`` the sharded DCP layout, written on the
+    step's thread (``train/checkpoint.py``); retention keep-N + best
+    (load_best_model_at_end on lowest eval_wer)
   * early stopping patience on eval_wer
   * resume from the newest local checkpoint, optimizer state included
 
@@ -28,13 +30,12 @@ steps and the eval's encoder run the fused LayerNorm+matmul kernel. With
 (``train/lora.py``): checkpoints hold the adapter tree with ``lora_rank`` and
 ``lora_alpha`` stamped in ``trainer_state.json``, evaluations and the
 returned model have the merged dense weights. Under a (data, model) mesh
-(``parallel/``; one process per card) the model is sharded, each rank keeps
-its rows of every global batch, evaluations decode their rows and gather
-the tokens, and checkpoints hold the whole gathered npz (either package
-loads it, on any mesh; a resume re-shards it). Rank 0 alone logs and writes
-files. Options whose modules are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: the Orbax backend and
-LoRA under a mesh (A.9). With ``hub_model_id``
+(``parallel/``; one process per card) the model is sharded (with LoRA the
+adapters too, ``train/lora.py``), each rank keeps its rows of every global
+batch, evaluations decode their rows and gather the tokens, and
+checkpoints hold the whole gathered npz, or each rank's shards with the
+DCP backend (either loads whole on any mesh; a resume re-shards it). Rank 0
+alone logs and writes the npz and metadata files. With ``hub_model_id``
 each save pushes the output dir to the Hub and a resume without a local
 checkpoint tries a Hub snapshot, as in JAX; offline both degrade to a
 warning (``utils/hub.py``).
@@ -68,10 +69,13 @@ from ..parallel.sharding import load_params, shard_batch, shard_opt_state, shard
 from ..utils import hub
 from ..utils.logging import RunLogger
 from .checkpoint import (
+    check_backend,
     find_best_checkpoint,
     host_arrays,
     latest_checkpoint,
     load_checkpoint,
+    save_checkpoint,
+    save_sharded,
     write_checkpoint,
 )
 from .augment import SpecAugmentConfig
@@ -79,10 +83,12 @@ from .lora import (
     init_lora_params,
     init_lora_state,
     load_lora_checkpoint,
+    lora_dcp_entries,
     lora_host_arrays,
     lora_param_count,
     make_lora_train_step,
     merge_lora,
+    shard_lora,
 )
 from .optim import make_optimizer
 from .step import init_train_state, make_train_step
@@ -103,7 +109,7 @@ class TrainingConfig:
     save_steps: int = 135
     logging_steps: int = 50
     save_total_limit: int = 1
-    checkpoint_backend: str = "npz"  # "orbax" is not ported (ROADMAP A.9)
+    checkpoint_backend: str = "npz"  # or "orbax": DCP, sharded (train/checkpoint.py)
     early_stopping_patience: int = 3
     generation_max_length: int = 225
     bias_weight: float = 1.5
@@ -127,17 +133,6 @@ class TrainingConfig:
     hub_model_id: str | None = None
     hub_token: str | None = None
     hub_push_on_save: bool = True
-
-
-def _check_ported(tcfg: TrainingConfig) -> None:
-    if tcfg.lora_rank > 0 and tcfg.mel_on_device:
-        raise ValueError("lora_rank with mel_on_device is not supported")
-    if tcfg.checkpoint_backend == "orbax":
-        raise NotImplementedError("the Orbax checkpoint backend is not ported yet "
-                                  "(ROADMAP Queue A.9)")
-    if tcfg.checkpoint_backend != "npz":
-        raise ValueError(f"unknown checkpoint backend {tcfg.checkpoint_backend!r} "
-                         "(expected 'npz' or 'orbax')")
 
 
 def evaluate_wer(
@@ -286,9 +281,10 @@ def train_and_evaluate(
     (``parallel.gather_params`` gives the whole); evaluations decode over
     "data". ``shard_fn`` maps each (global) batch to this rank's part;
     under a mesh it defaults to ``shard_batch`` over "data"."""
-    _check_ported(tcfg)
-    if mesh is not None and tcfg.lora_rank > 0:
-        raise NotImplementedError("LoRA under a mesh is not ported yet (ROADMAP Queue A.9)")
+    if tcfg.lora_rank > 0 and tcfg.mel_on_device:
+        raise ValueError("lora_rank with mel_on_device is not supported")
+    check_backend(tcfg.checkpoint_backend)
+    sharded_save = tcfg.checkpoint_backend == "orbax"
     device = resolve_device(device)
     accum = tcfg.gradient_accumulation_steps
     if shard_fn is None and mesh is not None:
@@ -313,7 +309,7 @@ def train_and_evaluate(
     if lora:
         lora_step = make_lora_train_step(
             model_cfg, optimizer, alpha=tcfg.lora_alpha, bias_weight=tcfg.bias_weight,
-            grad_accum=accum, spec_augment=sa_cfg, augment_seed=tcfg.seed)
+            grad_accum=accum, spec_augment=sa_cfg, augment_seed=tcfg.seed, mesh=mesh)
     else:
         step_fn = make_train_step(
             model_cfg, optimizer, bias_weight=tcfg.bias_weight, grad_accum=accum,
@@ -351,6 +347,8 @@ def train_and_evaluate(
         model = shard_params(model, mesh)
     if lora:
         base = model.requires_grad_(False)
+        if resumed is not None:  # whole adapters and moments: this rank's shards
+            resumed, resumed_opt_state = shard_lora(resumed, base.tp, resumed_opt_state)
         adapters = resumed if resumed is not None else init_lora_params(
             base, tcfg.lora_rank, torch.Generator().manual_seed(tcfg.seed),
             include_encoder=not tcfg.freeze_encoder)
@@ -367,7 +365,7 @@ def train_and_evaluate(
         def current_model():
             return model
     if resumed_opt_state is not None:
-        if mesh is not None:
+        if mesh is not None and not lora:
             resumed_opt_state = shard_opt_state(resumed_opt_state, model, mesh)
         resumed_opt_state.mu = [m.to(device) for m in resumed_opt_state.mu]
         resumed_opt_state.nu = [v.to(device) for v in resumed_opt_state.nu]
@@ -463,8 +461,9 @@ def train_and_evaluate(
             # multiple of eval_steps); the metadata carries the latest wer
             # plus the step it was measured at, so find_best_checkpoint can
             # attribute the metric only to the params that achieved it.
-            # The arrays are copied to the host here, and the write runs on
-            # a background thread so the step loop never blocks on disk
+            # npz: the arrays are copied to the host here, and the write runs
+            # on a background thread so the step loop never blocks on disk;
+            # DCP: every rank writes its shards on this thread (a collective)
             if step % tcfg.save_steps == 0 or stop:
                 meta = {"log_history": list(log_history)}
                 if last_wer is not None:
@@ -475,8 +474,30 @@ def train_and_evaluate(
                 if lora:
                     meta["lora_rank"] = tcfg.lora_rank
                     meta["lora_alpha"] = tcfg.lora_alpha
-                    host_params, host_opt = lora_host_arrays(state.model, state.opt_state)
-                else:  # gathered over "model" on every rank
+
+                def _push():
+                    # reference PushToHubOnSaveCallback parity: every save
+                    # pushes the output dir (checkpoint-N/ layout kept)
+                    if tcfg.hub_push_on_save and tcfg.hub_model_id:
+                        hub.push_to_hub_if_exists(tcfg.output_dir, tcfg.hub_model_id,
+                                                  tcfg.hub_token)
+
+                if sharded_save:
+                    kw = dict(metadata=meta, keep=tcfg.save_total_limit, mesh=mesh)
+                    if lora:
+                        save_sharded(tcfg.output_dir, step,
+                                     *lora_dcp_entries(state.model, state.opt_state, mesh,
+                                                       base.tp), **kw)
+                    else:
+                        save_checkpoint(tcfg.output_dir, step, model, state.opt_state,
+                                        backend="orbax", **kw)
+                    if lead:
+                        _push()
+                    continue
+                if lora:  # gathered over "model" on every rank
+                    host_params, host_opt = lora_host_arrays(state.model, state.opt_state,
+                                                             base.tp)
+                else:
                     host_params, host_opt = host_arrays(model, state.opt_state)
                 if not lead:
                     continue
@@ -484,11 +505,7 @@ def train_and_evaluate(
                 def _save_and_push(step=step, params=host_params, opt=host_opt, meta=meta):
                     write_checkpoint(tcfg.output_dir, step, params, opt, meta,
                                      tcfg.save_total_limit)
-                    # reference PushToHubOnSaveCallback parity: every save
-                    # pushes the output dir (checkpoint-N/ layout kept)
-                    if tcfg.hub_push_on_save and tcfg.hub_model_id:
-                        hub.push_to_hub_if_exists(tcfg.output_dir, tcfg.hub_model_id,
-                                                  tcfg.hub_token)
+                    _push()
 
                 save_thread = threading.Thread(target=_save_and_push)
                 save_thread.start()
@@ -500,7 +517,7 @@ def train_and_evaluate(
     if tcfg.load_best_model_at_end:
         best = find_best_checkpoint(tcfg.output_dir)
         if best and lora:
-            state.model, _, _ = load_lora_checkpoint(best, device=device)
+            state.model = shard_lora(load_lora_checkpoint(best, device=device)[0], base.tp)[0]
         elif best:
             best_params, _, _ = load_checkpoint(best, model_cfg)
             load_params(model, best_params)

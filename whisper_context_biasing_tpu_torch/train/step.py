@@ -128,14 +128,14 @@ def accumulate_microbatch_grads(loss_fn, model: Whisper, batch: dict, grad_accum
     return loss, grads
 
 
-def _check_augment(spec_augment, augment_seed: int, mel_on_device: bool):
+def _check_augment(spec_augment, augment_seed: int, mel_on_device: bool, mesh=None):
     """The step's SpecAugment function, or None; shared with the LoRA step."""
     if spec_augment is None:
         return None
     if mel_on_device:
         raise ValueError("spec_augment needs precomputed input_features "
                          "(mel_on_device computes mel inside the loss)")
-    return make_augment_fn(spec_augment, augment_seed)
+    return make_augment_fn(spec_augment, augment_seed, mesh)
 
 
 def make_train_step(
@@ -164,7 +164,7 @@ def make_train_step(
 
     ``mesh``: the batch holds this rank's rows (``shard_batch``) and the
     model its shard (``shard_params``); see the module's docstring."""
-    augment = _check_augment(spec_augment, augment_seed, mel_on_device)
+    augment = _check_augment(spec_augment, augment_seed, mel_on_device, mesh)
     loss_fn = make_loss_fn(cfg, bias_weight, use_bias_spans, mel_on_device, freeze_encoder,
                            mesh)
 
