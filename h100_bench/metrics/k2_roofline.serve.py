@@ -1,0 +1,11 @@
+"""Kernels (ops/): the flash forward kernel's launches' bound over their device
+time in a traced serving segment."""
+
+from core import readings
+
+UNIT = "%"
+MOVES = "serve_audio_s_per_s"
+
+
+def read(run: dict):
+    return readings.roofline(run, "k2")

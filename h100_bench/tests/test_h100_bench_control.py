@@ -1,0 +1,50 @@
+"""The control of each cell comes out not correct: the reference one
+precision below the configuration's (float8 operands), at the cell's own
+size on the card, on three seeds; the program on the same seeds comes out
+correct. (The port's own int8 decoder-weight path reads too close to the
+program on both served-token numbers, the widest gap and the mean gap,
+for any limit to separate them, so it is no control here.) Needs the
+card:
+
+    python -m pytest h100_bench/tests/test_h100_bench_control.py -q -m cuda
+"""
+
+import json
+import pathlib
+
+import pytest
+import torch
+
+from core import calibrate, runner
+
+pytestmark = pytest.mark.cuda
+CELLS = [w["name"] for w in json.loads(
+    (pathlib.Path(__file__).resolve().parents[2] / "BENCHMARK.json").read_text())["workloads"]]
+SEEDS = (2 ** 31 + 11, 2 ** 31 + 12, 2 ** 31 + 13)
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the cells run at their published widths")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _fails(readings: dict, limits: dict) -> bool:
+    return any(v > limits[n] for n, v in readings.items())
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_fails_and_the_program_passes(card, cell):
+    spec = runner.load_spec(cell)
+    limits = spec["cell"]["limits"]
+    for seed in SEEDS:
+        if spec["traffic"]["kind"] == "serve":
+            prog, _ = calibrate.serve_readings(spec, seed, 2.0, "program")
+            control, _ = calibrate.serve_readings(spec, seed, 2.0, "fp8")
+        else:
+            got, _ = calibrate.train_readings(spec, seed, control=True)
+            prog, control = got["program"], got["fp8"]
+        assert not _fails(prog, limits), (seed, prog)
+        assert _fails(control, limits), (seed, control)
