@@ -784,7 +784,7 @@ def mel_split(torch, pipe, ops, clips, kwargs, card, rounds: int = 5) -> None:
     from whisper_context_biasing_tpu_torch import pipeline as pipeline_module
     from whisper_context_biasing_tpu_torch.audio import pad_or_trim
     from whisper_context_biasing_tpu_torch.audio.mel import log_mel_tail
-    from whisper_context_biasing_tpu_torch.decode.greedy import Clock
+    from whisper_context_biasing_tpu_torch.utils.profiling import Clock
 
     host, pauses = {}, []
 

@@ -35,6 +35,7 @@ from ..models.whisper import (
     quantize_cross_kv,
 )
 from ..utils.compile_count import counted_jit
+from ..utils.profiling import Clock
 from .bias_processor import (
     BiasTrieState,
     advance_bias_state,
@@ -44,7 +45,6 @@ from .bias_processor import (
     seed_bias_state_from_prefix,
 )
 from .greedy import (
-    Clock,
     _as_tensor,
     apply_timestamp_rules,
     build_prefixes,

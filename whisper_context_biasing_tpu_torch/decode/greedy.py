@@ -5,9 +5,13 @@ The counterpart of the JAX package's ``decode/greedy.py``: encode, precompute
 left-padded prefix (``<|startofprev|> ctx... <|sot|>``) into the cache, then
 one cached decoder step per token with the bias-trie bonus, greedy argmax (or
 temperature sampling) and a stop at <|endoftext|>. JAX runs the loop as one
-``while_loop`` program; here it is a Python loop whose ``finished.all()``
-check syncs with the host once per step. The cache has a static shape and is
-written in place.
+``while_loop`` program; here it is a Python loop whose count of the rows
+still running syncs with the host once per step. The cache has a static
+shape and is written in place. While a ``torch.profiler`` session is active
+the call is traced (``utils/profiling.py``): a ``decode`` span with
+``decode.encode``, ``decode.prefill`` and a ``decode.step`` a step (each
+with its ``decode.bias`` spans and its ``decode.sync``), and the counters
+``decode.rows`` and ``decode.live_rows``.
 
 Each step's logits go through JAX's filter order: suppressed tokens, the
 bias bonus, OpenAI's timestamp rules (``apply_timestamp_rules``), then the
@@ -24,7 +28,6 @@ steps, so the gather over "data" comes once, after the loop.
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +46,7 @@ from ..models.whisper import (
 from ..parallel.mesh import DATA_AXIS, axis_index
 from ..parallel.sharding import gather_rows, shard_decode_inputs
 from ..utils.compile_count import counted_jit
+from ..utils.profiling import Clock, count, span
 from .bias_processor import (
     advance_bias_state,
     bias_bonus,
@@ -178,28 +182,6 @@ def sot_offsets(sot_offset, b: int, device) -> torch.Tensor:
     return torch.broadcast_to(off.to(device=device, dtype=torch.int64), (b,))
 
 
-class Clock:
-    """Named time marks: CUDA events on a card, the host clock on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks: dict = {}
-
-    def mark(self, name: str) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks[name] = ev
-        else:
-            self.marks[name] = time.perf_counter()
-
-    def ms(self, a: str, b: str) -> float:
-        if self.cuda:
-            self.marks[b].synchronize()
-            return self.marks[a].elapsed_time(self.marks[b])
-        return (self.marks[b] - self.marks[a]) * 1e3
-
-
 def _as_tensor(x, device, dtype=None):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype or x.dtype)
@@ -310,124 +292,145 @@ def _greedy_decode(
     device = resolve_device(device)
     if next(model.parameters()).device != device:
         raise ValueError(f"model is on {next(model.parameters()).device}, decode asked for {device}")
-    cfg = model.cfg
-    feats = _as_tensor(input_features, device, torch.float32)
-    ids = _as_tensor(prefix_ids, device, torch.int64)
-    mask = _as_tensor(prefix_mask, device, torch.bool)
-    b, p = ids.shape
-    # prompt + new tokens share the n_text_ctx window
-    max_new = min(max_new, cfg.n_text_ctx - p)
-    if max_new < 1:
-        raise ValueError(f"prefix length {p} leaves no room to generate "
-                         f"(n_text_ctx {cfg.n_text_ctx})")
-    clock = Clock(device) if timings is not None else None
-    if clock:
-        clock.mark("start")
+    with span("decode"):
+        cfg = model.cfg
+        feats = _as_tensor(input_features, device, torch.float32)
+        ids = _as_tensor(prefix_ids, device, torch.int64)
+        mask = _as_tensor(prefix_mask, device, torch.bool)
+        b, p = ids.shape
+        count("decode.rows", b)
+        # prompt + new tokens share the n_text_ctx window
+        max_new = min(max_new, cfg.n_text_ctx - p)
+        if max_new < 1:
+            raise ValueError(f"prefix length {p} leaves no room to generate "
+                             f"(n_text_ctx {cfg.n_text_ctx})")
+        clock = Clock(device) if timings is not None else None
+        if clock:
+            clock.mark("start")
 
-    enc_out = encode_audio(model, feats)
-    if clock:
-        clock.mark("encoded")
-    cross_kv = precompute_cross_kv(model, enc_out)
-    if cfg.quantize_cross_kv:
-        cross_kv = quantize_cross_kv(cross_kv, tp=model.tp)
-    cache = init_kv_cache(cfg, b, p + max_new, device, width=kv_width(model))
+        with span("decode.encode"):
+            enc_out = encode_audio(model, feats)
+        if clock:
+            clock.mark("encoded")
+        use_bias = bias_spans is not None and bias_boost != 0.0
+        spans = (torch.zeros((b, 1, 1), dtype=torch.int32, device=device) if bias_spans is None
+                 else _as_tensor(bias_spans, device, torch.int32))
+        forced_at = None if forced_eot_at is None else _as_tensor(forced_eot_at, device,
+                                                                  torch.int64)
+        margins = (torch.zeros((b, max_new), dtype=torch.float32, device=device)
+                   if return_margins else None)
+        suppress = (torch.as_tensor(suppress_tokens, dtype=torch.int64, device=device)
+                    if suppress_tokens else None)
+        row_draws = (RowDraws(call_seed(generator), b, row_offset, global_rows, device)
+                     if temperature > 0.0 else None)
 
-    # positions: pads don't advance the position counter (left-pad support)
-    prefix_pos = torch.clamp(torch.cumsum(mask.to(torch.int64), dim=1) - 1, min=0)
-    key_mask = torch.cat([mask, torch.ones((b, max_new), dtype=torch.bool, device=device)], 1)
-    logits, cache = decode_tokens(model, ids, cross_kv=cross_kv, cache=cache, pos_offset=0,
-                                  token_positions=prefix_pos, self_mask=key_mask)
-    pos = prefix_pos[:, -1] + 1  # (B,)
+        def pick(lg, state, t, ts_state):
+            lg = lg.float()
+            if suppress is not None:
+                lg = lg.index_fill(1, suppress, NEG)
+            if use_bias:
+                with span("decode.bias"):
+                    lg = lg + bias_bonus(state, spans, cfg.n_vocab, bias_boost)
+            if timestamp_begin is not None:
+                lg = apply_timestamp_rules(
+                    lg, *ts_state, timestamp_begin=timestamp_begin, eot_id=eot_id,
+                    is_first=t == 0, max_initial_timestamp_index=max_initial_timestamp_index)
+            if temperature > 0.0:
+                nxt = sample_tokens(lg, temperature, row_draws.next())
+            else:
+                nxt = torch.argmax(lg, dim=-1)
+            logp = torch.log_softmax(lg, dim=-1).gather(1, nxt[:, None])[:, 0]
+            if margins is not None:
+                top2 = lg.topk(2, dim=-1).values
+                margins[:, t] = top2[:, 0] - top2[:, 1]
+            return nxt, logp
 
-    no_speech_prob = None
-    if no_speech_id is not None:
-        sot_lg = logits[torch.arange(b, device=device), p - sot_offsets(sot_offset, b, device)]
-        no_speech_prob = torch.softmax(sot_lg.float(), dim=-1)[:, no_speech_id]
+        def advance(state, tok):
+            if not use_bias:
+                return state
+            with span("decode.bias"):
+                return advance_bias_state(state, spans, tok)
 
-    use_bias = bias_spans is not None and bias_boost != 0.0
-    spans = (torch.zeros((b, 1, 1), dtype=torch.int32, device=device) if bias_spans is None
-             else _as_tensor(bias_spans, device, torch.int32))
-    bias_state = init_bias_state(spans, span_pad_id)
-    if use_bias:
-        # the conditioning context may end mid-bias-word: warm-start the trie
-        bias_state = seed_bias_state_from_prefix(bias_state, spans, ids, mask)
-    forced_at = None if forced_eot_at is None else _as_tensor(forced_eot_at, device, torch.int64)
+        with span("decode.prefill", device):
+            cross_kv = precompute_cross_kv(model, enc_out)
+            if cfg.quantize_cross_kv:
+                cross_kv = quantize_cross_kv(cross_kv, tp=model.tp)
+            cache = init_kv_cache(cfg, b, p + max_new, device, width=kv_width(model))
 
-    margins = (torch.zeros((b, max_new), dtype=torch.float32, device=device)
-               if return_margins else None)
-    suppress = (torch.as_tensor(suppress_tokens, dtype=torch.int64, device=device)
-                if suppress_tokens else None)
-    row_draws = (RowDraws(call_seed(generator), b, row_offset, global_rows, device)
-                 if temperature > 0.0 else None)
+            # positions: pads don't advance the position counter (left-pad support)
+            prefix_pos = torch.clamp(torch.cumsum(mask.to(torch.int64), dim=1) - 1, min=0)
+            key_mask = torch.cat(
+                [mask, torch.ones((b, max_new), dtype=torch.bool, device=device)], 1)
+            logits, cache = decode_tokens(model, ids, cross_kv=cross_kv, cache=cache,
+                                          pos_offset=0, token_positions=prefix_pos,
+                                          self_mask=key_mask)
+            pos = prefix_pos[:, -1] + 1  # (B,)
 
-    def pick(lg, state, t, ts_state):
-        lg = lg.float()
-        if suppress is not None:
-            lg = lg.index_fill(1, suppress, NEG)
-        if use_bias:
-            lg = lg + bias_bonus(state, spans, cfg.n_vocab, bias_boost)
-        if timestamp_begin is not None:
-            lg = apply_timestamp_rules(
-                lg, *ts_state, timestamp_begin=timestamp_begin, eot_id=eot_id, is_first=t == 0,
-                max_initial_timestamp_index=max_initial_timestamp_index)
-        if temperature > 0.0:
-            nxt = sample_tokens(lg, temperature, row_draws.next())
-        else:
-            nxt = torch.argmax(lg, dim=-1)
-        logp = torch.log_softmax(lg, dim=-1).gather(1, nxt[:, None])[:, 0]
-        if margins is not None:
-            top2 = lg.topk(2, dim=-1).values
-            margins[:, t] = top2[:, 0] - top2[:, 1]
-        return nxt, logp
+            no_speech_prob = None
+            if no_speech_id is not None:
+                at = p - sot_offsets(sot_offset, b, device)
+                sot_lg = logits[torch.arange(b, device=device), at]
+                no_speech_prob = torch.softmax(sot_lg.float(), dim=-1)[:, no_speech_id]
 
-    none = torch.full((b,), -1, dtype=torch.int64, device=device)  # no generated token yet
-    cur, sum_lp = pick(logits[:, -1], bias_state, 0, (none, none, torch.zeros_like(none)))
-    if forced_at is not None:
-        # the cap overrides the model's pick and its logprob doesn't count
-        forced0 = forced_at <= 0
-        cur = torch.where(forced0, eot_id, cur)
-        sum_lp = torch.where(forced0, 0.0, sum_lp)
-    out = torch.full((b, max_new), eot_id, dtype=torch.int64, device=device)
-    out[:, 0] = cur
-    finished = cur == eot_id
-    if use_bias:
-        bias_state = advance_bias_state(bias_state, spans, cur)
-    # timestamp-rule row state: the generated token before cur, the last timestamp
-    prev = none
-    last_ts = torch.zeros_like(none)
-    if timestamp_begin is not None:
-        last_ts = torch.where(cur >= timestamp_begin, cur, last_ts)
-    if clock:
-        clock.mark("prefilled")
+            bias_state = init_bias_state(spans, span_pad_id)
+            if use_bias:
+                # the conditioning context may end mid-bias-word: warm-start the trie
+                bias_state = seed_bias_state_from_prefix(bias_state, spans, ids, mask)
 
-    t = 1
-    while t < max_new and not bool(finished.all()):
-        lg, cache = decode_tokens(model, cur[:, None], cross_kv=cross_kv, cache=cache,
-                                  pos_offset=p - 1 + t, token_positions=pos[:, None],
-                                  self_mask=key_mask)
-        nxt, lp = pick(lg[:, -1], bias_state, t, (cur, prev, last_ts))
-        if forced_at is not None:
-            forced = t >= forced_at
-            nxt = torch.where(forced, eot_id, nxt)
-            lp = torch.where(forced, 0.0, lp)
-        nxt = torch.where(finished, eot_id, nxt)
-        sum_lp = sum_lp + torch.where(finished, 0.0, lp)
-        out[:, t] = nxt
-        finished = finished | (nxt == eot_id)
-        if use_bias:
-            bias_state = advance_bias_state(bias_state, spans, nxt)
-        if timestamp_begin is not None:
-            last_ts = torch.where(nxt >= timestamp_begin, nxt, last_ts)
-        prev, cur, pos, t = cur, nxt, pos + 1, t + 1
+            none = torch.full((b,), -1, dtype=torch.int64, device=device)  # no token yet
+            cur, sum_lp = pick(logits[:, -1], bias_state, 0,
+                               (none, none, torch.zeros_like(none)))
+            if forced_at is not None:
+                # the cap overrides the model's pick and its logprob doesn't count
+                forced0 = forced_at <= 0
+                cur = torch.where(forced0, eot_id, cur)
+                sum_lp = torch.where(forced0, 0.0, sum_lp)
+            out = torch.full((b, max_new), eot_id, dtype=torch.int64, device=device)
+            out[:, 0] = cur
+            finished = cur == eot_id
+            bias_state = advance(bias_state, cur)
+            # timestamp-rule row state: the generated token before cur, the last timestamp
+            prev = none
+            last_ts = torch.zeros_like(none)
+            if timestamp_begin is not None:
+                last_ts = torch.where(cur >= timestamp_begin, cur, last_ts)
+            if clock:
+                clock.mark("prefilled")
+            # the host's one wait a step: the rows still running
+            live = b - int(finished.sum())
 
-    lengths = torch.cumprod((out != eot_id).to(torch.int32), dim=1).sum(dim=1)
-    if clock:
-        clock.mark("done")
-        timings.update(encode_ms=clock.ms("start", "encoded"),
-                       prefill_ms=clock.ms("encoded", "prefilled"),
-                       decode_ms=clock.ms("prefilled", "done"), steps=t - 1)
-    return GreedyResult(out.to(torch.int32), lengths.to(torch.int32), sum_lp, no_speech_prob,
-                        margins=margins)
+        t = 1
+        while t < max_new and live:
+            with span("decode.step"):
+                count("decode.live_rows", live)
+                lg, cache = decode_tokens(model, cur[:, None], cross_kv=cross_kv, cache=cache,
+                                          pos_offset=p - 1 + t, token_positions=pos[:, None],
+                                          self_mask=key_mask)
+                nxt, lp = pick(lg[:, -1], bias_state, t, (cur, prev, last_ts))
+                if forced_at is not None:
+                    forced = t >= forced_at
+                    nxt = torch.where(forced, eot_id, nxt)
+                    lp = torch.where(forced, 0.0, lp)
+                nxt = torch.where(finished, eot_id, nxt)
+                sum_lp = sum_lp + torch.where(finished, 0.0, lp)
+                out[:, t] = nxt
+                finished = finished | (nxt == eot_id)
+                bias_state = advance(bias_state, nxt)
+                if timestamp_begin is not None:
+                    last_ts = torch.where(nxt >= timestamp_begin, nxt, last_ts)
+                prev, cur, pos, t = cur, nxt, pos + 1, t + 1
+                if t < max_new:
+                    with span("decode.sync"):
+                        live = b - int(finished.sum())
+
+        lengths = torch.cumprod((out != eot_id).to(torch.int32), dim=1).sum(dim=1)
+        if clock:
+            clock.mark("done")
+            timings.update(encode_ms=clock.ms("start", "encoded"),
+                           prefill_ms=clock.ms("encoded", "prefilled"),
+                           decode_ms=clock.ms("prefilled", "done"), steps=t - 1)
+        return GreedyResult(out.to(torch.int32), lengths.to(torch.int32), sum_lp,
+                            no_speech_prob, margins=margins)
 
 
 def build_prefixes(tokenizer, b: int, contexts=None, starts=None,

@@ -29,10 +29,10 @@ from .._device import resolve_device
 from ..models.medusa import medusa_logits, split_medusa
 from ..models.whisper import Whisper, decode_tokens
 from ..utils.compile_count import counted_jit
+from ..utils.profiling import Clock
 from .beam import top_k
 from .bias_processor import BiasTrieState, sanitize_bias_spans
 from .greedy import (
-    Clock,
     GreedyResult,
     _as_tensor,
     build_prefixes,

@@ -39,6 +39,7 @@ from ..models.whisper import (
     precompute_cross_kv,
     quantize_cross_kv,
 )
+from ..utils.profiling import Clock
 from .bias_processor import (
     BiasTrieState,
     advance_bias_state,
@@ -48,7 +49,6 @@ from .bias_processor import (
     seed_bias_state_from_prefix,
 )
 from .greedy import (
-    Clock,
     GreedyResult,
     _as_tensor,
     build_prefixes,

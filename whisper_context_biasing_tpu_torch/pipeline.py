@@ -57,7 +57,6 @@ from .decode import (
     transcribe_long_batch,
     unpack_long_form,
 )
-from .decode.greedy import Clock
 from .models import (
     FAST_OVERRIDES,
     build_model,
@@ -69,6 +68,7 @@ from .models.medusa import load_medusa
 from .models.whisper import Whisper, encode_audio
 from .parallel import auto_mesh, shard_params
 from .tokenizer import load_tokenizer
+from .utils.profiling import Clock, span
 from .utils.subtitles import close_open_segments, format_srt, format_vtt, words_to_segments
 
 
@@ -221,8 +221,11 @@ class Pipeline:
         """(B, window) audio -> (B, n_mels, frames) features on the device
         (the model's ``n_mels`` by default), through the mel kernel on a
         card."""
-        audio = torch.as_tensor(stacked, dtype=torch.float32, device=self.device)
-        return select_mel_frontend()(audio, n_mels=n_mels or self.cfg.n_mels)
+        with span("mel"):
+            with span("mel.stage", self.device):
+                audio = torch.as_tensor(stacked, dtype=torch.float32, device=self.device)
+            with span("mel.frontend"):
+                return select_mel_frontend()(audio, n_mels=n_mels or self.cfg.n_mels)
 
     def _long_form_draft(self, route: str):
         """The draft tuple for a long-form route, None with Medusa (it wins)

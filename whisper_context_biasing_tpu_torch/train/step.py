@@ -17,6 +17,12 @@ denominator is the global batch's, the gradients sum over "data" once a
 step (after the microbatches), the clip's norm sums the sharded squares
 over "model", and AdamW runs on the local shards. The metrics are the
 global ones on every rank.
+
+While a ``torch.profiler`` session is active a step is traced
+(``utils/profiling.py``): a ``train.step`` span with ``train.to_device``, a
+``train.forward`` and a ``train.backward`` a microbatch, and
+``train.optimizer`` (the global norm, the clip and the update), each timed
+on the card too.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from ..models.whisper import Whisper, decode_tokens, encode_audio, forward
 from ..ops.mel_kernel import log_mel_spectrogram_fused
 from ..parallel.mesh import DATA_AXIS, axis_group
 from ..parallel.sharding import sharded_dims
+from ..utils.profiling import span
 from .augment import SpecAugmentConfig, make_augment_fn
 from .loss import weighted_ce_loss
 from .optim import AdamW, OptState, global_norm
@@ -105,16 +112,21 @@ def accumulate_microbatch_grads(loss_fn, model: Whisper, batch: dict, grad_accum
     and gradients are then summed over "data". Returns (loss, grads aligned
     with ``model.parameters()``, None where a parameter got no gradient)."""
     model.zero_grad(set_to_none=True)
+    dev = next(model.parameters()).device
     if grad_accum == 1:
-        loss = loss_fn(model, batch)
-        loss.backward()
+        with span("train.forward", dev):
+            loss = loss_fn(model, batch)
+        with span("train.backward", dev):
+            loss.backward()
         loss = loss.detach()
     else:
-        loss = torch.zeros((), dtype=torch.float32, device=next(model.parameters()).device)
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
         for a in range(grad_accum):
-            mb_loss = loss_fn(model, {k: v[a] if isinstance(v, torch.Tensor) else v
-                                      for k, v in batch.items()})
-            mb_loss.backward()
+            with span("train.forward", dev):
+                mb_loss = loss_fn(model, {k: v[a] if isinstance(v, torch.Tensor) else v
+                                          for k, v in batch.items()})
+            with span("train.backward", dev):
+                mb_loss.backward()
             loss = loss + mb_loss.detach()
         scale = 1.0 / grad_accum
         loss = loss * scale
@@ -170,19 +182,24 @@ def make_train_step(
 
     def step(state: TrainState, batch: dict):
         model = state.model
-        batch = _on_device(batch, next(model.parameters()).device)
-        if augment is not None:
-            batch = augment(batch, state.step)
-        loss, grads = accumulate_microbatch_grads(loss_fn, model, batch, grad_accum, mesh)
-        tp = model.tp
-        gnorm = (global_norm(grads) if tp is None else
-                 global_norm(grads, [d is not None for d in sharded_dims(model)], tp.group))
-        frozen = ()
-        if freeze_encoder:  # weight decay must not move the encoder either
-            enc = {id(p) for p in model.encoder.parameters()}
-            frozen = [i for i, p in enumerate(model.parameters()) if id(p) in enc]
-        optimizer.update_(model.parameters(), grads, state.opt_state, norm=gnorm,
-                          frozen=frozen)
+        dev = next(model.parameters()).device
+        with span("train.step"):
+            with span("train.to_device", dev):
+                batch = _on_device(batch, dev)
+            if augment is not None:
+                batch = augment(batch, state.step)
+            loss, grads = accumulate_microbatch_grads(loss_fn, model, batch, grad_accum, mesh)
+            with span("train.optimizer", dev):
+                tp = model.tp
+                gnorm = (global_norm(grads) if tp is None else
+                         global_norm(grads, [d is not None for d in sharded_dims(model)],
+                                     tp.group))
+                frozen = ()
+                if freeze_encoder:  # weight decay must not move the encoder either
+                    enc = {id(p) for p in model.encoder.parameters()}
+                    frozen = [i for i, p in enumerate(model.parameters()) if id(p) in enc]
+                optimizer.update_(model.parameters(), grads, state.opt_state, norm=gnorm,
+                                  frozen=frozen)
         state.step += 1
         return state, {"loss": loss, "grad_norm": gnorm}
 

@@ -1,8 +1,9 @@
 """Utilities: structured run logging (a copy of the JAX package's
 ``utils/logging.py``), the gated Hub sync (``utils/hub.py``), the SRT/WebVTT
-writers (``utils/subtitles.py``), the profiler trace, step timer and
-real-time-factor meter (``utils/profiling.py``), the decoders' call-signature
-counts (``utils/compile_count.py``), the finite and shape checks
+writers (``utils/subtitles.py``), the profiler trace, the tracer's spans
+and counters, step timer and real-time-factor meter
+(``utils/profiling.py``), the decoders' call-signature counts
+(``utils/compile_count.py``), the finite and shape checks
 (``utils/debug.py``), the FLOPs model (``utils/flops.py``) and the
 missing-assets warning of the entry points. The JAX package's
 ``setup_jax`` and ``effective_platform`` have no counterpart:
