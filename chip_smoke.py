@@ -4210,9 +4210,13 @@ class PassRecorder:
     and ``decode_tokens``: each encoder pass implies one K2 launch a layer of
     its model, and each single-token decoder pass of an int8 cross-K/V model
     one K3 launch a decoder layer (the other passes take the plain int8 path).
-    ``implied(mel_calls)`` is the launches the loop reports."""
+    A greedy step replayed from its captured graph is such a pass too; the
+    pass recorded while capturing runs nothing. ``implied(mel_calls)`` is
+    the launches the loop reports."""
 
     def __enter__(self):
+        import torch
+        from whisper_context_biasing_tpu_torch.decode import greedy
         from whisper_context_biasing_tpu_torch.models import whisper
 
         self.k2 = self.k3 = self.encoder_passes = self.decoder_steps = 0
@@ -4223,13 +4227,26 @@ class PassRecorder:
             self.k2 += model.cfg.n_audio_layers
             return enc(model, *a, **kw)
 
-        def decode(model, tokens, *a, **kw):
+        def step(model):
             cfg = model.cfg
-            if tokens.shape[1] == 1 and cfg.quantize_cross_kv and cfg.fused_quant_cross:
+            if cfg.quantize_cross_kv and cfg.fused_quant_cross:
                 self.decoder_steps += 1
                 self.k3 += cfg.n_text_layers
+
+        def decode(model, tokens, *a, **kw):
+            capturing = tokens.is_cuda and torch.cuda.is_current_stream_capturing()
+            if tokens.shape[1] == 1 and not capturing:
+                step(model)
             return dec(model, tokens, *a, **kw)
 
+        graph_step = self.graph_step = greedy._StepGraph.step
+
+        def replayed(graph, model, *a):
+            graph_step(graph, model, *a)
+            if graph.graph is not None:  # this step was a replay
+                step(model)
+
+        greedy._StepGraph.step = replayed
         self.patched = []
         for n, m in list(sys.modules.items()):
             if n.startswith("whisper_context_biasing_tpu_torch"):
@@ -4241,6 +4258,9 @@ class PassRecorder:
         return self
 
     def __exit__(self, *exc):
+        from whisper_context_biasing_tpu_torch.decode import greedy
+
+        greedy._StepGraph.step = self.graph_step
         for m, name, fn in self.patched:
             setattr(m, name, fn)
 

@@ -267,6 +267,107 @@ def test_beam_decode_kernels_match_plain(dev, mode):
     assert timings["reorder_ms"] >= 0.0
 
 
+SERVE_FAST = dict(flash_attention=True, quantize_cross_kv=True, fused_quant_cross=True,
+                  gelu_approx=True)
+
+
+def _biased_call(b: int = 4, max_new: int = 16):
+    """A small biased, capped greedy call: left-padded prompts, three bias
+    words a row (none in the last), caps that end rows at other steps."""
+    mel = np.random.default_rng(7).standard_normal((b, 80, 128)).astype(np.float32)
+    prefixes = [[50360, 40, 41, 50257], [50257], [50360, 7, 50257], [50257]][:b]
+    ids, mask = pack_prefixes(prefixes, 50256)
+    spans = np.full((b, 3, 3), 50256, np.int32)
+    spans[:, 0, :2] = [220, 11]
+    spans[:, 1, :1] = [13]
+    spans[:, 2, :3] = [40, 41, 42]
+    spans[-1] = 50256
+    caps = np.array([5, 11, 2, 14][:b])
+    return (mel, ids, mask), dict(max_new=max_new, eot_id=50256, bias_spans=spans,
+                                  bias_boost=2.0, span_pad_id=50256, forced_eot_at=caps)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_captured_greedy_matches_eager(dev, dtype, monkeypatch):
+    """The serving fast path (int8 cross-K/V through K3) with bias and
+    caps: the calls that capture and replay the step give the eager loop's
+    tokens, lengths and summed logprobs exactly."""
+    from whisper_context_biasing_tpu_torch.decode import greedy
+
+    model = build_model(tiny_test_config(n_heads=1, dtype=dtype, **SERVE_FAST), seed=0,
+                        device=dev)
+    args, kw = _biased_call()
+    captured = [greedy_decode(model, *args, device=dev, **kw) for _ in range(3)]
+    assert greedy._graphs[model]
+    monkeypatch.setattr(greedy, "_capturable", lambda *a: False)
+    eager = greedy_decode(model, *args, device=dev, **kw)
+    for res in captured:
+        assert torch.equal(res.tokens, eager.tokens)
+        assert torch.equal(res.lengths, eager.lengths)
+        assert torch.equal(res.sum_logprob, eager.sum_logprob)
+
+
+def test_greedy_captures_once_a_signature(dev):
+    """Three calls of one signature make one capture and launch K3 once a
+    layer a step (the replays count their graph's launches); another
+    signature makes another capture; the cache keeps at most MAX_GRAPHS."""
+    from whisper_context_biasing_tpu_torch.decode import greedy
+
+    model = build_model(tiny_test_config(n_heads=1, dtype="bfloat16", **SERVE_FAST), seed=0,
+                        device=dev)
+    args, kw = _biased_call()
+    ops.reset_launch_counts()
+    steps = []
+    for _ in range(3):
+        timings = {}
+        greedy_decode(model, *args, device=dev, timings=timings, **kw)
+        steps.append(timings["steps"])
+    kept = greedy._graphs[model]
+    assert len(kept) == 1
+    graph = next(iter(kept.values())).graph
+    assert graph is not None
+    assert ops.launches["quant_cross_attention"] == model.cfg.n_text_layers * sum(steps)
+    greedy_decode(model, *args, device=dev, **kw)
+    assert next(iter(kept.values())).graph is graph
+    for max_new in range(17, 18 + greedy.MAX_GRAPHS):
+        greedy_decode(model, *args, device=dev, **dict(kw, max_new=max_new))
+        assert 2 <= len(kept) <= greedy.MAX_GRAPHS
+
+
+def test_captured_greedy_spans_and_trace(dev):
+    """Under the profiler, the capturing call and a replaying call each
+    have one ``decode.step`` a step; ``decode.graph_steps`` counts the
+    replayed steps (all but the warm-up ones in the capturing call) and
+    ``decode.graph_captures`` the one capture; the trace shows K3 once a
+    layer a step, inside the replays too."""
+    from whisper_context_biasing_tpu_torch.decode import greedy
+    from whisper_context_biasing_tpu_torch.utils import profiling
+
+    model = build_model(tiny_test_config(n_heads=1, dtype="bfloat16", **SERVE_FAST), seed=0,
+                        device=dev)
+    args, kw = _biased_call()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    profiling.reset_spans()
+    steps = []
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            timings = {}
+            greedy_decode(model, *args, device=dev, timings=timings, **kw)
+            steps.append(timings["steps"])
+        torch.cuda.synchronize()
+    got = profiling.spans()
+    roots = [s for s in got if s["name"] == "decode" and s["parent"] is None]
+    assert len(roots) == 2
+    for root, n, warm in zip(roots, steps, (greedy.WARMUP_STEPS, 0)):
+        mine = [s for s in got if s["root"] == root["id"]]
+        assert sum(s["name"] == "decode.step" for s in mine) == n
+        assert root["counters"]["decode.graph_steps"] == n - warm
+        assert root["counters"].get("decode.graph_captures", 0) == (1 if warm else 0)
+    k3 = sum(e.count for e in prof.key_averages() if "quant_cross" in e.key
+             and e.device_type == torch.autograd.DeviceType.CUDA)
+    assert k3 == model.cfg.n_text_layers * sum(steps)
+
+
 def test_cuda_generator_sampling_is_seeded(dev):
     """Temperature 1.0 with a generator on the card: one seed, one draw."""
     model = build_model(tiny_test_config(n_heads=1), seed=0, device=dev)

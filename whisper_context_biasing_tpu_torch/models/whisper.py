@@ -389,15 +389,17 @@ def encode_audio(model: Whisper, mel: torch.Tensor) -> torch.Tensor:
 # decoder
 # ---------------------------------------------------------------------------
 
-def precompute_cross_kv(model: Whisper, enc_out: torch.Tensor):
-    """Cross-attention K/V for all layers: each (L, B, T_audio, D)."""
+def precompute_cross_kv(model: Whisper, enc_out: torch.Tensor, out=None):
+    """Cross-attention K/V for all layers: each (L, B, T_audio, D), written
+    into ``out`` (a (k, v) pair of that shape) when given."""
     blocks = model.decoder.blocks
-    k = torch.stack([_proj(enc_out, b.cross_attn.key) for b in blocks])
-    v = torch.stack([_proj(enc_out, b.cross_attn.value) for b in blocks])
+    ok, ov = (None, None) if out is None else out
+    k = torch.stack([_proj(enc_out, b.cross_attn.key) for b in blocks], out=ok)
+    v = torch.stack([_proj(enc_out, b.cross_attn.value) for b in blocks], out=ov)
     return k, v
 
 
-def quantize_cross_kv(cross_kv, pad_to: int = 128, tp=None) -> dict:
+def quantize_cross_kv(cross_kv, pad_to: int = 128, tp=None, out: dict | None = None) -> dict:
     """Per-position int8 quantization of the cross-attention K/V.
 
     scale = max|x| / 127 (at least 1e-8) per (layer, row, position), values
@@ -406,26 +408,34 @@ def quantize_cross_kv(cross_kv, pad_to: int = 128, tp=None) -> dict:
     position, and both attention paths mask on it. Under tensor parallelism
     (``tp``, the model's) each rank holds D / tp of every position, so the
     max is taken over "model" too: the scales, and so the int8 values, are
-    the unsharded ones."""
+    the unsharded ones. ``out``: a dict of these four tensors to write
+    into, in place of new ones."""
     k, v = cross_kv
     t = k.shape[2]
     t_pad = ((t + pad_to - 1) // pad_to) * pad_to if pad_to else t
 
-    def q(x):
-        xf = x.float()
-        amax = xf.abs().amax(dim=-1, keepdim=True)
+    def q(x, xq_pad, s_pad):
+        # a layer at a time, so the f32 temporaries are one layer's; the max
+        # is exact in x's dtype, and widening after it gives the max of the
+        # widened values
+        amax = torch.stack([xl.abs().amax(dim=-1, keepdim=True) for xl in x]).float()
         scale = (amax if tp is None else max_over_model(amax, tp)) / 127.0
         scale = torch.clamp(scale, min=1e-8)
-        xq = torch.round(xf / scale).to(torch.int8)
         l, b, _, d = x.shape
-        xq_pad = torch.zeros((l, b, t_pad, d), dtype=torch.int8, device=x.device)
-        xq_pad[:, :, :t] = xq
-        s_pad = torch.zeros((l, b, 1, t_pad), dtype=torch.float32, device=x.device)
+        if xq_pad is None:
+            xq_pad = torch.zeros((l, b, t_pad, d), dtype=torch.int8, device=x.device)
+            s_pad = torch.zeros((l, b, 1, t_pad), dtype=torch.float32, device=x.device)
+        else:
+            xq_pad[:, :, t:] = 0
+            s_pad[..., t:] = 0.0
+        for i, xl in enumerate(x):
+            xq_pad[i, :, :t] = torch.round(xl.float() / scale[i]).to(torch.int8)
         s_pad[:, :, 0, :t] = scale[..., 0]
         return xq_pad, s_pad
 
-    k_q, k_s = q(k)
-    v_q, v_s = q(v)
+    out = out or {}
+    k_q, k_s = q(k, out.get("k_q"), out.get("k_s"))
+    v_q, v_s = q(v, out.get("v_q"), out.get("v_s"))
     return {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s}
 
 
@@ -550,19 +560,23 @@ def embed_tokens(dec: TextDecoder, tokens: torch.Tensor, dt: torch.dtype) -> tor
     return rows(tokens)
 
 
-def _write_cache(c: torch.Tensor, new: torch.Tensor, pos_offset, per_row: bool) -> None:
+def _write_cache(c: torch.Tensor, new: torch.Tensor, pos_offset) -> None:
     """Write ``new`` (B, S, D) into one layer's cache (B, T, D) in place at
-    slot ``pos_offset`` (an int) or, per row, ``pos_offset[b]`` ((B,)). A
+    slot ``pos_offset``: an int, a 0-dim device tensor (one slot for every
+    row, never read by the host), or, per row, ``pos_offset[b]`` ((B,)). A
     per-row start that would run past the cache is clamped to T - S, as
     ``lax.dynamic_update_slice`` clamps it in the JAX package (whose callers
     size their caches so that it never happens)."""
-    if not per_row:
+    if isinstance(pos_offset, int):
         c[:, pos_offset:pos_offset + new.shape[1]] = new
         return
     b, s = new.shape[:2]
+    steps = torch.arange(s, device=c.device)
+    if pos_offset.ndim == 0:
+        c.index_copy_(1, pos_offset + steps, new.to(c.dtype))
+        return
     start = torch.clamp(pos_offset, 0, c.shape[1] - s)
-    slots = start[:, None] + torch.arange(s, device=c.device)
-    c[torch.arange(b, device=c.device)[:, None], slots] = new.to(c.dtype)
+    c[torch.arange(b, device=c.device)[:, None], start[:, None] + steps] = new.to(c.dtype)
 
 
 def decode_tokens(
@@ -570,9 +584,11 @@ def decode_tokens(
     tokens: torch.Tensor,              # (B, S) int
     cross_kv=None,                     # (k, v) each (L, B, T, D), or the int8 dict
     cache: dict | None = None,         # KV cache from init_kv_cache, written in place
-    pos_offset: int | torch.Tensor = 0,  # cache slot of tokens[:, 0]: an int, or
-                                         # (B,) per row (speculative decoding:
-                                         # rows advance at different rates)
+    pos_offset: int | torch.Tensor = 0,  # cache slot of tokens[:, 0]: an int, a
+                                         # 0-dim tensor (a device slot: the
+                                         # captured greedy step), or (B,) per
+                                         # row (speculative decoding: rows
+                                         # advance at different rates)
     token_positions: torch.Tensor | None = None,  # (B, S) position ids (left-pad)
     self_mask: torch.Tensor | None = None,        # True=attend: (B, T_cache) key-side,
                                                   # or (B, S, T_cache) per query (trees)
@@ -582,8 +598,9 @@ def decode_tokens(
     """Decoder forward. Cached mode: keys/values of ``tokens`` are written
     into ``cache`` at slots ``pos_offset..pos_offset+S`` (in place; per row
     for a (B,) offset) and attention spans the whole cache with later slots
-    masked. Full-sequence mode (``cache=None``, training): causal
-    self-attention over ``tokens``. Returns (f32 logits (B, S, V), cache or
+    masked; a 0-dim tensor offset stays on the device (no host read), so
+    the step can be captured in a CUDA graph. Full-sequence mode
+    (``cache=None``, training): causal self-attention over ``tokens``. Returns (f32 logits (B, S, V), cache or
     None), and the final-LN decoder states after them with
     ``return_hidden`` (the Medusa heads' input)."""
     if cross_kv is None:
@@ -595,7 +612,7 @@ def decode_tokens(
     b, s = tokens.shape
     dev = tokens.device
     per_row = isinstance(pos_offset, torch.Tensor) and pos_offset.ndim == 1
-    if per_row:
+    if isinstance(pos_offset, torch.Tensor):
         pos_offset = pos_offset.to(device=dev, dtype=torch.int64)
     else:
         pos_offset = int(pos_offset)
@@ -638,8 +655,8 @@ def decode_tokens(
         a = layer_norm(x, blk.self_attn_ln)
         q = _proj(a, blk.self_attn.query)
         ck, cv = cache["k"][li], cache["v"][li]
-        _write_cache(ck, _proj(a, blk.self_attn.key), pos_offset, per_row)
-        _write_cache(cv, _proj(a, blk.self_attn.value), pos_offset, per_row)
+        _write_cache(ck, _proj(a, blk.self_attn.key), pos_offset)
+        _write_cache(cv, _proj(a, blk.self_attn.value), pos_offset)
         nh = _heads(q, cfg)
         x = x + _proj(attention(q, ck, cv, nh, attn_mask), blk.self_attn.out)
 

@@ -47,6 +47,14 @@ def count_launch(name: str) -> None:
         launches[name] += 1
 
 
+def count_launches(counts: dict[str, int]) -> None:
+    """Adds ``counts`` (launches by kernel name) at once: the launches a
+    replayed CUDA graph holds, or, negative, what the wrappers counted while
+    a capture recorded them without launching."""
+    with _count_lock:
+        launches.update(counts)
+
+
 def reset_launch_counts() -> None:
     launches.clear()
 
