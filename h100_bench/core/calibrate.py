@@ -2,7 +2,10 @@
 the program's compared numbers over many seeds, and on a few seeds its
 control (the reference one precision below the configuration's: float8,
 and for serving also the port's own int8 decoder-weight path) and the
-faults the check must catch. Not part of a benchmark run.
+faults the check must catch. Not part of a benchmark run. A cell across
+cards starts its ranks once and keeps them for every reading: each fault
+is planted on every rank, and the control's reference runs over every
+card as the check does.
 
     python3 h100_bench/core/calibrate.py --workload <cell> --seeds 12 --control-seeds 3
 
@@ -23,7 +26,7 @@ sys.path[:0] = [str(HERE), str(HERE.parent)]
 import torch  # noqa: E402
 
 from core import faults, runner  # noqa: E402
-from drivers import serve, train  # noqa: E402
+from drivers import serve, train, train_dp  # noqa: E402
 
 
 def _emit(out, **rec):
@@ -51,8 +54,17 @@ def serve_readings(spec, seed, seconds, variant, fault=None, dev="cuda"):
     return dict(drv.check(lowp="fp8" if variant == "fp8" else None)), drv.checked
 
 
-def train_readings(spec, seed, control: bool, fault_names=(), dev="cuda"):
-    drv = train.Driver(spec, seed, dev)
+def train_readings(spec, seed, control: bool, fault_names=(), dev="cuda", world=None):
+    """The program's readings on ``seed``, and with ``control`` the float8
+    reference's; each fault planted (``spec["fault"]``) in a driver of its
+    own. A cell across cards runs on ``world``'s ranks."""
+    def driver(fault=None):
+        s = dict(spec, fault=fault) if fault else spec
+        if world is not None:
+            return train_dp.Driver(s, seed, dev, world=world)
+        return train.Driver(s, seed, dev)
+
+    drv = driver()
     drv.warm_up()
     drv.free()
     t = time.perf_counter()
@@ -61,13 +73,8 @@ def train_readings(spec, seed, control: bool, fault_names=(), dev="cuda"):
     out = {"program": dict(drv.compare(drv.prog, ref))}
     if control:
         out["fp8"] = dict(drv.compare(drv.reference_steps("fp8"), ref))
-    orig = train.port
     for name in fault_names:
-        train.port = lambda: faults.TRAIN[name](orig())
-        try:
-            bad = train.Driver(spec, seed, dev)
-        finally:
-            train.port = orig
+        bad = driver(name)
         bad.warm_up()
         bad.free()
         out[name] = dict(bad.compare(bad.prog, ref))
@@ -89,6 +96,7 @@ def main(argv=None):
     fault_names = [f for f in args.faults.split(",") if f]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    world = train_dp.start_world(spec, "cuda") if kind == "train_dp" else None
     for i in range(args.seeds):
         seed = args.first_seed + 7919 * i
         control = i < args.control_seeds
@@ -104,11 +112,14 @@ def main(argv=None):
                 _emit(args.out, cell=args.workload, seed=seed, variant=f"fault:{f}",
                       readings=got, **checked)
         else:
-            got, ref_s = train_readings(spec, seed, control, fault_names if control else ())
+            got, ref_s = train_readings(spec, seed, control, fault_names if control else (),
+                                        world=world)
             for v, r in got.items():
                 _emit(args.out, cell=args.workload, seed=seed, variant=v, readings=r,
                       reference_s=ref_s)
         print(f"# seed {seed}: {time.perf_counter() - t:.1f} s", file=sys.stderr, flush=True)
+    if world is not None:
+        world.close()
 
 
 if __name__ == "__main__":

@@ -16,6 +16,8 @@ from __future__ import annotations
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
+# NVLink 4 of the H100 SXM: 900 GB/s both ways, 450 GB/s a direction
+PEAK_NVLINK_BYTES_S = 450e9
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +100,16 @@ def quant_cross_work(b: int, t: int, t_pad: int, d: int, elem: int = 2) -> tuple
     ops = 4.0 * b * t * d
     n_bytes = 2.0 * b * t * d + 2 * 4.0 * b * t_pad + 2 * elem * b * d
     return ops, n_bytes
+
+
+def allreduce_bound_s(values: int, elem: int = 4) -> float:
+    """The least time of an all-reduce of ``values`` numbers over cards
+    joined all to all: whatever the algorithm, a card sends its buffer
+    once and receives the sum once, N bytes each way, at NVLink's rate a
+    direction. (A ring moves 2 (n - 1) / n N each way and so reads at most
+    n / (2 (n - 1)) of this bound, 67% on four cards; a reduction inside
+    the switch can reach it.)"""
+    return elem * float(values) / PEAK_NVLINK_BYTES_S
 
 
 def bound_s(ops: float, n_bytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> float:

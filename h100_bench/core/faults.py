@@ -5,8 +5,11 @@ program (the drivers' ``port()``), leaving the harness as it is."""
 from __future__ import annotations
 
 import copy
+import os
+import time
 
 import torch
+import torch.distributed as dist
 
 
 def token_altered(p: dict) -> dict:
@@ -91,5 +94,39 @@ def train_unchanged(p: dict) -> dict:
     return dict(p, make_step=make_step)
 
 
+def train_no_allreduce(p: dict) -> dict:
+    """Training across cards: the step leaves out every exchange between
+    the ranks (the gradient all-reduce and the loss's global count), so
+    each rank steps on its own rows' gradient alone."""
+    make = p["make_step"]
+
+    def make_step(cfg, opt, mesh=None, **kw):
+        return make(cfg, opt, **kw)
+
+    return dict(p, make_step=make_step)
+
+
+def _on_rank_1(then):
+    """A fault of the harness's own tests, not of the program: rank 1's
+    first step calls ``then`` instead."""
+
+    def fault(p: dict) -> dict:
+        make = p["make_step"]
+
+        def make_step(*args, **kw):
+            step = make(*args, **kw)
+            return (lambda state, batch: then()) if dist.get_rank() == 1 else step
+
+        return dict(p, make_step=make_step)
+
+    return fault
+
+
 SERVE = {"token_altered": token_altered, "half_batch": half_batch}
 TRAIN = {"half_batch": train_half_batch, "unchanged": train_unchanged}
+# a cell across cards can also lose the exchange between them
+ACROSS = {"no_allreduce": train_no_allreduce}
+# a rank that fails or stalls: the run must end non-zero within its timeout
+RANKS = {"rank_dies": _on_rank_1(lambda: os._exit(7)),
+         "rank_stalls": _on_rank_1(lambda: time.sleep(10 ** 6))}
+TRAIN_ALL = {**TRAIN, **ACROSS, **RANKS}

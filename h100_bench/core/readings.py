@@ -36,11 +36,21 @@ def idle(run: dict) -> float | None:
 
 
 def mfu(run: dict) -> float | None:
-    """Percent of the bf16 peak: the window's matmul FLOPs over its wall."""
+    """Percent of the bf16 peak a card: the window's matmul FLOPs over its
+    wall times the cards that did them."""
     flops = run["stats"].get("flops")
     if not flops:
         return None
-    return 100.0 * flops / (run["wall"] * PEAK_BF16_FLOPS)
+    return 100.0 * flops / (run["wall"] * run["stats"].get("cards", 1) * PEAK_BF16_FLOPS)
+
+
+def allreduce(run: dict) -> tuple[float, float, int] | None:
+    """(Σ bound, Σ device seconds) of the NCCL kernels in a traced segment,
+    and its steps; nothing where the segment ran none."""
+    tr = run.get("trace")
+    if not tr or not tr["kernel_s"].get("nccl") or "nccl" not in tr["bounds"]:
+        return None
+    return tr["bounds"]["nccl"], tr["kernel_s"]["nccl"], tr["steps"]
 
 
 def ratio(run: dict, num: str, den: str) -> float | None:

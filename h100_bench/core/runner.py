@@ -84,13 +84,17 @@ def run_cell(spec: dict, seed: int, seconds: float, trace_on: bool, device="cuda
     setup_s = time.perf_counter() - t0
     e2e = drv.window(seconds)
     e2e["setup_s"] = setup_s
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    # a driver across cards reports the fullest card's peak
+    peak = (drv.memory_peak() if hasattr(drv, "memory_peak")
+            else torch.cuda.max_memory_allocated() if cuda else 0)
     traced = drv.traced() if trace_on else None
     attempted, failed = drv.attempted(), drv.failed()
     view = dict(stats=drv.stats, wall=drv.wall, trace=traced)
     print(window_summary(drv.stats), file=sys.stderr)
     drv.free()
+    t = time.perf_counter()
     checks = drv.check()
+    print(f"check: {time.perf_counter() - t:.1f} s", file=sys.stderr)
     limits = spec["cell"]["limits"]
     correct = all(math.isfinite(v) and v <= limits[n] for n, v in checks)
     metrics = {}
@@ -104,7 +108,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace_on: bool, device="cuda
             metrics[m["name"]] = dict(value=e2e[m["name"]], unit=m["unit"])
     dev = dict(platform="gpu" if cuda else "cpu",
                kind=torch.cuda.get_device_name() if cuda else "cpu",
-               count=1, memory_peak_bytes=int(peak))
+               count=getattr(drv, "cards", 1), memory_peak_bytes=int(peak))
     line = dict(correct=bool(correct) and failed == 0, attempted=attempted, failed=failed,
                 metrics=metrics, device=dev)
     if traced is not None:

@@ -15,11 +15,12 @@ import torch
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("user_annotation", "cpu_op")
-# the benchmark's names for the hand-written kernels, by a part of the
-# kernel's symbol
+# the benchmark's names for the hand-written kernels, and for NCCL's (the
+# exchange between cards), by a part of the kernel's symbol
 KERNELS = {"k1": ("mel_fft_kernel",), "k2": ("flash_fwd_bf16_kernel",),
            "k3": ("quant_cross_kernel",),
-           "k4": ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkdv_bf16_kernel")}
+           "k4": ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkdv_bf16_kernel"),
+           "nccl": ("nccl",)}
 
 
 def kernel_group(name: str) -> str | None:

@@ -20,11 +20,12 @@ norm and each tensor's norm of change.
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from core import counts, reference, trace, traffic
+from core import counts, faults, reference, trace, traffic
 from core.weights import make_weights, port_name, to_port
 
 
@@ -61,13 +62,13 @@ class Driver:
         self.a, self.b = self.cell["grad_accum"], self.cell["batch"]
         if self.a * self.b != self.tr["rows_per_step"]:
             raise ValueError("a cell's batch x grad_accum must be the traffic's rows_per_step")
-        p = self.p = port()
+        p = self.p = self.take_port()
         self.pcfg = p["get_config"](self.cfg["port_model"], dtype=self.cfg["dtype"],
                                     **self.tr["port_config"])
         w, flat = make_weights(self.g, seed, self.dev, torch.float32)
         self.model = p["build_model"](self.pcfg, to_port(w), device=self.dev, train=True)
         # the initial weights, for the change after the checked steps
-        self.w0 = flat.cpu()
+        self.w0 = flat.cpu() if self.checks_here() else None
         self.w0_views = {k: (v.storage_offset(), v.shape) for k, v in w.items()}
         del w, flat
         opt = self.tr["optimizer"]
@@ -76,7 +77,7 @@ class Driver:
                               max_grad_norm=opt["max_grad_norm"])
         self.state = p["init_state"](self.model, self.opt)
         self.step = p["make_step"](self.pcfg, self.opt, bias_weight=self.tr["bias_weight"],
-                                   grad_accum=self.a, mel_on_device=True)
+                                   grad_accum=self.a, mel_on_device=True, **self.step_options())
         pad = self.tok["label_pad"]
         self.collate = p["collator"](pad_token_id=pad, decoder_start_token_id=self.tok["sot"],
                                      decoder_prev_token_id=self.tok["sop"],
@@ -86,18 +87,36 @@ class Driver:
         self.seq = self.batches[0]["decoder_input_ids"].shape[-1]
         self.stats: dict = dict(losses=[], walls=[])
 
+    def take_port(self) -> dict:
+        """The program's entry points, with the fault that the spec's
+        ``fault`` names planted (calibration and tests only)."""
+        fault = self.spec.get("fault")
+        return faults.TRAIN_ALL[fault](port()) if fault else port()
+
+    def step_options(self) -> dict:
+        """Further options of ``make_train_step``."""
+        return {}
+
+    def checks_here(self) -> bool:
+        """Whether this process judges the run (keeps what the check needs)."""
+        return True
+
     def rows(self, k: int) -> list[dict]:
         return traffic.train_rows(self.tr, self.shapes, self.seed, k, self.tok)
 
     def make_batch(self, k: int) -> dict:
-        """Step ``k``'s rows through the port's collator; under
-        ``grad_accum`` every array gets its leading microbatch axis."""
+        return self.collated(self.rows(k))
+
+    def collated(self, rows: list[dict]) -> dict:
+        """``rows`` through the port's collator; under ``grad_accum`` every
+        array gets its leading microbatch axis."""
         batch = self.collate([dict(audio=r["audio"], labels=r["label"], bias_spans=r["spans"])
-                              for r in self.rows(k)])
+                              for r in rows])
         # the collator pads to the 30 s window; a shorter window (a test's) is cut
         batch["audio"] = np.ascontiguousarray(batch["audio"][:, :self.tr["window_samples"]])
         if self.a > 1:
-            batch = {k: v.reshape(self.a, self.b, *v.shape[1:]) for k, v in batch.items()}
+            batch = {k: v.reshape(self.a, len(rows) // self.a, *v.shape[1:])
+                     for k, v in batch.items()}
         return batch
 
     def one_step(self, k: int) -> float:
@@ -178,6 +197,7 @@ class Driver:
             launches2 += 4 * g["dec_layers"]
             launches4 += 2 * g["dec_layers"]
         mb = n * self.a
+        got["steps"] = n
         got["bounds"] = dict(k2=mb * k2, k4=mb * k4)
         got["expected_launches"] = dict(k2=mb * launches2, k4=mb * launches4)
         got["counted_launches"] = dict(
@@ -194,54 +214,97 @@ class Driver:
     # the check
     # ------------------------------------------------------------------
 
+    def ref_parts(self, k: int) -> list[list[dict]]:
+        """The rows of checked step ``k``, in parts that the reference
+        computes apart and adds: one here."""
+        return [self.rows(k)]
+
+    def ref_devices(self) -> list[torch.device]:
+        """The devices the reference's parts run on, in turn."""
+        return [self.dev]
+
+    def ref_inputs(self, rows: list[dict], ref, dev) -> dict:
+        """One part's rows on ``dev``: decoder inputs, targets, span weights
+        and the audio in the 30 s window."""
+        sot, pad = self.tok["sot"], self.tok["label_pad"]
+        inp, tgt = reference.collate_labels([r["label"] for r in rows], sot, pad)
+        wts = np.stack([reference.span_weights(tgt[i], r["spans"], self.tr["bias_weight"], pad)
+                        for i, r in enumerate(rows)])
+        audio = np.zeros((len(rows), self.tr["window_samples"]), np.float32)
+        for i, r in enumerate(rows):
+            clip = r["audio"][:audio.shape[1]]
+            audio[i, :len(clip)] = clip
+        on = lambda x: torch.from_numpy(x).to(dev)
+        return dict(ref=ref, tgt=tgt, inp=on(inp), y=on(tgt), wts=on(wts), audio=on(audio),
+                    total=torch.zeros((), dtype=torch.float64, device=dev))
+
     def reference_steps(self, lowp: str | None = None) -> dict:
         """The reference through the checked steps from the same weights
         and rows: each step's loss, the first (clipped) gradient's norm a
-        tensor, each tensor's change."""
+        tensor, each tensor's change. With several parts (``ref_parts``)
+        each device holds a copy of the weights and sums its parts'
+        gradients in plain f32, with no collective; the first device adds
+        the others' sums, steps, and copies the weights back to them."""
         reference.precise()
-        w, _ = make_weights(self.g, self.seed, self.dev, torch.float32)
-        ref = reference.Reference(w, self.g, lowp=lowp, grad=True)
+        devs = self.ref_devices()
+        w, _ = make_weights(self.g, self.seed, devs[0], torch.float32)
+        refs = [reference.Reference(w, self.g, lowp=lowp, grad=True)]
+        refs += [reference.Reference({n: t.detach().to(d) for n, t in refs[0].w.items()}, self.g,
+                                     lowp=lowp, grad=True) for d in devs[1:]]
         o = self.tr["optimizer"]
-        opt = reference.AdamW(ref.w, o["lr"], o["betas"], o["eps"], o["weight_decay"],
+        opt = reference.AdamW(refs[0].w, o["lr"], o["betas"], o["eps"], o["weight_decay"],
                               o["max_grad_norm"])
-        sot, pad = self.tok["sot"], self.tok["label_pad"]
         # rows a forward and backward: the float8 control keeps more alive
         chunk = 1 if lowp else self.cell.get("reference_rows", self.b)
         out = dict(loss=[], grad1={}, change={})
         for k in range(self.tr["checked_steps"]):
-            rows = self.rows(k)
-            inp, tgt = reference.collate_labels([r["label"] for r in rows], sot, pad)
-            total = 0.0
-            for a in range(self.a):
-                mb = range(a * self.b, (a + 1) * self.b)
-                count = float((tgt[list(mb)] != reference.IGNORE).sum())
-                for c in range(mb.start, mb.stop, chunk):
-                    idx = list(range(c, min(c + chunk, mb.stop)))
-                    audio = torch.zeros(len(idx), self.tr["window_samples"], device=self.dev)
-                    for j, i in enumerate(idx):
-                        clip = torch.from_numpy(rows[i]["audio"][:audio.shape[1]])
-                        audio[j, :len(clip)] = clip.to(self.dev)
-                    lg = ref.logits(torch.from_numpy(inp[idx]).to(self.dev),
-                                    ref.encode(reference.log_mel(audio, self.g["n_mels"])))
-                    y = torch.from_numpy(tgt[idx]).to(self.dev)
-                    wts = torch.from_numpy(np.stack([
-                        reference.span_weights(tgt[i], rows[i]["spans"], self.tr["bias_weight"],
-                                               pad) for i in idx])).to(self.dev)
-                    nll = torch.nn.functional.cross_entropy(
-                        lg.flatten(0, 1), y.flatten(), ignore_index=reference.IGNORE,
-                        reduction="none").view(y.shape)
-                    part = (nll * wts).sum() / (count + 1e-8) / self.a
-                    part.backward()
-                    total += float(part.detach())
-                    del lg, nll, part
-            out["loss"].append(total)
-            grads = {n: t.grad for n, t in ref.w.items()}
+            parts = [self.ref_inputs(rows, refs[i % len(refs)], devs[i % len(devs)])
+                     for i, rows in enumerate(self.ref_parts(k))]
+            # each microbatch's valid targets over every part: the loss's denominator
+            mb_counts = [float(sum((p["tgt"][a * self.b:(a + 1) * self.b] != reference.IGNORE)
+                                   .sum() for p in parts)) for a in range(self.a)]
+
+            def backward(mine: list[dict]) -> None:
+                """The forward and backward of one device's parts, chunk by
+                chunk: their gradients sum in its copy's ``.grad``."""
+                for p in mine:
+                    for a in range(self.a):
+                        stop = (a + 1) * self.b
+                        for c in range(a * self.b, stop, chunk):
+                            idx = slice(c, min(c + chunk, stop))
+                            ref = p["ref"]
+                            lg = ref.logits(p["inp"][idx], ref.encode(
+                                reference.log_mel(p["audio"][idx], self.g["n_mels"])))
+                            y = p["y"][idx]
+                            nll = torch.nn.functional.cross_entropy(
+                                lg.flatten(0, 1), y.flatten(), ignore_index=reference.IGNORE,
+                                reduction="none").view(y.shape)
+                            part = (nll * p["wts"][idx]).sum() / (mb_counts[a] + 1e-8) / self.a
+                            part.backward()
+                            p["total"] += part.detach().double()
+                            del lg, nll, part
+
+            # one host thread a device: the reference's issue keeps one card busy
+            by_ref = [[p for p in parts if p["ref"] is r] for r in refs]
+            with ThreadPoolExecutor(len(by_ref)) as pool:
+                list(pool.map(backward, by_ref))
+            out["loss"].append(sum(float(p["total"]) for p in parts))
+            del parts
+            grads = {n: t.grad for n, t in refs[0].w.items()}
+            for r in refs[1:]:
+                for n, t in r.w.items():
+                    grads[n] += t.grad.to(devs[0])
             clipped = opt.step(grads)
             if k == 0:
                 out["grad1"] = {n: float(g.norm()) for n, g in clipped.items()}
-            for t in ref.w.values():
-                t.grad = None
-        out["change"] = {n: float((ref.w[n].detach() - w[n]).norm()) for n in w}
+            del clipped, grads
+            with torch.no_grad():
+                for r in refs:
+                    for n, t in r.w.items():
+                        t.grad = None
+                        if r is not refs[0]:
+                            t.copy_(refs[0].w[n])
+        out["change"] = {n: float((refs[0].w[n].detach() - w[n]).norm()) for n in w}
         return out
 
     def check(self) -> list[tuple[str, float]]:

@@ -16,9 +16,12 @@ import time
 T0 = time.perf_counter()
 
 import argparse  # noqa: E402
+import atexit  # noqa: E402
 import json  # noqa: E402
+import os  # noqa: E402
 import pathlib  # noqa: E402
 import sys  # noqa: E402
+import traceback  # noqa: E402
 
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -56,4 +59,18 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except SystemExit as e:   # argparse's, or a refusal with its reason
+        if e.code is not None and not isinstance(e.code, int):
+            print(e.code, file=sys.stderr)
+        code = e.code if isinstance(e.code, int) else int(e.code is not None)
+    except Exception:
+        traceback.print_exc()
+        code = 1
+    atexit._run_exitfuncs()   # ends any rank still running (core/ranks.py)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # without the interpreter's teardown: a process that held NCCL's
+    # communicators or several cards' contexts need not wait on them
+    os._exit(code)

@@ -2,6 +2,7 @@
 the run's refusals: no card, JAX loaded."""
 
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -36,9 +37,13 @@ def test_names_units_and_entry_keys():
         assert json.loads((ROOT / c["file"]).read_text())["reduced"] == c["reduced"]
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and 1 <= len(w["why"]) <= 200 and "\n" not in w["why"]
+        assert w["chips"] in (1, 4) and 1 <= len(w["why"]) <= 200 and "\n" not in w["why"]
         assert (ROOT / "h100_bench/traffic" / f"{w['traffic']}.json").is_file()
         assert (ROOT / "h100_bench/workloads" / f"{w['name']}.json").is_file()
+        mix = json.loads((ROOT / "h100_bench/traffic" / f"{w['traffic']}.json").read_text())
+        assert math.prod(mix.get("mesh", [1])) == w["chips"]
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(BENCH["workloads"]) // 4)
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"])
         assert m["better"] in ("lower", "higher")

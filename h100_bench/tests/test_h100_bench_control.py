@@ -1,10 +1,10 @@
 """The control of each cell comes out not correct: the reference one
 precision below the configuration's (float8 operands), at the cell's own
 size on the card, on three seeds; the program on the same seeds comes out
-correct. (The port's own int8 decoder-weight path reads too close to the
-program on both served-token numbers, the widest gap and the mean gap,
-for any limit to separate them, so it is no control here.) Needs the
-card:
+correct. A cell across cards needs as many cards. (The port's own int8
+decoder-weight path reads too close to the program on both served-token
+numbers, the widest gap and the mean gap, for any limit to separate
+them, so it is no control here.) Needs the card:
 
     python -m pytest h100_bench/tests/test_h100_bench_control.py -q -m cuda
 """
@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from core import calibrate, runner
+from drivers import train_dp
 
 pytestmark = pytest.mark.cuda
 CELLS = [w["name"] for w in json.loads(
@@ -38,13 +39,18 @@ def _fails(readings: dict, limits: dict) -> bool:
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_fails_and_the_program_passes(card, cell):
     spec = runner.load_spec(cell)
+    if torch.cuda.device_count() < spec["workload"]["chips"]:
+        pytest.skip(f"needs {spec['workload']['chips']} cards")
     limits = spec["cell"]["limits"]
+    world = train_dp.start_world(spec, "cuda") if spec["traffic"]["kind"] == "train_dp" else None
     for seed in SEEDS:
         if spec["traffic"]["kind"] == "serve":
             prog, _ = calibrate.serve_readings(spec, seed, 2.0, "program")
             control, _ = calibrate.serve_readings(spec, seed, 2.0, "fp8")
         else:
-            got, _ = calibrate.train_readings(spec, seed, control=True)
+            got, _ = calibrate.train_readings(spec, seed, control=True, world=world)
             prog, control = got["program"], got["fp8"]
         assert not _fails(prog, limits), (seed, prog)
         assert _fails(control, limits), (seed, control)
+    if world is not None:
+        world.close()

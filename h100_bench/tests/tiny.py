@@ -2,7 +2,8 @@
 configuration, traffic mix and cell, with the model cut to 2 + 2 layers of
 width 64 over 64 audio positions (a 2.56 s window) and short traffic. The
 port's configuration is cut alike by ``tiny_port``, which the tests that
-build the program take as a fixture."""
+build the program take as a fixture, and for training through the mix's
+``port_config``."""
 
 from __future__ import annotations
 
@@ -38,7 +39,10 @@ def tiny_spec(cell: str, batch: int = 4, rows_per_step: int = 4, **traffic) -> d
                   corpus_token_deciles=[int(x) // 8 + 2 for x in tr["corpus_token_deciles"]])
         spec["cell"].update(check_requests=3)
     else:
-        tr.update(rows_per_step=rows_per_step, context_tokens=[4, 12], max_label=64)
+        # the sizes reach the port through the mix too: ranks in other
+        # processes build the tiny model without ``tiny_port``
+        tr.update(rows_per_step=rows_per_step, context_tokens=[4, 12], max_label=64,
+                  port_config={**tr["port_config"], **PORT})
         spec["cell"].update(batch=rows_per_step // spec["cell"]["grad_accum"] or 1,
                             reference_rows=2)
         spec["cell"]["grad_accum"] = rows_per_step // spec["cell"]["batch"]
