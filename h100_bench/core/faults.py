@@ -51,6 +51,21 @@ def half_batch(p: dict) -> dict:
     return dict(p, greedy=wrapped)
 
 
+def row_swap(p: dict) -> dict:
+    """Server: the first two rows' results of every micro-batch of the
+    ``Engine`` are handed to each other's waiters."""
+    engine = p["engine"]
+
+    class Swapped(engine):
+        def _run(self, *args, **kw):
+            res = super()._run(*args, **kw)
+            if len(res) > 1:
+                res[0], res[1] = res[1], res[0]
+            return res
+
+    return dict(p, engine=Swapped)
+
+
 def train_half_batch(p: dict) -> dict:
     """Training: each microbatch loses half of its rows; the loss and the
     gradients are the mean over the rest."""
@@ -123,6 +138,8 @@ def _on_rank_1(then):
 
 
 SERVE = {"token_altered": token_altered, "half_batch": half_batch}
+# the server kind can also hand a result to the wrong request
+ENGINE = {"row_swap": row_swap}
 TRAIN = {"half_batch": train_half_batch, "unchanged": train_unchanged}
 # a cell across cards can also lose the exchange between them
 ACROSS = {"no_allreduce": train_no_allreduce}

@@ -36,6 +36,15 @@ def _for_cell(metrics: list[dict], cell: str) -> list[dict]:
     return [m for m in metrics if "workloads" not in m or cell in m["workloads"]]
 
 
+def load_mix(name: str) -> dict:
+    """The traffic mix ``traffic/<name>.json``; one that names another
+    mix as ``rows_from`` takes that mix's parameters where it sets none."""
+    mix = _json(HERE / "traffic" / f"{name}.json")
+    if "rows_from" in mix:
+        mix = {**load_mix(mix["rows_from"]), **mix}
+    return mix
+
+
 def load_spec(name: str, root: pathlib.Path = ROOT) -> dict:
     """The cell ``name`` of ``BENCHMARK.json`` with its configuration,
     traffic mix and cell file, and the metrics it reports."""
@@ -46,7 +55,7 @@ def load_spec(name: str, root: pathlib.Path = ROOT) -> dict:
     cfg_entry = next(c for c in bench["configs"] if c["name"] == entry["config"])
     config = _json(root / cfg_entry["file"])
     return dict(name=name, workload=entry, config=config, g=geometry(config),
-                traffic=_json(HERE / "traffic" / f"{entry['traffic']}.json"),
+                traffic=load_mix(entry["traffic"]),
                 cell=_json(HERE / "workloads" / f"{name}.json"),
                 end_to_end=_for_cell(bench["end_to_end"], name),
                 per_layer=_for_cell(bench["per_layer"], name))

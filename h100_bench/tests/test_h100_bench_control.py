@@ -1,7 +1,9 @@
 """The control of each cell comes out not correct: the reference one
 precision below the configuration's (float8 operands), at the cell's own
 size on the card, on three seeds; the program on the same seeds comes out
-correct. A cell across cards needs as many cards. (The port's own int8
+correct. A server cell judges the program's window and the control on the
+same requests the Engine served, none of which may fail. A cell across
+cards needs as many cards. (The port's own int8
 decoder-weight path reads too close to the program on both served-token
 numbers, the widest gap and the mean gap, for any limit to separate
 them, so it is no control here.) Needs the card:
@@ -47,6 +49,10 @@ def test_control_fails_and_the_program_passes(card, cell):
         if spec["traffic"]["kind"] == "serve":
             prog, _ = calibrate.serve_readings(spec, seed, 2.0, "program")
             control, _ = calibrate.serve_readings(spec, seed, 2.0, "fp8")
+        elif spec["traffic"]["kind"] == "server":
+            got, checked = calibrate.server_readings(spec, seed, 10.0, control=True)
+            assert checked["failed"] == 0, (seed, checked)
+            prog, control = got["program"], got["fp8"]
         else:
             got, _ = calibrate.train_readings(spec, seed, control=True, world=world)
             prog, control = got["program"], got["fp8"]

@@ -18,23 +18,32 @@ def _tiny(tiny_port):
     pass
 
 
-def _run(monkeypatch, cell, module, fault=None, **kw):
+def _run(monkeypatch, cell, module, fault=None, every_request=False, **kw):
+    """A tiny run of 0.3 s; ``every_request`` judges every request the
+    window completed, not a sample of three. A sound serving run does: how
+    many batches the CPU completes in 0.3 s moves with its load, and so
+    does the sample drawn from them, whose few tokens' mean gap one
+    near-tie at rounding (1.6e-3 at this size, seed and context) lifts
+    over the limit."""
     if fault:
         orig = module.port
         monkeypatch.setattr(module, "port", lambda: fault(orig()))
-    return runner.run_cell(tiny_spec(cell, **kw), SEED, 0.3, False, "cpu")
+    spec = tiny_spec(cell, **kw)
+    if every_request:
+        spec["cell"]["check_requests"] = 10 ** 6
+    return runner.run_cell(spec, SEED, 0.3, False, "cpu")
 
 
 def test_sound_serving_run_is_correct(monkeypatch):
-    assert _run(monkeypatch, "serve.base.en.biased32", serve)["correct"]
+    assert _run(monkeypatch, "serve.base.en.biased32", serve, every_request=True)["correct"]
 
 
 @pytest.mark.parametrize("context", [[4, 8], [0, 0]])
 def test_serving_mix_without_bias_words_runs_correct(monkeypatch, context):
     """A mix with no bias words (and no context) decodes with no bias
     spans at all."""
-    line = _run(monkeypatch, "serve.base.en.biased32", serve, bias_words=[0, 0],
-                context_tokens=context)
+    line = _run(monkeypatch, "serve.base.en.biased32", serve, every_request=True,
+                bias_words=[0, 0], context_tokens=context)
     assert line["correct"] and line["attempted"] > 0, line["checks"]
 
 
